@@ -1,0 +1,159 @@
+"""Network Signal-based Congestion Control (Sec. 3.3.1) — the port of
+``repro.core.cms.nscc``.
+
+Four cases on each arriving ACK (ECN x high/low RTT) plus Quick Adapt,
+as plain functions over per-flow [F] tensors. The f32 ``cwnd`` lane is
+held bitwise against the JAX engine, so the arithmetic keeps JAX's
+order and types: every Python-float constant acts as a weakly typed f32
+(torch likewise computes ``f32_tensor op python_float`` in f32), and no
+multiply-add is fused by hand.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, replace
+
+import torch
+
+
+@dataclass(frozen=True)
+class NSCCParams:
+    """Control-loop gains. Class-level defaults; tune via replace()."""
+
+    base_rtt: float = 8.0        # unloaded RTT estimate, ticks
+    target_factor: float = 1.25  # high/low RTT threshold = base_rtt * this
+    md: float = 0.65             # case-2 multiplicative decrease per ACK
+    quick_gain: float = 0.60     # case-3 increase gain (packets per ACK max)
+    ai: float = 1.0              # case-4 additive increase (pkts per cwnd ACKs)
+    min_cwnd: float = 1.0
+    max_cwnd: float = 64.0       # slightly above BDP; optimistic start value
+    qa_min_frac: float = 0.125   # QA floor as a fraction of max_cwnd
+
+
+@dataclass(frozen=True)
+class NSCCState:
+    """Per-CCC state (SoA over N contexts).
+
+    cwnd:        [N] float32 congestion window, packets
+    epoch_acked: [N] int32 packets delivered in current QA epoch
+    epoch_lost:  [N] int32 packets reported lost in current QA epoch
+    epoch_tick:  [N] int32 tick when the current QA epoch started
+    """
+
+    cwnd: torch.Tensor
+    epoch_acked: torch.Tensor
+    epoch_lost: torch.Tensor
+    epoch_tick: torch.Tensor
+
+    @staticmethod
+    def create(n: int, params: NSCCParams,
+               device: torch.device) -> "NSCCState":
+        # optimistic start: window at/near BDP (Sec. 3.3.3)
+        z = torch.zeros((n,), dtype=torch.int32, device=device)
+        return NSCCState(
+            cwnd=torch.full((n,), params.max_cwnd, dtype=torch.float32,
+                            device=device),
+            epoch_acked=z, epoch_lost=z.clone(), epoch_tick=z.clone())
+
+
+def window_delta(cwnd: torch.Tensor, ecn: torch.Tensor, rtt: torch.Tensor,
+                 params: NSCCParams) -> torch.Tensor:
+    """Per-ACK window adjustment (packets); the four-case core.
+
+    Every division is tensor by tensor: torch turns a division BY a
+    Python scalar into a multiply by its reciprocal on CUDA, and
+    ``scalar / tensor`` into ``reciprocal * scalar`` everywhere, either
+    of which can differ from JAX's correctly rounded f32 division in the
+    last bit."""
+    target = params.base_rtt * params.target_factor
+    target_t = torch.full_like(rtt, target)
+    high = rtt > target
+    # case 2: aggressive MD proportional to RTT excess, per incoming ACK
+    overload = ((rtt - target) / torch.clamp(rtt, min=1e-6)).clamp(0.0, 1.0)
+    dec = -params.md * overload
+    # case 3: quick increase guessing from measured vs expected RTT
+    gap = ((target - rtt) / target_t).clamp(0.0, 1.0)
+    quick = params.quick_gain * gap
+    # case 4: gentle additive increase (+ai per full window of ACKs)
+    gentle = torch.full_like(cwnd, params.ai) / torch.clamp(cwnd, min=1.0)
+    zero = torch.zeros_like(dec)
+    return torch.where(ecn, torch.where(high, dec, zero),
+                       torch.where(high, gentle, quick))
+
+
+def on_ack_per_flow(state: NSCCState, params: NSCCParams, ecn: torch.Tensor,
+                    rtt: torch.Tensor, active: torch.Tensor) -> NSCCState:
+    """One ACK per CCC per round (the fabric tick): elementwise update."""
+    delta = window_delta(state.cwnd, ecn, rtt.to(torch.float32), params)
+    cwnd = torch.where(active, state.cwnd + delta, state.cwnd)
+    return replace(
+        state,
+        cwnd=cwnd.clamp(params.min_cwnd, params.max_cwnd),
+        epoch_acked=state.epoch_acked + active.to(torch.int32),
+    )
+
+
+def on_loss_per_flow(state: NSCCState, count: torch.Tensor) -> NSCCState:
+    """count [N] losses per CCC, elementwise."""
+    return replace(state, epoch_lost=state.epoch_lost + count)
+
+
+def quick_adapt(state: NSCCState, params: NSCCParams, now: int) -> NSCCState:
+    """Once per RTT-epoch: if losses were seen, rescale cwnd to the
+    delivered fraction (Sec. 3.3.1 QA / SMaRTT)."""
+    epoch_len = int(params.base_rtt * params.target_factor)
+    due = (now - state.epoch_tick) >= epoch_len
+    delivered = state.epoch_acked.to(torch.float32)
+    lost = state.epoch_lost.to(torch.float32)
+    frac = delivered / torch.clamp(delivered + lost, min=1.0)
+    lossy = due & (state.epoch_lost > 0)
+    new_cwnd = torch.where(
+        lossy,
+        (state.cwnd * frac).clamp(params.qa_min_frac * params.max_cwnd,
+                                  params.max_cwnd),
+        state.cwnd)
+    return NSCCState(
+        cwnd=torch.clamp(new_cwnd, min=params.min_cwnd),
+        epoch_acked=torch.where(due, 0, state.epoch_acked),
+        epoch_lost=torch.where(due, 0, state.epoch_lost),
+        epoch_tick=torch.where(due, now, state.epoch_tick),
+    )
+
+
+@dataclass(frozen=True)
+class NSCCPolicy:
+    """NSCC as the fabric engine's CC policy: per-tick hooks over
+    densified [F] lanes (the protocol of ``repro_torch.network.profile``).
+    Only the hooks the NSCC composition acts on do work; the rest return
+    the state unchanged."""
+
+    params: NSCCParams
+
+    def create(self, f: int, device: torch.device) -> NSCCState:
+        return NSCCState.create(f, self.params, device)
+
+    def on_ack(self, st: NSCCState, has_ack, ecn, rtt) -> NSCCState:
+        return on_ack_per_flow(st, self.params, ecn, rtt, has_ack)
+
+    def on_nack(self, st: NSCCState, count) -> NSCCState:
+        return on_loss_per_flow(st, count)
+
+    def on_grant_tick(self, st, flow_dst, active, num_hosts):
+        return st  # sender-based: no receiver scheduling round
+
+    def on_send_gate(self, st: NSCCState, inflight) -> torch.Tensor:
+        return inflight < torch.floor(st.cwnd).to(torch.int32)
+
+    def on_inject(self, st, injected):
+        return st  # window-based: nothing to spend per packet
+
+    def on_rx_seen(self, st, seen):
+        return st
+
+    def on_timeout(self, st: NSCCState, stalled) -> NSCCState:
+        return on_loss_per_flow(st, stalled.to(torch.int32))
+
+    def end_of_tick(self, st: NSCCState, tick: int) -> NSCCState:
+        return quick_adapt(st, self.params, tick)
+
+    def cwnd_view(self, st: NSCCState, f: int) -> torch.Tensor:
+        return st.cwnd

@@ -1,0 +1,173 @@
+"""Bitwise parity of the port's transport policies with the reference:
+the NSCC hooks and Quick Adapt (the f32 ``cwnd`` lane included), LB
+selection and feedback for OBLIVIOUS and REPS (plus STATIC), the named
+profiles, and the not-yet-ported compositions raising.
+"""
+from dataclasses import fields, replace
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.cms import nscc as jnscc
+from repro.core.lb import schemes as jlb
+from repro.network import profile as jprof
+from repro_torch.core.cms import nscc
+from repro_torch.core.lb import schemes as lb
+from repro_torch.network import profile
+
+RNG = np.random.default_rng(4242)
+F = 1024
+
+
+def _t(a):
+    a = np.array(a)
+    return torch.as_tensor(a.view(np.int32) if a.dtype == np.uint32 else a)
+
+
+def _same(got, want, name=""):
+    g = np.ascontiguousarray(got.numpy())
+    want = np.ascontiguousarray(want)
+    if want.dtype == np.uint32:
+        g = g.view(np.uint32)
+    assert g.dtype == want.dtype, (name, g.dtype, want.dtype)
+    # bitwise, floats included (compare the bit patterns)
+    np.testing.assert_array_equal(g.view(np.uint8), want.view(np.uint8),
+                                  err_msg=name)
+
+
+def _same_dc(got, want):
+    for f in fields(got):
+        _same(getattr(got, f.name), getattr(want, f.name), f.name)
+
+
+def _nscc_lanes():
+    cwnd = RNG.uniform(0.5, 50.0, F).astype(np.float32)
+    cwnd[:4] = [1.0, 48.0, 0.25, 6.0]
+    rtt = np.round(RNG.uniform(0.0, 80.0, F), 1).astype(np.float32)
+    rtt[F // 2:] = RNG.uniform(0.0, 80.0, F - F // 2)
+    rtt[:6] = [0.0, 12.5, 10.0, 1e-7, 12.500001, 256.0]
+    ecn = RNG.integers(0, 2, F).astype(bool)
+    active = RNG.integers(0, 2, F).astype(bool)
+    acked = RNG.integers(0, 30, F).astype(np.int32)
+    lost = np.where(RNG.random(F) < 0.5, 0, RNG.integers(0, 9, F)).astype(
+        np.int32)
+    etick = RNG.integers(0, 60, F).astype(np.int32)
+    return cwnd, rtt, ecn, active, acked, lost, etick
+
+
+PARAMS = [(dict(base_rtt=10.0, max_cwnd=48.0)), dict(),
+          dict(base_rtt=20.0, md=0.3, quick_gain=1.5, ai=0.7,
+               max_cwnd=128.0)]
+
+
+@pytest.mark.parametrize("kw", PARAMS)
+def test_nscc_hooks_bitwise(kw):
+    cwnd, rtt, ecn, active, acked, lost, etick = _nscc_lanes()
+    jp, tp = jnscc.NSCCParams(**kw), nscc.NSCCParams(**kw)
+    _same(nscc.window_delta(_t(cwnd), _t(ecn), _t(rtt), tp),
+          jnscc.window_delta(jnp.asarray(cwnd), jnp.asarray(ecn),
+                             jnp.asarray(rtt), jp), "window_delta")
+    js = jnscc.NSCCState(jnp.asarray(cwnd), jnp.asarray(acked),
+                         jnp.asarray(lost), jnp.asarray(etick))
+    ts = nscc.NSCCState(_t(cwnd), _t(acked), _t(lost), _t(etick))
+    jpol, tpol = jnscc.NSCCPolicy(jp), nscc.NSCCPolicy(tp)
+    j1 = jpol.on_ack(js, jnp.asarray(active), jnp.asarray(ecn),
+                     jnp.asarray(rtt))
+    t1 = tpol.on_ack(ts, _t(active), _t(ecn), _t(rtt))
+    _same_dc(t1, j1)
+    count = RNG.integers(0, 4, F).astype(np.int32)
+    j2, t2 = jpol.on_nack(j1, jnp.asarray(count)), tpol.on_nack(t1, _t(count))
+    _same_dc(t2, j2)
+    stalled = RNG.integers(0, 2, F).astype(bool)
+    j3 = jpol.on_timeout(j2, jnp.asarray(stalled))
+    t3 = tpol.on_timeout(t2, _t(stalled))
+    _same_dc(t3, j3)
+    for now in (0, 11, 12, 57):
+        _same_dc(tpol.end_of_tick(t3, now),
+                 jpol.end_of_tick(j3, jnp.int32(now)))
+    inflight = RNG.integers(0, 60, F).astype(np.int32)
+    _same(tpol.on_send_gate(t3, _t(inflight)),
+          jpol.on_send_gate(j3, jnp.asarray(inflight)))
+    _same(tpol.cwnd_view(t3, F), jpol.cwnd_view(j3, F))
+
+
+# --------------------------------------------------------------- LB ------
+
+SEEDS = [0x5EED, 0x5EED + 3, 0, 0xFFFFFFFF, 0x9E3779B1]
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_lb_state_create(seed):
+    _same_dc(lb.LBState.create(F, 16, seed, "cpu"),
+             jlb.LBState.create(F, 16, np.uint32(seed)))
+
+
+def _random_lb(seed):
+    """Matching LB states with a partly filled REPS recycle ring."""
+    js = jlb.LBState.create(F, 16, np.uint32(seed))
+    ring = RNG.integers(-1, 2 ** 16, (F, 16)).astype(np.int32)
+    head = RNG.integers(0, 40, F).astype(np.int32)
+    size = RNG.integers(0, 17, F).astype(np.int32)
+    js = replace(js, reps_ring=jnp.asarray(ring), reps_head=jnp.asarray(head),
+                 reps_size=jnp.asarray(size))
+    ts = lb.LBState(*(_t(np.asarray(getattr(js, f.name)))
+                      for f in fields(js)))
+    return js, ts
+
+
+@pytest.mark.parametrize("scheme", ["STATIC", "OBLIVIOUS", "REPS"])
+@pytest.mark.parametrize("seed", SEEDS[:3])
+def test_lb_select_and_feedback(scheme, seed):
+    js, ts = _random_lb(seed)
+    jpol = jlb.LBPolicy(jlb.LBScheme[scheme])
+    tpol = lb.LBPolicy(lb.LBScheme[scheme])
+    psn = RNG.integers(0, 2 ** 32, F, dtype=np.uint64).astype(np.uint32)
+    for tick in (0, 7, 2 ** 23 + 5, 2 ** 31 - 1):
+        jn, jev = jpol.select(js, jnp.asarray(psn), jnp.int32(tick))
+        tn, tev = tpol.select(ts, _t(psn).clone(), tick)
+        _same(tev, jev, "ev")
+        _same_dc(tn, jn)
+    # ACK feedback over E lanes, <= 1 ACK lane per flow
+    E = 3 * F
+    ef = RNG.permutation(E).astype(np.int32) % (F + 17) - 3
+    et = RNG.integers(0, 4, E).astype(np.int32)
+    ee = RNG.integers(0, 2 ** 16, E).astype(np.int32)
+    ec = RNG.integers(0, 2, E).astype(np.int32)
+    is_ack, is_nack = et == 1, (et == 2) | (et == 3)
+    flows = np.arange(F)
+    hot = (ef[None, :] == flows[:, None]) & is_ack[None, :]
+    hot &= np.cumsum(hot, axis=1) == 1          # the first ACK lane only
+    _same_dc(tpol.on_ack(ts, _t(hot), _t(ef), _t(ee), _t(ec), _t(is_ack),
+                         _t(is_nack)),
+             jpol.on_ack(js, jnp.asarray(hot), jnp.asarray(ef),
+                         jnp.asarray(ee), jnp.asarray(ec),
+                         jnp.asarray(is_ack), jnp.asarray(is_nack)))
+
+
+# --------------------------------------------------------- profiles -----
+
+@pytest.mark.parametrize("name", ["ai_base", "ai_full", "hpc", "resilient"])
+def test_named_profiles_match(name):
+    a, b = getattr(profile.TransportProfile, name)(), \
+        getattr(jprof.TransportProfile, name)()
+    for f in fields(b):
+        va, vb = getattr(a, f.name), getattr(b, f.name)
+        assert (int(va) if hasattr(va, "value") else va) == \
+            (int(vb) if hasattr(vb, "value") else vb), f.name
+    np.testing.assert_array_equal(a.delivery_modes(5), b.delivery_modes(5))
+
+
+@pytest.mark.parametrize("cc", ["RCCC", "NSCC_AND_RCCC", "NONE"])
+def test_unported_cc_raises(cc):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        profile.make_cc_policy(profile.CCAlgo[cc], nscc.NSCCParams(), 48.0)
+
+
+@pytest.mark.parametrize("scheme", ["RR_SLOTS", "EVBITMAP"])
+def test_unported_lb_raises(scheme):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        lb.LBPolicy(lb.LBScheme[scheme])
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        lb.LBPolicy(lb.LBScheme.OBLIVIOUS, evict_enabled=True)
