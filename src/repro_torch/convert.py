@@ -7,6 +7,10 @@ module turns such a dict into the port's dataclasses on a device and
 back. uint32 lanes become int32 bit patterns (``np.ndarray.view``) on the
 way in and uint32 again on the way out, so a round trip is bitwise.
 
+The CC state takes the form of the profile's policy: NSCC's and RCCC's
+lanes, the hybrid's ``{"nscc": ..., "rccc": ...}`` dict, or the open
+loop's empty [0] int32 placeholder; each is recognised by its keys.
+
 Lanes of features this slice does not port must be inert in the
 incoming dict (zero-size, zero, False or never-failing); otherwise the
 conversion raises ``NotImplementedError`` instead of dropping state.
@@ -19,6 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.cms.nscc import NSCCState
+from repro_torch.core.cms.rccc import RCCCState
 from repro_torch.core.lb.schemes import LBState
 from repro_torch.core.pds import PSNTracker
 from repro_torch.core.types import NEVER_TICK
@@ -32,13 +37,13 @@ U32_LANES = frozenset(
     + ["rtx", "lb.salt"])
 
 #: reference SimState lanes the port does not carry: each must be inert
-_INERT_STATE = ("inc", "inc_reduced", "inc_emits", "rod_rejects",
-                "ev_evictions", "rto_strikes", "quarantined",
+_INERT_STATE = ("inc", "inc_reduced", "inc_emits", "ev_evictions", "rto_strikes", "quarantined",
                 "flows_abandoned", "ticks_unreachable", "llr_busy_until",
                 "llr_replays", "cbfc_consumed", "cbfc_freed", "cbfc_ret",
                 "credit_stall_ticks")
 _NESTED = {"src_track": PSNTracker, "dst_track": PSNTracker,
-           "cc": NSCCState, "lb": LBState}
+           "lb": LBState}
+_CC_STATES = (NSCCState, RCCCState)
 
 
 def _leaves(d, prefix=""):
@@ -67,28 +72,48 @@ def _to_tensor(a, path: str, device) -> torch.Tensor:
     return torch.as_tensor(a).to(device)
 
 
+def _cc_state(d, device, prefix="cc."):
+    """The port's CC state from the reference's, by its form."""
+    if not isinstance(d, dict):
+        a = np.asarray(d)
+        if a.shape != (0,):
+            raise ValueError(f"unrecognised CC state lane of shape "
+                             f"{a.shape}")
+        return torch.zeros((0,), dtype=torch.int32, device=device)
+    if set(d) == {"nscc", "rccc"}:
+        return {k: _cc_state(d[k], device, f"{prefix}{k}.")
+                for k in ("nscc", "rccc")}
+    for cls in _CC_STATES:
+        if set(d) == {f.name for f in fields(cls)}:
+            return _build(cls, d, device, prefix)
+    raise ValueError(f"unrecognised CC state with keys {sorted(d)}")
+
+
 def _build(cls, d: dict, device, prefix=""):
     vals = {}
     for f in fields(cls):
         sub = _NESTED.get(f.name) if not prefix else None
         if sub is not None:
             vals[f.name] = _build(sub, d[f.name], device, f"{f.name}.")
+        elif f.name == "cc" and not prefix:
+            vals[f.name] = _cc_state(d[f.name], device)
         else:
             vals[f.name] = _to_tensor(d[f.name], prefix + f.name, device)
     return cls(**vals)
 
 
+def _leaf_to_numpy(v, path: str):
+    if is_dataclass(v):
+        return _to_numpy(v, f"{path}.")
+    if isinstance(v, dict):
+        return {k: _leaf_to_numpy(x, f"{path}.{k}") for k, x in v.items()}
+    a = v.detach().cpu().numpy()
+    return a.view(np.uint32) if path in U32_LANES else a
+
+
 def _to_numpy(obj, prefix="") -> dict:
-    out = {}
-    for f in fields(obj):
-        v = getattr(obj, f.name)
-        if is_dataclass(v):
-            out[f.name] = _to_numpy(v, f"{prefix}{f.name}.")
-        else:
-            a = v.detach().cpu().numpy()
-            out[f.name] = a.view(np.uint32) if (prefix + f.name) in U32_LANES \
-                else a
-    return out
+    return {f.name: _leaf_to_numpy(getattr(obj, f.name), prefix + f.name)
+            for f in fields(obj)}
 
 
 def state_from_numpy(d: dict, device) -> SimState:

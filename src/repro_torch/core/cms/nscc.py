@@ -7,6 +7,18 @@ held bitwise against the JAX engine, so the arithmetic keeps JAX's
 order and types: every Python-float constant acts as a weakly typed f32
 (torch likewise computes ``f32_tensor op python_float`` in f32), and no
 multiply-add is fused by hand.
+
+One division has two forms. The reference runs its tick under
+``jax.jit``, and XLA's algebraic simplifier rewrites the quick-increase
+gap's division by the constant target, ``(target - rtt) / target``, into
+a multiply by the target's f32 reciprocal, folded at compile time; the
+same functions run eagerly (the kernel oracle, the reference's unit
+calls) divide exactly. The two differ in the last bit for some RTTs
+(``(12.5 - 10) / 12.5`` is 0.2, ``2.5 * f32(0.08)`` is 0.19999999).
+``on_ack_per_flow`` — what the port's tick calls through ``NSCCPolicy``
+— always takes the folded form, so the ``cwnd`` lane stays bitwise with
+the reference engine; ``window_delta`` takes the exact one by default
+(``folded_reciprocal``), as the kernel oracle ``nscc_update_ref`` needs.
 """
 from __future__ import annotations
 
@@ -55,23 +67,33 @@ class NSCCState:
             epoch_acked=z, epoch_lost=z.clone(), epoch_tick=z.clone())
 
 
+def _f32_reciprocal(x: float) -> float:
+    """The f32 reciprocal of f32(x), as XLA folds ``1 / constant``."""
+    one = torch.ones((), dtype=torch.float32)
+    return float(one / torch.tensor(x, dtype=torch.float32))
+
+
 def window_delta(cwnd: torch.Tensor, ecn: torch.Tensor, rtt: torch.Tensor,
-                 params: NSCCParams) -> torch.Tensor:
+                 params: NSCCParams,
+                 folded_reciprocal: bool = False) -> torch.Tensor:
     """Per-ACK window adjustment (packets); the four-case core.
 
     Every division is tensor by tensor: torch turns a division BY a
     Python scalar into a multiply by its reciprocal on CUDA, and
     ``scalar / tensor`` into ``reciprocal * scalar`` everywhere, either
     of which can differ from JAX's correctly rounded f32 division in the
-    last bit."""
+    last bit. ``folded_reciprocal`` computes the gap as the reference's
+    compiled tick does (module docstring)."""
     target = params.base_rtt * params.target_factor
-    target_t = torch.full_like(rtt, target)
     high = rtt > target
     # case 2: aggressive MD proportional to RTT excess, per incoming ACK
     overload = ((rtt - target) / torch.clamp(rtt, min=1e-6)).clamp(0.0, 1.0)
     dec = -params.md * overload
     # case 3: quick increase guessing from measured vs expected RTT
-    gap = ((target - rtt) / target_t).clamp(0.0, 1.0)
+    if folded_reciprocal:
+        gap = ((target - rtt) * _f32_reciprocal(target)).clamp(0.0, 1.0)
+    else:
+        gap = ((target - rtt) / torch.full_like(rtt, target)).clamp(0.0, 1.0)
     quick = params.quick_gain * gap
     # case 4: gentle additive increase (+ai per full window of ACKs)
     gentle = torch.full_like(cwnd, params.ai) / torch.clamp(cwnd, min=1.0)
@@ -82,8 +104,10 @@ def window_delta(cwnd: torch.Tensor, ecn: torch.Tensor, rtt: torch.Tensor,
 
 def on_ack_per_flow(state: NSCCState, params: NSCCParams, ecn: torch.Tensor,
                     rtt: torch.Tensor, active: torch.Tensor) -> NSCCState:
-    """One ACK per CCC per round (the fabric tick): elementwise update."""
-    delta = window_delta(state.cwnd, ecn, rtt.to(torch.float32), params)
+    """One ACK per CCC per round (the fabric tick): elementwise update,
+    with the gap in the compiled tick's folded form (module docstring)."""
+    delta = window_delta(state.cwnd, ecn, rtt.to(torch.float32), params,
+                         folded_reciprocal=True)
     cwnd = torch.where(active, state.cwnd + delta, state.cwnd)
     return replace(
         state,
@@ -124,7 +148,8 @@ class NSCCPolicy:
     """NSCC as the fabric engine's CC policy: per-tick hooks over
     densified [F] lanes (the protocol of ``repro_torch.network.profile``).
     Only the hooks the NSCC composition acts on do work; the rest return
-    the state unchanged."""
+    the state unchanged. Its arithmetic is the reference's compiled tick
+    (module docstring)."""
 
     params: NSCCParams
 

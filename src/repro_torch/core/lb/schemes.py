@@ -1,10 +1,11 @@
 """Entropy-Value load balancing schemes (Sec. 2.1, 3.3.5) — the port of
 ``repro.core.lb.schemes``.
 
-This slice ports STATIC, OBLIVIOUS and REPS selection and the REPS
-recycle feedback. RR_SLOTS, EVBITMAP and EV eviction raise
-``NotImplementedError`` (ROADMAP.md, "Modules to port" item 4).
-All uint32 lanes are int32 bit patterns (see ``repro_torch._u32``).
+Every scheme is ported: STATIC, OBLIVIOUS, RR_SLOTS, REPS (with its
+recycle feedback) and EVBITMAP (with its congestion-bit feedback). EV
+eviction (the blacklist ring and ``LBPolicy.evict``) raises
+``NotImplementedError`` (ROADMAP.md, "Modules to port" item 6). All
+uint32 lanes are int32 bit patterns (see ``repro_torch._u32``).
 """
 from __future__ import annotations
 
@@ -16,19 +17,12 @@ import torch
 from repro_torch._u32 import c32, shr, umod
 from repro_torch.core.types import EV_SPACE
 
-_NOT_PORTED = ("LB scheme {} is not ported yet (ROADMAP.md, 'Modules to "
-               "port' item 4: the tick's named profiles)")
-
-
 class LBScheme(enum.IntEnum):
     STATIC = 0
     OBLIVIOUS = 1
     RR_SLOTS = 2
     REPS = 3
     EVBITMAP = 4
-
-
-PORTED_SCHEMES = (LBScheme.STATIC, LBScheme.OBLIVIOUS, LBScheme.REPS)
 
 
 def _mix32(x: torch.Tensor) -> torch.Tensor:
@@ -88,13 +82,17 @@ def select_ev(state: LBState, scheme: LBScheme, psn: torch.Tensor,
     ev [F] int32); the caller keeps the new state lanes only where a
     packet was actually injected.
     """
-    K = state.ev_set.shape[1]
+    F, K = state.ev_set.shape
     if scheme == LBScheme.STATIC:
         return state, state.ev_set[:, 0]
     if scheme == LBScheme.OBLIVIOUS:
         t8 = c32((int(tick) << 8) & 0xFFFFFFFF)
         ev = umod(_mix32(state.salt ^ _mix32(psn + t8)), EV_SPACE)
         return state, ev
+    if scheme == LBScheme.RR_SLOTS:
+        # slot i carries PSNs i, i+K, i+2K... (psn as int32, floor mod)
+        slot = psn % K
+        return state, state.ev_set.gather(1, slot[:, None].long())[:, 0]
     if scheme == LBScheme.REPS:
         has = state.reps_size > 0
         pos = state.reps_head % K
@@ -110,7 +108,19 @@ def select_ev(state: LBState, scheme: LBScheme, psn: torch.Tensor,
                                   state.reps_head),
             reps_size=torch.where(has, state.reps_size - 1, state.reps_size),
         ), ev
-    raise NotImplementedError(_NOT_PORTED.format(LBScheme(scheme).name))
+    if scheme != LBScheme.EVBITMAP:
+        raise ValueError(f"unknown LB scheme: {scheme!r}")
+    # EVBITMAP: advance the pointer, skipping (and clearing) a congested
+    # slot — one skip per selection (the spec's skip-then-unset rounds)
+    ptr = state.rr_ptr % K
+    congested = state.cong_bits.gather(1, ptr[:, None].long())[:, 0]
+    use = torch.where(congested, (ptr + 1) % K, ptr)
+    ev = state.ev_set.gather(1, use[:, None].long())[:, 0]
+    # clear the skipped bit so the slot is retried next round
+    skipped = ((torch.arange(K, device=ptr.device)[None, :] == ptr[:, None])
+               & congested[:, None])
+    return replace(state, rr_ptr=(use + 1) % K,
+                   cong_bits=state.cong_bits & ~skipped), ev
 
 
 def _pick_lane(hot: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
@@ -134,6 +144,44 @@ def reps_recycle(state: LBState, ev: torch.Tensor,
     )
 
 
+def _rows(flow: torch.Tensor, n: int) -> torch.Tensor:
+    """Row indices under JAX's rules: a negative index counts from the
+    end (the caller clamps a gather or drops a scatter beyond that)."""
+    return torch.where(flow < 0, flow + n, flow)
+
+
+def on_ack(state: LBState, scheme: LBScheme, flow: torch.Tensor,
+           ev: torch.Tensor, congested: torch.Tensor,
+           valid: torch.Tensor) -> LBState:
+    """Feed ACK/NACK path feedback back into the scheme, lane-wise.
+
+    flow, ev: [B] int32; congested: [B] bool (ECN-CE marked ACK or trim
+    NACK); valid: [B] lane mask. EVBITMAP marks the slot whose EV saw
+    congestion: an OR over lanes that may repeat a flow, written as an
+    integer count per (flow, slot) (``index_add_``, exact and
+    order-free) then ``> 0`` — torch has no boolean scatter-max. REPS
+    feedback on this lane-wise path is not ported (its ring write is a
+    duplicate-order-dependent scatter); the fabric tick uses the dense
+    :func:`reps_recycle`. Other schemes take no feedback.
+    """
+    F, K = state.ev_set.shape
+    if scheme == LBScheme.EVBITMAP:
+        safe = _rows(torch.where(valid, flow, 0), F).clamp(0, F - 1)
+        hit = ((state.ev_set[safe.long()] == ev[:, None])
+               & congested[:, None] & valid[:, None])
+        r = _rows(flow, F)
+        rows = torch.where(valid & (r >= 0) & (r < F), r, F).long()
+        plane = torch.zeros((F + 1, K), dtype=torch.int32,
+                            device=flow.device)
+        plane.index_add_(0, rows, hit.to(torch.int32))
+        return replace(state, cong_bits=state.cong_bits | (plane[:F] > 0))
+    if scheme == LBScheme.REPS:
+        raise NotImplementedError(
+            "lane-wise REPS feedback is not ported (the fabric tick uses "
+            "reps_recycle); see ROADMAP.md 'Modules to port' item 2")
+    return state
+
+
 @dataclass(frozen=True)
 class LBPolicy:
     """One LB scheme as the fabric engine's pluggable policy: ``on_ack``
@@ -143,8 +191,6 @@ class LBPolicy:
     evict_enabled: bool = False
 
     def __post_init__(self):
-        if self.scheme not in PORTED_SCHEMES:
-            raise NotImplementedError(_NOT_PORTED.format(self.scheme.name))
         if self.evict_enabled:
             raise NotImplementedError(
                 "EV eviction is not ported yet (ROADMAP.md, 'Modules to "
@@ -161,8 +207,20 @@ class LBPolicy:
                 hot_clean = hot_clean & flow_ok[:, None]
             return reps_recycle(st, _pick_lane(hot_clean, ee),
                                 hot_clean.any(dim=1))
-        return st  # STATIC / OBLIVIOUS take no path feedback
+        if self.scheme == LBScheme.EVBITMAP:
+            valid = is_ack | is_nack
+            if flow_ok is not None:
+                f = flow_ok.shape[0]
+                at = _rows(torch.where(valid, ef, 0), f).clamp(0, f - 1)
+                valid = valid & flow_ok[at.long()]
+            return on_ack(st, self.scheme, ef, ee, (ec != 0) | is_nack,
+                          valid)
+        return st  # STATIC / OBLIVIOUS / RR_SLOTS take no path feedback
 
     def select(self, st: LBState, psn: torch.Tensor,
                tick: int) -> "tuple[LBState, torch.Tensor]":
         return select_ev(st, self.scheme, psn, tick)
+
+    def static_ev(self, st: LBState) -> torch.Tensor:
+        """The flow's pinned single-path EV (ROD lanes)."""
+        return st.ev_set[:, 0]

@@ -26,8 +26,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
 #: library -> {C function: argtypes}; every pointer and the stream are
-#: c_void_p, every size c_int, every return a CUDA error code
+#: c_void_p, every size c_int (c_longlong for a flat lane count), every
+#: constant of the arithmetic c_float, every return a CUDA error code
 SIGNATURES = {
     "sack": {
         "sack_advance_launch": (_P, _P, _P, _P, _P, _I, _I, _P),
@@ -35,6 +38,12 @@ SIGNATURES = {
     },
     "nack_mark": {
         "nack_mark_launch": (_P, _P, _P, _P, _I, _I, _I, _P),
+    },
+    "nscc_update": {
+        "nscc_update_launch": (_P, _P, _P, _P, _P, _L) + (_F,) * 7 + (_P,),
+    },
+    "ecmp_hash": {
+        "ecmp_select_launch": (_P, _P, _P, _P, _P, _L, _I, _P),
     },
 }
 

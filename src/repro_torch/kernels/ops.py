@@ -1,5 +1,7 @@
-"""Dispatch for the fabric tick's kernels (the port of
-``repro.kernels.ops``).
+"""Dispatch for the port's five kernels (the port of
+``repro.kernels.ops``): the fabric tick's ``sack_fused``, ``nack_mark``
+and ``sack_advance``, and the batched ``nscc_update`` and
+``ecmp_select``.
 
 A CPU tensor goes to the plain PyTorch version in ``ref.py``; a CUDA
 tensor goes to the hand-written CUDA kernel (``csrc/``, built by
@@ -15,9 +17,11 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.cms.nscc import NSCCParams
 from repro_torch.kernels import build, ref
 
-LAUNCHES = {"sack_fused": 0, "nack_mark": 0, "sack_advance": 0}
+LAUNCHES = {"sack_fused": 0, "nack_mark": 0, "sack_advance": 0,
+            "nscc_update": 0, "ecmp_select": 0}
 
 MAX_WORDS = 32  # one warp per ring row: W <= 32 words (mp_range <= 1024)
 
@@ -133,6 +137,62 @@ def nack_mark_cuda(rtx: torch.Tensor, flow: torch.Tensor, off: torch.Tensor,
     return out
 
 
+def _lanes(t: torch.Tensor) -> int:
+    return int(t.shape[0]) if t.dim() == 1 else -1
+
+
+def nscc_update_cuda(cwnd: torch.Tensor, ecn: torch.Tensor, rtt: torch.Tensor,
+                     count: torch.Tensor,
+                     params: NSCCParams = NSCCParams()) -> torch.Tensor:
+    """CUDA kernel: batched NSCC window update of [N] windows (ecn bool)."""
+    _on_cuda(cwnd, ecn, rtt, count)
+    n = _lanes(cwnd)
+    _require("cwnd", cwnd, torch.float32, (n,))
+    _require("ecn", ecn, torch.bool, (n,))
+    _require("rtt", rtt, torch.float32, (n,))
+    _require("count", count, torch.int32, (n,))
+    out = torch.empty_like(cwnd)
+    if n:
+        # each constant rounded to f32 once, from the Python double, as
+        # JAX and PyTorch round a Python scalar against an f32 tensor
+        consts = (params.base_rtt * params.target_factor, -params.md,
+                  params.quick_gain, params.ai, 1e-6, params.min_cwnd,
+                  params.max_cwnd)
+        with torch.cuda.device(cwnd.device):
+            lib = build.load("nscc_update")
+            _check(lib.nscc_update_launch(
+                cwnd.data_ptr(), ecn.data_ptr(), rtt.data_ptr(),
+                count.data_ptr(), out.data_ptr(), n, *consts,
+                _stream(cwnd)), "nscc_update")
+        LAUNCHES["nscc_update"] += 1
+    return out
+
+
+def ecmp_select_cuda(src: torch.Tensor, dst: torch.Tensor, ev: torch.Tensor,
+                     salt: torch.Tensor, fanout: int) -> torch.Tensor:
+    """CUDA kernel: ECMP port choice of [N] packet lanes, in [0, fanout)."""
+    _on_cuda(src, dst, ev, salt)
+    _check_fanout(fanout)
+    n = _lanes(src)
+    for name, t in (("src", src), ("dst", dst), ("ev", ev), ("salt", salt)):
+        _require(name, t, torch.int32, (n,))
+    out = torch.empty_like(src)
+    if n:
+        with torch.cuda.device(src.device):
+            lib = build.load("ecmp_hash")
+            _check(lib.ecmp_select_launch(
+                src.data_ptr(), dst.data_ptr(), ev.data_ptr(),
+                salt.data_ptr(), out.data_ptr(), n, int(fanout),
+                _stream(src)), "ecmp_select")
+        LAUNCHES["ecmp_select"] += 1
+    return out
+
+
+def _check_fanout(fanout: int) -> None:
+    if not 1 <= int(fanout) < 2 ** 31:
+        raise ValueError(f"fanout must be in [1, 2**31), got {fanout}")
+
+
 # ------------------------------------------------------------ dispatch --
 
 def sack_advance(ring, base):
@@ -155,3 +215,26 @@ def nack_mark(rtx, flow, off, valid):
     if _on_cuda(rtx, flow, off, valid):
         return nack_mark_cuda(rtx, flow, off, valid)
     return ref.nack_mark_ref(rtx, flow, off, valid)
+
+
+def nscc_update(cwnd, ecn, rtt, count, params: NSCCParams = NSCCParams()):
+    """Batched NSCC window update (Sec. 3.3.1) of [N] windows; ``ecn`` is
+    bool or integer (nonzero = ECN-CE)."""
+    if ecn.dtype != torch.bool:
+        ecn = ecn != 0
+    if _on_cuda(cwnd, ecn, rtt, count):
+        return nscc_update_cuda(cwnd, ecn, rtt, count, params)
+    return ref.nscc_update_ref(cwnd, ecn, rtt, count, params)
+
+
+def ecmp_select(src, dst, ev, salt, fanout: int):
+    """ECMP port choice (Sec. 2.1): [N] int32 in [0, fanout). The four
+    lanes are int32 tensors (uint32 as bit patterns); ``fanout >= 1``."""
+    _check_fanout(fanout)
+    for name, t in (("src", src), ("dst", dst), ("ev", ev), ("salt", salt)):
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name} must be torch.int32 (uint32 lanes as "
+                            f"bit patterns), got {t.dtype}")
+    if _on_cuda(src, dst, ev, salt):
+        return ecmp_select_cuda(src, dst, ev, salt, fanout)
+    return ref.ecmp_hash_ref(src, dst, ev, salt, fanout)

@@ -1,15 +1,43 @@
-"""Plain PyTorch versions of the fabric tick's three kernels.
+"""Plain PyTorch versions of the port's five kernels: the fabric tick's
+three (SACK advance, fused SACK, NACK marking) and the batched NSCC
+window update and ECMP port selection.
 
 These run for CPU tensors (the tests) and are what ``chip_smoke.py``
-holds each CUDA kernel against on the card, bit for bit. All rings are
-[N, W] uint32 lanes stored as int32 bit patterns (``repro_torch._u32``).
+holds each CUDA kernel against on the card, bit for bit. All rings and
+hash lanes are uint32 lanes stored as int32 bit patterns
+(``repro_torch._u32``).
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch._u32 import from_u64
+from repro_torch._u32 import from_u64, umod
+from repro_torch.core.cms.nscc import NSCCParams, window_delta
 from repro_torch.core.pds import shift_ring, trailing_ones
+from repro_torch.network.ecmp import ecmp_hash
+
+
+def nscc_update_ref(cwnd: torch.Tensor, ecn: torch.Tensor, rtt: torch.Tensor,
+                    count: torch.Tensor, params: NSCCParams) -> torch.Tensor:
+    """Batched NSCC window update (Sec. 3.3.1): the four-case delta of
+    each window times its coalesced ACK count, applied where count > 0,
+    clipped to [min_cwnd, max_cwnd].
+
+    cwnd/rtt: [N] float32; ecn: [N] bool (or integer, nonzero = marked);
+    count: [N] int32. Returns [N] float32.
+    """
+    if ecn.dtype != torch.bool:
+        ecn = ecn != 0
+    delta = window_delta(cwnd, ecn, rtt, params) * count.to(torch.float32)
+    out = torch.where(count > 0, cwnd + delta, cwnd)
+    return out.clamp(params.min_cwnd, params.max_cwnd)
+
+
+def ecmp_hash_ref(src: torch.Tensor, dst: torch.Tensor, ev: torch.Tensor,
+                  salt: torch.Tensor, fanout: int) -> torch.Tensor:
+    """Batched ECMP port selection (Sec. 2.1): H(src, dst, ev, salt) mod
+    fanout over [N] int32 lanes (uint32 patterns), as int32."""
+    return umod(ecmp_hash(src, dst, ev, salt), fanout)
 
 
 def sack_advance_ref(ring: torch.Tensor, base: torch.Tensor):

@@ -16,11 +16,15 @@ PSNs into the retransmit ring) and ``sack_advance`` (section 5, receiver
 CACK). On CUDA tensors they are hand-written CUDA; on CPU tensors their
 plain PyTorch versions.
 
-This slice ports the default statics only: ``ai_full``-style
-compositions (NSCC, STATIC/OBLIVIOUS/REPS, RUD/RUDI delivery) with link
-outages. Every other static raises ``NotImplementedError`` naming its
-ROADMAP.md item. uint32 lanes are int32 bit patterns (``_u32``); JAX's
-clamped gathers and dropped scatters are written out as clamps and masks.
+Every profile of the paper's table runs: each CC composition (NSCC,
+RCCC, their hybrid, open loop), every LB scheme (STATIC, OBLIVIOUS,
+RR_SLOTS with its EV-based loss inference, REPS, EVBITMAP) and per-flow
+RUD / ROD / RUDI delivery (ROD is go-back-N on one static path), with
+link outages. The fault-engine statics (gray loss, host faults,
+corruption, RTO backoff, EV eviction, PDC teardown), INC, the link layer
+and telemetry raise ``NotImplementedError`` naming their ROADMAP.md item.
+uint32 lanes are int32 bit patterns (``_u32``); JAX's clamped gathers
+and dropped scatters are written out as clamps and masks.
 
 The dense one-hots of the reference stay ([F, E] ACK/NACK lanes, [H, F]
 host pick, [F, Q] deliveries, [n, n] enqueue ranks, [Q, n] enqueue
@@ -38,7 +42,7 @@ from repro_torch import resolve_device
 from repro_torch._u32 import bit, c32, shr
 from repro_torch.core import pds
 from repro_torch.core.cms.nscc import NSCCParams
-from repro_torch.core.lb.schemes import LBPolicy, LBState, _mix32
+from repro_torch.core.lb.schemes import LBPolicy, LBScheme, LBState, _mix32
 from repro_torch.core.lb.schemes import _pick_lane as _pick
 from repro_torch.kernels import ops as kops
 from repro_torch.network.ecmp import DELIVERED, RoutingTables
@@ -139,13 +143,16 @@ class SimState:
     slot_last_ack: torch.Tensor  # [F, K] int32
     dst_track: pds.PSNTracker
     last_ooo_nack: torch.Tensor  # [F] int32
-    cc: object               # CC policy state (NSCCState)
+    cc: object               # CC policy state: NSCCState, RCCCState, the
+                             # hybrid's {"nscc", "rccc"} dict, or the open
+                             # loop's empty [0] int32 tensor
     lb: LBState
     ev_buf: torch.Tensor     # [D, E, EVF_FIELDS] int32 control-TC delay ring
     delivered: torch.Tensor  # [F] int32 packets delivered (first copies)
     trims: torch.Tensor      # [] int32
     drops: torch.Tensor      # [] int32
     dups: torch.Tensor       # [] int32
+    rod_rejects: torch.Tensor  # [] int32 out-of-order arrivals ROD discarded
     retransmits: torch.Tensor  # [] int32
     rto: torch.Tensor        # [F] int32 per-flow retransmission timeout
     timeouts: torch.Tensor   # [] int32
@@ -247,7 +254,7 @@ def init_state(g: QueueGraph, wl: Workload, profile: TransportProfile,
         ev_buf=torch.zeros((D, E, EVF_FIELDS), **i32),
         delivered=torch.zeros((F,), **i32),
         trims=zero, drops=zero.clone(), dups=zero.clone(),
-        retransmits=zero.clone(),
+        rod_rejects=zero.clone(), retransmits=zero.clone(),
         rto=torch.full((F,), p.timeout_ticks, **i32),
         timeouts=zero.clone(), ticks_degraded=zero.clone(),
     )
@@ -259,8 +266,8 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
         f"port' item {item})")
 
 
-def _check_statics(profile: TransportProfile, F: int, lossy, tel, hosty,
-                   corrupty, link) -> None:
+def _check_statics(profile: TransportProfile, lossy, tel, hosty, corrupty,
+                   link) -> None:
     """Raise for every static this slice does not port."""
     if lossy:
         raise _not_ported("gray-link loss (lossy)", "6: faults + recovery")
@@ -281,8 +288,6 @@ def _check_statics(profile: TransportProfile, F: int, lossy, tel, hosty,
         raise _not_ported("EV eviction", "6: faults + recovery")
     if profile.pdc_dead_after > 0:
         raise _not_ported("PDC liveness teardown", "6: faults + recovery")
-    if (profile.delivery_modes(F) == int(DeliveryMode.ROD)).any():
-        raise _not_ported("ROD delivery", "4: the tick's named profiles")
 
 
 def make_step(g: QueueGraph, profile: TransportProfile, p: SimParams, F: int,
@@ -292,13 +297,16 @@ def make_step(g: QueueGraph, profile: TransportProfile, p: SimParams, F: int,
     out)`` for one transport profile on one device.
 
     ``tick`` is a Python int; the step never syncs with the host. The
-    statics mirror the reference's ``make_step``; this slice ports the
-    defaults only (``lossy``/``hosty``/``corrupty`` False, ``tel`` and
-    ``link`` None, INC off, ``rto_backoff=1.0``, no eviction, no PDC
-    teardown, no ROD) and raises ``NotImplementedError`` for the rest.
+    statics mirror the reference's ``make_step``: any CC composition, LB
+    scheme and per-flow delivery modes (ROD flows run go-back-N on one
+    static path, gate injection on in-order CACK advance, and their
+    receiver accepts only the next expected PSN; an all-ROD profile pins
+    LB to STATIC). ``lossy``/``hosty``/``corrupty``, ``tel``, ``link``,
+    INC, RTO backoff, eviction and PDC teardown are not ported and raise
+    ``NotImplementedError``.
     """
     dev = resolve_device(device)
-    _check_statics(profile, F, lossy, tel, hosty, corrupty, link)
+    _check_statics(profile, lossy, tel, hosty, corrupty, link)
     rt = RoutingTables(g, dev)
     Q = g.num_queues
     C = p.queue_capacity
@@ -306,6 +314,7 @@ def make_step(g: QueueGraph, profile: TransportProfile, p: SimParams, F: int,
     H = g.num_hosts
     mp = p.mp_range
     W = mp // 32
+    K = p.ev_slots
     i32 = dict(dtype=I32, device=dev)
     flow_ids = torch.arange(F, **i32)
     qidx = torch.arange(Q, **i32)
@@ -316,7 +325,19 @@ def make_step(g: QueueGraph, profile: TransportProfile, p: SimParams, F: int,
     lane = torch.arange(n_cand, device=dev)
     lower = lane[None, :] < lane[:, None]        # [n, n] for _rank_within
     cc_pol = make_cc_policy(profile.cc, _cc_params(p), p.max_cwnd)
-    lb_pol = LBPolicy(profile.lb, evict_enabled=profile.ev_eviction)
+    # per-flow delivery modes are static: compiled into the step
+    rod_np = profile.delivery_modes(F) == int(DeliveryMode.ROD)
+    all_rod = bool(rod_np.all())
+    any_rod = bool(rod_np.any())
+    mixed_rod = any_rod and not all_rod
+    rod_mask = torch.as_tensor(rod_np, device=dev)
+    # an all-ROD profile is single-path (ordered delivery forbids
+    # spraying); mixed profiles spray the RUD lanes and pin the ROD lanes
+    # to their static EV
+    lb_pol = LBPolicy(LBScheme.STATIC if all_rod else profile.lb,
+                      evict_enabled=profile.ev_eviction)
+    rr_slots = profile.lb == LBScheme.RR_SLOTS and not all_rod
+    kslots = torch.arange(K, device=dev)
     ooo_gap = int(p.base_rtt)
 
     def step(s: SimState, tick: int, wl: Workload, fault: FaultSchedule):
@@ -363,7 +384,8 @@ def make_step(g: QueueGraph, profile: TransportProfile, p: SimParams, F: int,
         rtt = (tick - _pick(hot_ack, ets)).to(torch.float32)
         cc_st = cc_pol.on_ack(s.cc, has_ack, ack_ecn, rtt)
         cc_st = cc_pol.on_nack(cc_st, nack_count)
-        lbs = lb_pol.on_ack(s.lb, hot_ack, ef, ee, ec, is_ack, is_nack)
+        lbs = lb_pol.on_ack(s.lb, hot_ack, ef, ee, ec, is_ack, is_nack,
+                            flow_ok=(~rod_mask) if mixed_rod else None)
 
         # progress clock: any ACK freshens the flow (the RTO lane stays
         # at its base value: backoff is not ported)
@@ -375,14 +397,46 @@ def make_step(g: QueueGraph, profile: TransportProfile, p: SimParams, F: int,
         ack_off = ack_psn - src_track.base
         rtx = _clear_own_bit(rtx, ack_off, has_ack)
 
-        # NACKs (trim / OOO): mark the PSN for selective retransmit. Lanes
-        # [Q, E) are the NACK-capable ones; several may hit one flow or
-        # one bit, so the mark is a duplicate-safe OR (the kernel).
+        # NACKs (trim / OOO): mark the PSN for selective retransmit (RUD;
+        # ROD rewinds instead, section 3). Lanes [Q, E) are the
+        # NACK-capable ones (lanes [0, Q) carry NACKs only for ROD
+        # flows); several may hit one flow or one bit, so the mark is a
+        # duplicate-safe OR (the kernel). An all-ROD profile has no
+        # selective-retransmit path: the reference compiles it out, and
+        # the kernel is not launched.
         nf, nep = ef[Q:], ep[Q:]
         n_nack = is_nack[Q:]
-        nack_off = nep - src_track.base[torch.where(n_nack, nf, 0).long()]
-        n_ok = n_nack & (nack_off >= 0) & (nack_off < mp)
-        rtx = kops.nack_mark(rtx, nf, nack_off.clamp(0, mp - 1), n_ok)
+        safe_nf = torch.where(n_nack, nf, 0).long()
+        nack_off = nep - src_track.base[safe_nf]
+        if not all_rod:
+            n_ok = n_nack & (nack_off >= 0) & (nack_off < mp)
+            if mixed_rod:
+                n_ok = n_ok & ~rod_mask[safe_nf]
+            rtx = kops.nack_mark(rtx, nf, nack_off.clamp(0, mp - 1), n_ok)
+        rod_gbn = hot_nack.any(dim=1)
+
+        # EV-based loss inference (Sec. 3.2.4), RR_SLOTS layout: slot i
+        # carries PSNs i, i+K, i+2K...; an ACK for PSN x implies every
+        # unacked PSN x-K, x-2K... of its slot was lost
+        slot_last_ack = s.slot_last_ack
+        if rr_slots:
+            has_ack_rr = has_ack & ~rod_mask if mixed_rod else has_ack
+            sl = ack_psn % K
+            prev = slot_last_ack.gather(1, sl[:, None].long())[:, 0]
+            # mark up to 2 predecessors (losses per ACK are almost
+            # always <= 1)
+            for back in (1, 2):
+                miss = ack_psn - back * K
+                off = miss - src_track.base
+                # skip PSNs already SACKed at the source (not lost)
+                w_i = off.clamp(0, W * 32 - 1)
+                sacked = (_own_word(src_track.ring, off) & bit(w_i % 32)) != 0
+                lost = has_ack_rr & (miss > prev) & (miss >= 0) & ~sacked
+                rtx = _set_own_bit(rtx, off, lost)
+            hot_sl = (kslots[None, :] == sl[:, None]) & has_ack_rr[:, None]
+            slot_last_ack = torch.where(
+                hot_sl, torch.maximum(slot_last_ack, ack_psn[:, None]),
+                slot_last_ack)
 
         # consume the slot: clear only the EVF_TYPE lane (the slot is
         # fully rewritten when it next comes up as out_slot)
@@ -399,10 +453,34 @@ def make_step(g: QueueGraph, profile: TransportProfile, p: SimParams, F: int,
 
         # --------------------------------------------------- 3. injection
         has_rtx = (rtx != 0).any(dim=1)
-        # RTO time predicate, shared with section 9
+        if all_rod:
+            has_rtx = torch.zeros_like(has_rtx)
+        elif mixed_rod:
+            has_rtx = has_rtx & ~rod_mask
+        # RTO time predicate, shared by the ROD rewind here and the RUD
+        # stall in section 9 (the rewind touches last_progress only on
+        # ROD lanes, which section 9 masks out)
         overdue = (tick - last_progress) > rto
+        # ROD go-back-N: on a NACK or a timeout, rewind next_psn to base
         next_psn = s.next_psn
+        timeout_rod = torch.zeros((F,), dtype=torch.bool, device=dev)
+        if any_rod:
+            timeout_rod = (inflight > 0) & overdue
+            rewind = rod_gbn | timeout_rod
+            if mixed_rod:
+                rewind = rewind & rod_mask
+                timeout_rod = timeout_rod & rod_mask
+            next_psn = torch.where(rewind, src_track.base, next_psn)
+            inflight = torch.where(rewind, 0, inflight)
+            last_progress = torch.where(rewind, tick, last_progress)
         win_ok = cc_pol.on_send_gate(cc_st, inflight)
+        if any_rod:
+            # in-order CACK gate (ROD): the ordered window may not race
+            # more than one congestion window past the cumulative ACK
+            rod_win = torch.floor(cc_pol.cwnd_view(cc_st, F)).to(I32).clamp(
+                min=1)
+            rod_ok = (next_psn - src_track.base) < rod_win
+            win_ok = win_ok & (rod_ok | ~rod_mask)
         mp_ok = (next_psn - src_track.base) < p.mp_range
         can_new = (next_psn < wl.size) & mp_ok
         eligible = ((tick >= wl.start) & ~done & dep_ok & win_ok
@@ -424,12 +502,17 @@ def make_step(g: QueueGraph, profile: TransportProfile, p: SimParams, F: int,
         psn_out = torch.where(use_rtx, rtx_psn, next_psn)
 
         lbs2, ev_sel = lb_pol.select(lbs, psn_out, tick)
+        if mixed_rod:
+            # ROD lanes are pinned to their static single-path EV and do
+            # not advance the spraying state
+            ev_sel = torch.where(rod_mask, lb_pol.static_ev(lbs), ev_sel)
         inj_q = rt.injection_queue(flow_src, flow_dst, ev_sel)
 
         # sender-state commit for this tick's injections
         rtx = _clear_own_bit(rtx, rtx_off, use_rtx)
         next_psn = torch.where(injected & ~use_rtx, next_psn + 1, next_psn)
-        lbs = _where_rows(injected, lbs2, lbs)
+        lbs = _where_rows(injected & ~rod_mask if mixed_rod else injected,
+                          lbs2, lbs)
         inflight = inflight + injected.to(I32)
         cc_st = cc_pol.on_inject(cc_st, injected)
         retransmits = s.retransmits + use_rtx.sum(dtype=I32)
@@ -464,7 +547,16 @@ def make_step(g: QueueGraph, profile: TransportProfile, p: SimParams, F: int,
         d_psn = _pick(hot_d, pp)
         d_off = d_psn - s.dst_track.base               # uint32 wrap
         d_in_range = has_d & (d_off >= 0) & (d_off < mp)
-        d_rec = d_in_range
+        if any_rod:
+            # the ROD receiver accepts only the next in-order PSN
+            # (go-back-N): out-of-order arrivals are discarded and NACKed
+            # with the first-gap PSN so the source rewinds at once
+            rod_rej_f = d_in_range & (d_off != 0)
+            if mixed_rod:
+                rod_rej_f = rod_rej_f & rod_mask
+            d_rec = d_in_range & ~rod_rej_f
+        else:
+            d_rec = d_in_range
         d_bit = bit(d_off % 32)
         d_already = d_rec & (
             (_own_word(s.dst_track.ring, d_off) & d_bit) != 0)
@@ -477,7 +569,12 @@ def make_step(g: QueueGraph, profile: TransportProfile, p: SimParams, F: int,
             dup=s.dst_track.dup + d_already.to(I32),
             oor=s.dst_track.oor + (has_d & ~d_in_range).to(I32),
         )
-        dups = s.dups + (has_d & ~fresh_f).sum(dtype=I32)
+        if any_rod:
+            dups = s.dups + (has_d & ~fresh_f & ~rod_rej_f).sum(dtype=I32)
+            rod_rejects = s.rod_rejects + rod_rej_f.sum(dtype=I32)
+        else:
+            dups = s.dups + (has_d & ~fresh_f).sum(dtype=I32)
+            rod_rejects = s.rod_rejects
         delivered_ctr = s.delivered + fresh_f.to(I32)
         # flows whose packet reached its receiver this tick (trimmed or
         # not), as a scatter into a spare row instead of an [F, Q] pass
@@ -539,13 +636,21 @@ def make_step(g: QueueGraph, profile: TransportProfile, p: SimParams, F: int,
 
         # ------------------------------------------- 8. schedule control TC
         out_slot = (tick + p.ack_return_ticks) % D
-        # lanes [0, Q): ACKs from deliveries; [Q, 2Q+F): trim NACKs from
-        # enqueue overflow; [2Q+F, 2Q+2F): OOO NACKs (psn = first gap)
-        new_type = torch.cat([ddata.to(I32) * EV_ACK,
-                              nack_mask.to(I32) * EV_NACK,
+        # lanes [0, Q): ACKs from deliveries (a ROD reject becomes an OOO
+        # NACK carrying the receiver's first-gap PSN); [Q, 2Q+F): trim
+        # NACKs from enqueue overflow; [2Q+F, 2Q+2F): OOO NACKs (psn =
+        # first gap)
+        ack_lane_t = ddata.to(I32) * EV_ACK
+        ack_lane_psn = pp
+        if any_rod:
+            rod_rej_lane = ddata & rod_rej_f[safe_pf.long()]
+            ack_lane_t = torch.where(rod_rej_lane, EV_OOO, ack_lane_t)
+            ack_lane_psn = torch.where(rod_rej_lane,
+                                       dst_track.base[safe_pf.long()], pp)
+        new_type = torch.cat([ack_lane_t, nack_mask.to(I32) * EV_NACK,
                               ooo_fire.to(I32) * EV_OOO])
         new_flow = torch.cat([safe_pf, cand_flow, flow_ids])
-        new_psn = torch.cat([pp, cand_psn, dst_track.base])
+        new_psn = torch.cat([ack_lane_psn, cand_psn, dst_track.base])
         new_val = torch.cat([pe, cand_ev, zeros_f])
         new_ecn = torch.cat([((pm & META_ECN) != 0).to(I32), zeros_qf,
                              zeros_f])
@@ -554,32 +659,38 @@ def make_step(g: QueueGraph, profile: TransportProfile, p: SimParams, F: int,
             [new_type, new_flow, new_psn, new_val, new_ecn, new_ts], dim=-1)
 
         # ------------------------------------------------- 9. timeouts + QA
-        # sent-but-unacked PSNs with nothing in flight still need the RTO
-        # (a silent loss can drain inflight to 0 with gaps open)
-        unacked = src_track.base < next_psn
-        stalled = ((inflight > 0) | unacked) & overdue & ~done
-        rtx = _set_own_bit(rtx, zeros_f, stalled)  # offset 0 == oldest unacked
-        # a timeout implies the outstanding packets are gone: reopen the
-        # window
-        inflight = torch.where(stalled, 0, inflight)
-        last_progress = torch.where(stalled, tick, last_progress)
-        cc_st = cc_pol.on_timeout(cc_st, stalled)
+        timeout_fire = timeout_rod  # ROD rewinds already count as expiries
+        if not all_rod:
+            # sent-but-unacked PSNs with nothing in flight still need the
+            # RTO (a silent loss can drain inflight to 0 with gaps open)
+            unacked = src_track.base < next_psn
+            stalled = ((inflight > 0) | unacked) & overdue & ~done
+            if mixed_rod:
+                stalled = stalled & ~rod_mask  # ROD timeouts rewind instead
+            # offset 0 == oldest unacked
+            rtx = _set_own_bit(rtx, zeros_f, stalled)
+            # a timeout implies the outstanding packets are gone: reopen
+            # the window
+            inflight = torch.where(stalled, 0, inflight)
+            last_progress = torch.where(stalled, tick, last_progress)
+            cc_st = cc_pol.on_timeout(cc_st, stalled)
+            timeout_fire = timeout_fire | stalled
         cc_st = cc_pol.end_of_tick(cc_st, tick)
 
         # ---------------------------------------- 10. recovery loop lanes
         # (backoff, eviction and PDC teardown are not ported: the
-        # counters below are the whole section under the default statics)
-        timeouts = s.timeouts + stalled.sum(dtype=I32)
+        # counters below are the whole section under the ported statics)
+        timeouts = s.timeouts + timeout_fire.sum(dtype=I32)
         ticks_degraded = s.ticks_degraded + dead.any().to(I32)
 
         ns = SimState(
             q_pkt=q_pkt, q_head=q_head, q_len=q_len,
             next_psn=next_psn, inflight=inflight, src_track=src_track,
             rtx=rtx, last_progress=last_progress,
-            slot_last_ack=s.slot_last_ack, dst_track=dst_track,
+            slot_last_ack=slot_last_ack, dst_track=dst_track,
             last_ooo_nack=last_ooo_nack, cc=cc_st, lb=lbs, ev_buf=ev_buf,
             delivered=delivered_ctr, trims=trims, drops=drops, dups=dups,
-            retransmits=retransmits, rto=rto, timeouts=timeouts,
+            rod_rejects=rod_rejects, retransmits=retransmits, rto=rto, timeouts=timeouts,
             ticks_degraded=ticks_degraded,
         )
         out = {
@@ -857,6 +968,7 @@ def simulate(g: QueueGraph, wl: Workload,
         raise ValueError(f"chunk_ticks must be >= 1, got {p.chunk_ticks}")
     budget = int(p.ticks if max_ticks is None else max_ticks)
     F = int(wl.src.shape[0])
+    profile.delivery_modes(F)  # validate per-flow tuples early
     fault = _fault_schedule(g, failed, faults, dev)
     wl = wl.to(dev)
     step = make_step(g, profile, p, F, device=dev)

@@ -3,8 +3,8 @@
 On the CPU the port's plain versions (``repro_torch.kernels.ref``) are
 held bitwise against both JAX forms of each kernel: the Pallas kernel in
 interpret mode (``use_pallas=True``) and its jnp oracle
-(``use_pallas=False``). The ``cuda``-marked cases hold the hand-written
-CUDA kernels against the plain versions on a card and skip without one.
+(``use_pallas=False``). The hand-written CUDA kernels are held against
+the plain versions on a card by ``test_torch_cuda_kernels.py``.
 uint32 words cross as int32 bit patterns (``repro_torch._u32``).
 """
 import jax.numpy as jnp
@@ -185,40 +185,3 @@ def test_kernels_refuse_cpu_tensors(kernel):
             "nack_mark": (ring, lanes, lanes, _t(np.ones(3, bool)))}[kernel]
     with pytest.raises(ValueError, match="CUDA tensor"):
         getattr(ops, f"{kernel}_cuda")(*args)
-
-
-# ----------------------------------------------------------- on the card --
-
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the hand-written kernels have no "
-                    "CPU mode (chip_smoke.py runs them on the card)")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("n,w", [(1, 2), (2048, 16), (333, 32), (70, 7)])
-def test_sack_kernels_match_plain_on_card(cuda, n, w):
-    ring, base = _t(_sack_rows(n, w), cuda), _t(_words(n), cuda)
-    rtx = _t(_words((n, w)), cuda)
-    mask = _t(np.where(RNG.random((n, w)) < 0.3, _words((n, w)), 0)
-              .astype(np.uint32), cuda)
-    for got, want in zip(ops.sack_fused_cuda(ring, base, rtx, mask),
-                         ref.sack_fused_ref(ring, base, rtx, mask)):
-        assert torch.equal(got, want)
-    for got, want in zip(ops.sack_advance_cuda(ring, base),
-                         ref.sack_advance_ref(ring, base)):
-        assert torch.equal(got, want)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("f,w,lanes", [(4, 2, 3), (2048, 16, 9216),
-                                       (130, 32, 1000)])
-def test_nack_kernel_matches_plain_on_card(cuda, f, w, lanes):
-    rtx = _t(_words((f, w)), cuda)
-    flow = _t(RNG.integers(-2, f + 2, lanes).astype(np.int32), cuda)
-    off = _t(RNG.integers(-4, w * 32 + 8, lanes).astype(np.int32), cuda)
-    valid = _t(RNG.integers(0, 2, lanes).astype(bool), cuda)
-    assert torch.equal(ops.nack_mark_cuda(rtx, flow, off, valid),
-                       ref.nack_mark_ref(rtx, flow, off, valid))

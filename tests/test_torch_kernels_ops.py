@@ -1,0 +1,196 @@
+"""The port's batched NSCC window update and ECMP port selection against
+the reference package's ``repro.kernels.ops`` entry points.
+
+Mirrors ``tests/test_kernels.py`` case for case (the same ``n``,
+``fanout`` and ``NSCCParams`` sweeps), plus a params set whose
+``base_rtt * target_factor`` is not exact in f32 and edge lanes. On the
+CPU the port's plain versions (``repro_torch.kernels.ref``) are held
+bitwise against the jnp oracle (``use_pallas=False``). The NSCC update
+is held within rtol 1e-6 of the Pallas kernel in interpret mode
+(``use_pallas=True``), the reference's own tolerance: that form is not
+bitwise even against its own oracle, because XLA compiles the Pallas
+body with its division by the constant target folded into a reciprocal
+multiply (ROADMAP.md, "Faults found"), which moves some lanes by an ulp.
+ECMP is bitwise against both forms. The CUDA kernels are held against the
+plain versions on a card by ``test_torch_cuda_kernels.py``.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.cms.nscc import NSCCParams as JParams
+from repro.kernels import ops as jops
+from repro_torch.core.cms.nscc import NSCCParams
+from repro_torch.kernels import ops, ref
+
+RNG = np.random.default_rng(1207)
+
+PARAM_SETS = [dict(), dict(base_rtt=20.0, md=0.3),
+              dict(max_cwnd=128.0, quick_gain=1.5),
+              dict(base_rtt=7.3, target_factor=1.1)]   # target not exact
+
+
+def _t(a, device="cpu"):
+    a = np.asarray(a)
+    if a.dtype == np.uint32:
+        a = a.view(np.int32)
+    return torch.as_tensor(np.ascontiguousarray(a)).to(device)
+
+
+def _bits(a):
+    return np.ascontiguousarray(np.asarray(a)).view(np.uint8)
+
+
+def _nscc_inputs(n, kw, rtt_hi=60.0, cnt_hi=5, edges=False):
+    p = NSCCParams(**kw)
+    cwnd = RNG.uniform(p.min_cwnd, p.max_cwnd, n).astype(np.float32)
+    ecn = RNG.integers(0, 2, n).astype(np.int32)
+    rtt = RNG.uniform(0.5, rtt_hi, n).astype(np.float32)
+    cnt = RNG.integers(0, cnt_hi, n).astype(np.int32)
+    if edges:
+        # rtt 0, negative, +-inf, on the target; cwnd < 1; count 0,
+        # negative and large
+        k = min(n, 12)
+        rtt[:k] = [0.0, -3.5, np.inf, -np.inf, p.base_rtt * p.target_factor,
+                   1e-7, 0.0, -0.0, 1e30, 2.0, 12.5, 80.0][:k]
+        cwnd[:k:3] = [0.25, 0.0, 1e-3, 0.9][:len(range(0, k, 3))]
+        cnt[:k:2] = [-4, 0, 1 << 20, 7, -1, 3][:len(range(0, k, 2))]
+    return cwnd, ecn, rtt, cnt
+
+
+def _assert_nscc(cwnd, ecn, rtt, cnt, kw):
+    jp, tp = JParams(**kw), NSCCParams(**kw)
+    for e in (ecn, ecn.astype(bool)):        # int32 and bool ECN lanes
+        got = ref.nscc_update_ref(_t(cwnd), _t(e), _t(rtt), _t(cnt), tp)
+        assert got.dtype == torch.float32
+        for up in (False, True):
+            want = np.asarray(jops.nscc_update(
+                jnp.asarray(cwnd), jnp.asarray(e), jnp.asarray(rtt),
+                jnp.asarray(cnt), jp, use_pallas=up))
+            np.testing.assert_allclose(got.numpy(), want, rtol=1e-6)
+            if not up:
+                np.testing.assert_array_equal(_bits(got.numpy()),
+                                              _bits(want))
+    return got.numpy()
+
+
+@pytest.mark.parametrize("n", [1, 7, 128, 129, 1000, 4096])
+def test_nscc_update_matches_both_jax_forms(n):
+    _assert_nscc(*_nscc_inputs(n, {}), {})
+
+
+@pytest.mark.parametrize("kw", PARAM_SETS, ids=str)
+def test_nscc_update_param_sweep(kw):
+    p = NSCCParams(**kw)
+    out = _assert_nscc(*_nscc_inputs(512, kw, rtt_hi=80.0, cnt_hi=3), kw)
+    assert (out >= p.min_cwnd).all() and (out <= p.max_cwnd).all()
+
+
+@pytest.mark.parametrize("kw", PARAM_SETS, ids=str)
+def test_nscc_update_edge_lanes(kw):
+    """rtt of 0, negative, +-inf and on the target; cwnd below 1; count
+    of 0, negative and 2**20 — bitwise against both JAX forms."""
+    _assert_nscc(*_nscc_inputs(300, kw, edges=True), kw)
+
+
+def test_nscc_update_nan_lanes_stay_nan():
+    """A NaN rtt or cwnd gives NaN where it is used, as torch.clamp and
+    jnp.clip keep NaN (the CUDA kernel's max/clip do the same)."""
+    cwnd = np.asarray([np.nan, np.nan, 10.0, 10.0, 10.0], np.float32)
+    rtt = np.asarray([5.0, 5.0, np.nan, np.nan, np.nan], np.float32)
+    ecn = np.asarray([0, 0, 1, 0, 1], np.int32)
+    cnt = np.asarray([1, 0, 1, 1, 0], np.int32)
+    got = ref.nscc_update_ref(_t(cwnd), _t(ecn), _t(rtt), _t(cnt),
+                              NSCCParams()).numpy()
+    want = np.asarray(jops.nscc_update(jnp.asarray(cwnd), jnp.asarray(ecn),
+                                       jnp.asarray(rtt), jnp.asarray(cnt),
+                                       use_pallas=False))
+    np.testing.assert_array_equal(got, want)          # NaN == NaN here
+    # lane 2: ECN with a NaN rtt is not "high", so its delta is 0
+    assert np.isnan(got).tolist() == [True, True, False, True, False]
+
+
+@pytest.mark.parametrize("n", [3, 500, 4096])
+@pytest.mark.parametrize("fanout", [2, 4, 7, 8, 13, 16])
+def test_ecmp_select_matches_both_jax_forms(n, fanout):
+    src = RNG.integers(0, 1 << 20, n).astype(np.int32)
+    dst = RNG.integers(0, 1 << 20, n).astype(np.int32)
+    ev = RNG.integers(0, 65536, n).astype(np.int32)
+    salt = RNG.integers(0, 256, n).astype(np.int32)
+    got = ops.ecmp_select(_t(src), _t(dst), _t(ev), _t(salt), fanout).numpy()
+    for up in (False, True):
+        want = np.asarray(jops.ecmp_select(
+            jnp.asarray(src), jnp.asarray(dst), jnp.asarray(ev),
+            jnp.asarray(salt), fanout, use_pallas=up))
+        assert got.dtype == want.dtype == np.int32
+        np.testing.assert_array_equal(got, want, err_msg=f"pallas={up}")
+    assert (got >= 0).all() and (got < fanout).all()
+
+
+@pytest.mark.parametrize("fanout", [1, 3, 32, 1000])
+def test_ecmp_select_negative_and_full_range_lanes(fanout):
+    """Negative int32 lanes hash as their uint32 bit patterns (JAX's
+    astype(uint32)); hashes with the top bit set take an unsigned mod."""
+    n = 2048
+    lanes = [RNG.integers(-2 ** 31, 2 ** 31, n, dtype=np.int64)
+             .astype(np.int32) for _ in range(4)]
+    lanes[0][:4] = [-1, -2 ** 31, 2 ** 31 - 1, 0]
+    got = ref.ecmp_hash_ref(*map(_t, lanes), fanout).numpy()
+    want = np.asarray(jops.ecmp_select(*map(jnp.asarray, lanes), fanout,
+                                       use_pallas=False))
+    np.testing.assert_array_equal(got, want)
+    assert (got >= 0).all() and (got < fanout).all()
+
+
+def test_ecmp_determinism_and_spread():
+    """Same EV => same port; the port histogram over EVs is well mixed."""
+    n = 1 << 14
+    ev = _t(np.arange(n, dtype=np.int32))
+    src, dst = _t(np.zeros(n, np.int32)), _t(np.ones(n, np.int32))
+    salt = _t(np.full(n, 3, np.int32))
+    p1 = ops.ecmp_select(src, dst, ev, salt, 4)
+    assert torch.equal(p1, ops.ecmp_select(src, dst, ev, salt, 4))
+    want = np.asarray(jops.ecmp_select(
+        jnp.zeros(n, jnp.int32), jnp.ones(n, jnp.int32),
+        jnp.arange(n, dtype=jnp.int32), jnp.full(n, 3, jnp.int32), 4,
+        use_pallas=True))
+    np.testing.assert_array_equal(p1.numpy(), want)
+    hist = np.bincount(p1.numpy(), minlength=4) / n
+    np.testing.assert_allclose(hist, 0.25, atol=0.02)
+
+
+def test_ecmp_select_rejects_bad_fanout_and_dtype():
+    lanes = [_t(np.arange(4, dtype=np.int32))] * 4
+    for bad in (0, -3):
+        with pytest.raises(ValueError, match="fanout"):
+            ops.ecmp_select(*lanes, bad)
+        with pytest.raises(ValueError, match="fanout"):
+            ops.ecmp_select_cuda(*lanes, bad)
+    with pytest.raises(TypeError, match="int32"):
+        ops.ecmp_select(*lanes[:3], lanes[0].to(torch.int64), 4)
+
+
+def test_new_kernels_take_plain_versions_on_cpu_and_count_nothing():
+    before = dict(ops.LAUNCHES)
+    cwnd, ecn, rtt, cnt = _nscc_inputs(64, {})
+    for e in (ecn, ecn.astype(bool)):
+        assert torch.equal(
+            ops.nscc_update(_t(cwnd), _t(e), _t(rtt), _t(cnt)),
+            ref.nscc_update_ref(_t(cwnd), _t(e), _t(rtt), _t(cnt),
+                                NSCCParams()))
+    lanes = [_t(RNG.integers(0, 1000, 64).astype(np.int32)) for _ in range(4)]
+    assert torch.equal(ops.ecmp_select(*lanes, 7),
+                       ref.ecmp_hash_ref(*lanes, 7))
+    assert ops.LAUNCHES == before
+
+
+@pytest.mark.parametrize("kernel", ["nscc_update", "ecmp_select"])
+def test_new_kernels_refuse_cpu_tensors(kernel):
+    cwnd, ecn, rtt, cnt = _nscc_inputs(8, {})
+    lanes = [_t(np.arange(8, dtype=np.int32))] * 4
+    args = {"nscc_update": (_t(cwnd), _t(ecn.astype(bool)), _t(rtt),
+                            _t(cnt)),
+            "ecmp_select": (*lanes, 5)}[kernel]
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        getattr(ops, f"{kernel}_cuda")(*args)

@@ -1,10 +1,13 @@
 """Bitwise parity of the port's transport policies with the reference:
 the NSCC hooks and Quick Adapt (the f32 ``cwnd`` lane included), LB
-selection and feedback for OBLIVIOUS and REPS (plus STATIC), the named
-profiles, and the not-yet-ported compositions raising.
+selection and feedback for STATIC, OBLIVIOUS and REPS, the named
+profiles, and what stays unported (EV eviction, and the recovery
+statics beside each CC composition) raising. RCCC, the hybrid, the open
+loop, RR_SLOTS and EVBITMAP are held in ``test_torch_profile_policies.py``.
 """
 from dataclasses import fields, replace
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -64,17 +67,26 @@ PARAMS = [(dict(base_rtt=10.0, max_cwnd=48.0)), dict(),
 
 @pytest.mark.parametrize("kw", PARAMS)
 def test_nscc_hooks_bitwise(kw):
+    """The module function against JAX's eager call (exact division) and,
+    folded, against JAX's jitted one; the policy hooks — what the tick
+    calls — against the reference's hooks under jax.jit, as its engine
+    runs them (XLA folds the gap's division by the constant target into
+    a reciprocal multiply)."""
     cwnd, rtt, ecn, active, acked, lost, etick = _nscc_lanes()
     jp, tp = jnscc.NSCCParams(**kw), nscc.NSCCParams(**kw)
+    jwd = (jnp.asarray(cwnd), jnp.asarray(ecn), jnp.asarray(rtt))
     _same(nscc.window_delta(_t(cwnd), _t(ecn), _t(rtt), tp),
-          jnscc.window_delta(jnp.asarray(cwnd), jnp.asarray(ecn),
-                             jnp.asarray(rtt), jp), "window_delta")
+          jnscc.window_delta(*jwd, jp), "window_delta")
+    _same(nscc.window_delta(_t(cwnd), _t(ecn), _t(rtt), tp,
+                            folded_reciprocal=True),
+          jax.jit(lambda c, e, r: jnscc.window_delta(c, e, r, jp))(*jwd),
+          "window_delta under jit")
     js = jnscc.NSCCState(jnp.asarray(cwnd), jnp.asarray(acked),
                          jnp.asarray(lost), jnp.asarray(etick))
     ts = nscc.NSCCState(_t(cwnd), _t(acked), _t(lost), _t(etick))
     jpol, tpol = jnscc.NSCCPolicy(jp), nscc.NSCCPolicy(tp)
-    j1 = jpol.on_ack(js, jnp.asarray(active), jnp.asarray(ecn),
-                     jnp.asarray(rtt))
+    j1 = jax.jit(jpol.on_ack)(js, jnp.asarray(active), jnp.asarray(ecn),
+                              jnp.asarray(rtt))
     t1 = tpol.on_ack(ts, _t(active), _t(ecn), _t(rtt))
     _same_dc(t1, j1)
     count = RNG.integers(0, 4, F).astype(np.int32)
@@ -161,13 +173,29 @@ def test_named_profiles_match(name):
 
 @pytest.mark.parametrize("cc", ["RCCC", "NSCC_AND_RCCC", "NONE"])
 def test_unported_cc_raises(cc):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        profile.make_cc_policy(profile.CCAlgo[cc], nscc.NSCCParams(), 48.0)
+    """Every CC composition is built now; what stays unported beside it
+    is the recovery loop (ROADMAP.md item 6), which still raises."""
+    from repro_torch.network import fabric
+    from repro_torch.network.topology import leaf_spine
+    algo = profile.CCAlgo[cc]
+    pol = profile.make_cc_policy(algo, nscc.NSCCParams(), 48.0)
+    st = pol.create(4, torch.device("cpu"))
+    assert pol.cwnd_view(st, 4).dtype == torch.float32
+    g = leaf_spine(2, 2, 2)
+    for prof in (profile.TransportProfile(cc=algo, rto_backoff=2.0),
+                 profile.TransportProfile(cc=algo, pdc_dead_after=4)):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            fabric.make_step(g, prof, fabric.SimParams(), 2, device="cpu")
+    with pytest.raises(ValueError, match="unknown CC"):
+        profile.make_cc_policy(7, nscc.NSCCParams(), 48.0)
 
 
 @pytest.mark.parametrize("scheme", ["RR_SLOTS", "EVBITMAP"])
 def test_unported_lb_raises(scheme):
+    """Every LB scheme is built now; EV eviction (ROADMAP.md item 6)
+    still raises, with any scheme."""
+    assert lb.LBPolicy(lb.LBScheme[scheme]).scheme == lb.LBScheme[scheme]
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        lb.LBPolicy(lb.LBScheme[scheme])
+        lb.LBPolicy(lb.LBScheme[scheme], evict_enabled=True)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         lb.LBPolicy(lb.LBScheme.OBLIVIOUS, evict_enabled=True)
