@@ -9,14 +9,22 @@ Phases, one line each:
    no run: the script exits non-zero before printing any result.
 2. build  — compile every CUDA kernel of the port from ``src/repro_torch/
    kernels/csrc`` (one ``nvcc`` per source, in parallel).
-3. kernels — each of the five kernels against its plain PyTorch version
-   on the card, random inputs plus edge lanes, bitwise: the tick's three
-   at the main path's shapes (F = 2048 flows, W = 16 ring words,
-   L = Q + 2F = 9216 NACK lanes), ``nscc_update`` (N = F = 2048) and
-   ``ecmp_select`` (N = Q + F = 7168) at the entry-point path's shapes
-   and at a pool of N = 2**24 lanes. Kernel and plain times (CUDA events,
-   warm, median of 20) beside the bound; each kernel's device time alone
-   (``torch.profiler``, CUDA kernel time / launches).
+3. kernels — each of the seven kernels against its plain PyTorch
+   version on the card, random inputs plus edge lanes, bitwise: the
+   dense ``sack_fused`` / ``sack_advance`` and ``nack_mark`` at the main
+   path's shapes (F = 2048 flows, W = 16 ring words, L = Q + 2F = 9216
+   NACK lanes); the own-bit ``sack_fused_own`` / ``sack_advance_own``
+   at N in {1, 33, 2048} x W in {1, 3, 8, 16, 17, 32}, and timed at the
+   main shape; ``nscc_update`` (N = F = 2048) and ``ecmp_select``
+   (N = Q + F = 7168) at the entry-point path's shapes and at a pool of
+   N = 2**24 lanes. Kernel and plain times (CUDA events, warm, median of
+   20) beside the bound; each kernel's device time alone
+   (``torch.profiler``, CUDA kernel time / launches). Then the sites:
+   each own-bit kernel beside the dense composition that the tick ran
+   before it (bit plane, old-bit test, dense kernel, and for the ACK
+   site the clear of the ACKed bit; a copy of it is kept here), bitwise,
+   both timed with CUDA events in turns, with their device operations
+   per call.
 4. goldens — the two reference goldens (``tests/golden/fabric_golden.npz``)
    reproduced bitwise on the card.
 5. full width — ``fat_tree3(k=16, pods=16)`` (1024 endpoints, Q = 5120)
@@ -28,13 +36,16 @@ Phases, one line each:
    per-flow stats, final state lanes and counters are bitwise equal to
    the JAX references (``tests/golden/torch_port_fullsize.npz`` and
    ``torch_port_profiles.npz``, written by
-   ``scripts/torch_port_reference.py``), and each tick kernel is
-   launched once per tick (``nack_mark`` not at all under all-ROD, whose
-   tick has no selective-retransmit path). Then the kernel entry points
-   (``repro_torch.kernels.ops.nscc_update`` / ``ecmp_select``): one
-   batched NSCC round over the hpc run's 2048 windows and the ECMP port
-   choice of 7168 packet lanes of the ai_full run, checked against the
-   plain versions and the tick's own routing.
+   ``scripts/torch_port_reference.py``), and each tick kernel
+   (``sack_fused_own``, ``nack_mark``, ``sack_advance_own``) is launched
+   once per tick (``nack_mark`` not at all under all-ROD, whose tick has
+   no selective-retransmit path) and the dense SACK forms never. Then
+   the kernel entry points (``repro_torch.kernels.ops.nscc_update`` /
+   ``ecmp_select`` / ``sack_fused`` / ``sack_advance``): one batched
+   NSCC round over the hpc run's 2048 windows, the ECMP port choice of
+   7168 packet lanes of the ai_full run, and the dense SACK forms on the
+   mixed run's final rings, checked against the plain versions and the
+   tick's own routing.
 6. cross-device — the first 128-tick chunk of the ai_full run with
    ``trace="full"`` on the card and on the CPU (plain versions), bitwise.
 
@@ -68,12 +79,19 @@ KERNELS = {
     # name: (source in the repo, the TPU kernel it replaces, the symbol
     # of its CUDA kernel in a profiler trace)
     "sack_fused": ("src/repro_torch/kernels/csrc/sack.cu",
-                   "src/repro/kernels/sack_fused.py:91", "sack_kernel<true>"),
+                   "src/repro/kernels/sack_fused.py:91",
+                   "sack_kernel<true, false,"),
     "nack_mark": ("src/repro_torch/kernels/csrc/nack_mark.cu",
                   "src/repro/kernels/nack_mark.py:70", "nack_mark_kernel"),
     "sack_advance": ("src/repro_torch/kernels/csrc/sack.cu",
                      "src/repro/kernels/sack_bitmap.py:82",
-                     "sack_kernel<false>"),
+                     "sack_kernel<false, false,"),
+    "sack_fused_own": ("src/repro_torch/kernels/csrc/sack.cu",
+                       "src/repro/kernels/sack_fused.py:91",
+                       "sack_kernel<true, true,"),
+    "sack_advance_own": ("src/repro_torch/kernels/csrc/sack.cu",
+                         "src/repro/kernels/sack_bitmap.py:82",
+                         "sack_kernel<false, true,"),
     "nscc_update": ("src/repro_torch/kernels/csrc/nscc_update.cu",
                     "src/repro/kernels/nscc_update.py:53",
                     "nscc_update_kernel"),
@@ -81,8 +99,10 @@ KERNELS = {
                     "src/repro/kernels/ecmp_hash.py:52",
                     "ecmp_select_kernel"),
 }
-TICK_KERNELS = ("sack_fused", "nack_mark", "sack_advance")
-ENTRY_KERNELS = ("nscc_update", "ecmp_select")
+TICK_KERNELS = ("sack_fused_own", "nack_mark", "sack_advance_own")
+ENTRY_KERNELS = ("sack_fused", "sack_advance", "nscc_update", "ecmp_select")
+OWN_WIDTHS = (1, 3, 8, 16, 17, 32)
+OWN_ROWS = (1, 33, F_MAIN)
 
 
 def say(phase: str, msg: str) -> None:
@@ -119,24 +139,27 @@ def _max_abs_err(got, want) -> int:
 
 def _device_ms(fn, symbol: str, calls: int = 50) -> float:
     """Device time of one launch of the kernel named ``symbol``: its CUDA
-    kernel time in a ``torch.profiler`` trace over its launch count."""
+    kernel time in a ``torch.profiler`` trace over its launch count. A
+    trace now and then comes back without the kernel's records; it is
+    taken again, up to three times."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    us, n = 0.0, 0
-    for ev in prof.key_averages():
-        if symbol in ev.key:
-            us += float(ev.device_time_total)
-            n += int(ev.count)
-    if not (n and us > 0):
-        raise RuntimeError(f"the profiler trace holds no device time for "
-                           f"{symbol}")
-    return us / n / 1e3
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        us, n = 0.0, 0
+        for ev in prof.key_averages():
+            if symbol.replace(" ", "") in ev.key.replace(" ", ""):
+                us += float(ev.device_time_total)
+                n += int(ev.count)
+        if n and us > 0:
+            return us / n / 1e3
+    raise RuntimeError(f"three profiler traces hold no device time for "
+                       f"{symbol}")
 
 
 def _assert_bits(x: np.ndarray, y: np.ndarray, what: str) -> None:
@@ -303,6 +326,26 @@ def phase_kernels() -> dict:
         rows[name] = _row(name, _max_abs_err(got, want),
                           _time_row(name, kern, plain, args, nbytes, nops))
         _say_row(name, rows[name], [tuple(a.shape) for a in args])
+    # the own-bit SACK forms: bitwise at every width and row count, timed
+    # at the main path's shape
+    for n in OWN_ROWS:
+        for w in OWN_WIDTHS:
+            inputs = _own_inputs(rng, n, w, dev)
+            for name, (kern, plain, args, _, _) in _own_cases(
+                    *inputs).items():
+                got, want = kern(*args), plain(*args)
+                torch.cuda.synchronize()
+                _assert_equal(got, want, f"{name} n={n} w={w}")
+    say("3 kernels", f"sack_fused_own, sack_advance_own: bitwise equal to "
+        f"plain at N in {OWN_ROWS} x W in {OWN_WIDTHS}")
+    for name, (kern, plain, args, nbytes, nops) in _own_cases(
+            *_own_inputs(rng, F, W, dev)).items():
+        got, want = kern(*args), plain(*args)
+        torch.cuda.synchronize()
+        _assert_equal(got, want, name)
+        rows[name] = _row(name, _max_abs_err(got, want),
+                          _time_row(name, kern, plain, args, nbytes, nops))
+        _say_row(name, rows[name], [tuple(a.shape) for a in args])
     # the entry-point kernels: every params set / fanout, both sizes
     tick_params = _nscc_params()[0]
     for n in (F_MAIN, POOL):
@@ -336,6 +379,117 @@ def phase_kernels() -> dict:
             16 * n, fast=n == POOL)
         _record(rows, "ecmp_select", n, max(errs), timing)
     return rows
+
+
+def _own_inputs(rng, n, w, dev):
+    """Rings as ``_sack_inputs`` makes them and one PSN offset per row:
+    mostly in [0, 32 W), with the edges -1, 31, 32 and 32 W first; ok on
+    3 rows in 4, clear on the ok rows and 1 in 8 of the others."""
+    ring, base, rtx, _ = _sack_inputs(rng, n, w, dev)
+    off = rng.integers(-4, 32 * w + 4, n).astype(np.int32)
+    k = min(n, 4)
+    off[:k] = [-1, 31, 32, 32 * w][:k]
+    ok = rng.integers(0, 4, n) > 0
+    clear = ok | (rng.integers(0, 8, n) == 0)
+    return (ring, base, rtx, torch.as_tensor(off).to(dev),
+            torch.as_tensor(ok).to(dev), torch.as_tensor(clear).to(dev))
+
+
+def _own_cases(ring, base, rtx, off, ok, clear) -> dict:
+    from repro_torch.kernels import ops, ref
+    f, w = ring.shape
+    return {
+        # bytes: ring, rtx, base, off in (4 B), ok, clear in (1 B); ring,
+        # rtx, base, adv out (4 B), already out (1 B). ops: ~24 per word
+        "sack_fused_own": (ops.sack_fused_own_cuda, ref.sack_fused_own_ref,
+                           (ring, base, rtx, off, ok, clear),
+                           16 * f * w + 19 * f, 24 * f * w),
+        "sack_advance_own": (ops.sack_advance_own_cuda,
+                             ref.sack_advance_own_ref, (ring, base, off, ok),
+                             8 * f * w + 18 * f, 16 * f * w),
+    }
+
+
+def _site_fused_dense(ring, base, rtx, off, ok, clear):
+    """The tick's ACK site as it ran before the own-bit kernel, kept as
+    the yardstick: the old bit's test, the [F, W] bit plane, the dense
+    ``sack_fused`` and the clear of the ACKed bit against the new base.
+    ``ok`` is the tick's ``ack_in_range`` (range already tested)."""
+    from repro_torch._u32 import bit
+    from repro_torch.kernels import ops
+    from repro_torch.network.fabric import (_bit_plane, _clear_own_bit,
+                                            _own_word)
+    w = ring.shape[1]
+    already = ok & ((_own_word(ring, off) & bit(off % 32)) != 0)
+    ring, base, rtx, adv = ops.sack_fused(ring, base, rtx,
+                                          _bit_plane(off, ok, w))
+    return ring, base, _clear_own_bit(rtx, off - adv, clear), adv, already
+
+
+def _site_advance_dense(ring, base, off, ok):
+    """The tick's delivery site as it ran before the own-bit kernel: the
+    old bit's test, the bit plane's OR and the dense ``sack_advance``."""
+    from repro_torch._u32 import bit
+    from repro_torch.kernels import ops
+    from repro_torch.network.fabric import _bit_plane, _own_word
+    already = ok & ((_own_word(ring, off) & bit(off % 32)) != 0)
+    ring, base, adv = ops.sack_advance(
+        ring | _bit_plane(off, ok, ring.shape[1]), base)
+    return ring, base, adv, already
+
+
+def _device_ops(fn, calls: int = 10) -> float:
+    """Device operations (kernels, memsets, copies) per call of ``fn``:
+    the most that any of three traces holds."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    counts = []
+    for _ in range(3):   # a trace now and then comes back with records lost
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        counts.append(sum(1 for e in prof.events()
+                          if e.device_type == torch.autograd.DeviceType.CUDA))
+    if not max(counts):
+        raise RuntimeError("three profiler traces hold no device operation")
+    return max(counts) / calls
+
+
+def phase_sites() -> dict:
+    """Each own-bit kernel beside the composition it replaced on the
+    tick, on the same inputs at the main path's shape: bitwise equal, and
+    both timed with CUDA events in turns (dense, own, own, dense)."""
+    from repro_torch.kernels import ops
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(1313)
+    ring, base, rtx, off, ok, clear = _own_inputs(rng, F_MAIN, W_MAIN, dev)
+    ok = ok & (off >= 0) & (off < 32 * W_MAIN)   # the tick's range test
+    sites = {
+        "sack_fused_own": (_site_fused_dense, ops.sack_fused_own,
+                           (ring, base, rtx, off, ok, clear)),
+        "sack_advance_own": (_site_advance_dense, ops.sack_advance_own,
+                             (ring, base, off, ok)),
+    }
+    out = {}
+    for name, (dense, own, args) in sites.items():
+        got, want = own(*args), dense(*args)
+        torch.cuda.synchronize()
+        _assert_equal(got, want, f"site {name}")
+        t = [_median_ms(lambda f=f: f(*args))
+             for f in (dense, own, own, dense)]
+        out[name] = {"dense_ms": (t[0] + t[3]) / 2, "own_ms": (t[1] + t[2]) / 2,
+                     "dense_ms_runs": [t[0], t[3]],
+                     "own_ms_runs": [t[1], t[2]],
+                     "dense_device_ops": _device_ops(lambda: dense(*args)),
+                     "own_device_ops": _device_ops(lambda: own(*args))}
+        r = out[name]
+        say("3 sites", f"{name}: bitwise equal to the dense composition it "
+            f"replaced at F={F_MAIN}, W={W_MAIN}; dense {r['dense_ms'] * 1e3:.2f} us "
+            f"({r['dense_device_ops']:.0f} device ops), own "
+            f"{r['own_ms'] * 1e3:.2f} us ({r['own_device_ops']:.0f} device ops)")
+    return out
 
 
 def _row(name, err, timing) -> dict:
@@ -493,15 +647,15 @@ def _flat(d: dict, prefix: str = "") -> dict:
     return out
 
 
-def phase_profiles() -> "tuple[dict, torch.Tensor]":
+def phase_profiles() -> "tuple[dict, dict]":
     """Phase 5, the profile table at full width against the references.
-    Returns the results and the hpc run's final NSCC windows."""
+    Returns the results and each run's final state, by tag."""
     from repro_torch.convert import state_to_numpy
     from repro_torch.kernels import ops
     from repro_torch.network.fabric import simulate
     _, g, wl, _, p = _fullsize()
     ref = np.load(PROFILES)
-    out = {}
+    out, states = {}, {}
     for tag, prof in _profiles(int(wl.src.shape[0])).items():
         assert str(ref[f"{tag}/describe"]) == prof.describe(), tag
         modes = prof.delivery_modes(int(wl.src.shape[0]))
@@ -548,19 +702,23 @@ def phase_profiles() -> "tuple[dict, torch.Tensor]":
             f"{peak / 2 ** 30:.2f} GiB, launches {launches}; bitwise equal to "
             f"the JAX reference on the stats and {len(lanes)} state lanes "
             f"{scalars}")
-        if tag == "hpc":
-            hpc_cwnd = s.cc["nscc"].cwnd
-    return out, hpc_cwnd
+        states[tag] = s
+    return out, states
 
 
-def phase_entry_points(hpc_cwnd: torch.Tensor) -> dict:
-    """The batched kernels through their public entry points, as a user
-    calls them: one coalesced NSCC ACK round over the hpc run's 2048
-    windows, and the ECMP port choice of one tick's Q + F = 7168 packet
-    lanes of the ai_full fabric (each queue's head packet at its next
-    switch, each flow's next injection at its source leaf)."""
+def phase_entry_points(states: dict) -> dict:
+    """The kernels that are not on the tick, through their public entry
+    points, as a user calls them: one coalesced NSCC ACK round over the
+    hpc run's 2048 windows; the ECMP port choice of one tick's
+    Q + F = 7168 packet lanes of the ai_full fabric (each queue's head
+    packet at its next switch, each flow's next injection at its source
+    leaf); and the dense SACK forms of ``repro.kernels.ops`` on the mixed
+    run's final rings, one received PSN on half the flows."""
     from repro_torch.kernels import ops, ref
     from repro_torch.network.ecmp import RoutingTables
+    from repro_torch.network.fabric import _bit_plane
+    hpc_cwnd = states["hpc"].cc["nscc"].cwnd
+    st = states["mixed"]
     _, g, wl, _, p = _fullsize()
     dev = torch.device("cuda")
     rng = np.random.default_rng(12)
@@ -578,9 +736,17 @@ def phase_entry_points(hpc_cwnd: torch.Tensor) -> dict:
     dst = torch.cat([wl.dst[qflow.long()], wl.dst])
     salt = torch.cat([rt.next_switch, rt.host_leaf[wl.src.long()]])
     params = _nscc_params()[0]
+    w = int(st.rtx.shape[1])
+    mask = _bit_plane(
+        torch.as_tensor(rng.integers(0, 32 * w, F).astype(np.int32)).to(dev),
+        torch.as_tensor(rng.integers(0, 2, F).astype(bool)).to(dev), w)
+    sack_in = (st.src_track.ring, st.src_track.base, st.rtx, mask)
+    adv_in = (st.dst_track.ring | mask, st.dst_track.base)
     ops.reset_launches()
     cwnd2 = ops.nscc_update(hpc_cwnd, ecn, rtt, count, params)
     port = ops.ecmp_select(src, dst, ev, salt, g.fanout1)
+    fused = ops.sack_fused(*sack_in)
+    advanced = ops.sack_advance(*adv_in)
     torch.cuda.synchronize()
     launches = {k: ops.LAUNCHES[k] for k in ENTRY_KERNELS}
     for k, n in launches.items():
@@ -591,14 +757,22 @@ def phase_entry_points(hpc_cwnd: torch.Tensor) -> dict:
     _assert_bits(port.cpu().numpy(),
                  ref.ecmp_hash_ref(src.cpu(), dst.cpu(), ev.cpu(), salt.cpu(),
                                    g.fanout1).numpy(), "ecmp ports")
+    for what, got, want in (
+            ("sack_fused", fused, ref.sack_fused_ref(
+                *(t.cpu() for t in sack_in))),
+            ("sack_advance", advanced, ref.sack_advance_ref(
+                *(t.cpu() for t in adv_in)))):
+        for i, (a, b) in enumerate(zip(got, want)):
+            _assert_bits(a.cpu().numpy(), b.numpy(), f"{what} output {i}")
     # the injection lanes' ports are the tick's own first-hop choice
     remote = rt.host_leaf[wl.src.long()] != rt.host_leaf[wl.dst.long()]
     sleaf = rt.host_leaf[wl.src.long()].long()
     up = rt.up1[sleaf, port[Q:].long()]
     inj = rt.injection_queue(wl.src, wl.dst, ev[Q:])
     assert torch.equal(up[remote], inj[remote]), "first-hop port"
-    say("5 entry points", f"ops.nscc_update over {F} windows and "
-        f"ops.ecmp_select over {Q + F} packet lanes (fanout {g.fanout1}): "
+    say("5 entry points", f"ops.nscc_update over {F} windows, "
+        f"ops.ecmp_select over {Q + F} packet lanes (fanout {g.fanout1}) "
+        f"and ops.sack_fused / sack_advance over {F} rings of {w} words: "
         f"bitwise equal to the plain versions on the CPU, injection ports "
         f"equal to the tick's routing; launches {launches}")
     return {"launches": launches}
@@ -644,9 +818,10 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(ROOT / "src"))
     result = {"nvidia_smi": smi, "device": device,
               "build": phase_build(), "kernels": phase_kernels(),
-              "goldens": phase_goldens(), "full_width": phase_fullwidth()}
-    result["profiles"], hpc_cwnd = phase_profiles()
-    result["entry_points"] = phase_entry_points(hpc_cwnd)
+              "sites": phase_sites(), "goldens": phase_goldens(),
+              "full_width": phase_fullwidth()}
+    result["profiles"], states = phase_profiles()
+    result["entry_points"] = phase_entry_points(states)
     result["cross_device"] = phase_cross_device()
     kernels = []
     for name, row in result["kernels"].items():

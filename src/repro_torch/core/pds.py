@@ -16,7 +16,7 @@ from dataclasses import dataclass
 
 import torch
 
-from repro_torch._u32 import funnel_r, shr
+from repro_torch._u32 import bit, funnel_r, shr
 
 WORD = 32  # ring bitmap word width
 
@@ -97,6 +97,17 @@ def shift_ring(ring: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
     hi = torch.where(idx + 1 < W, ring.gather(1, (idx + 1).clamp(0, W - 1)),
                      0)
     return funnel_r(lo, hi, (count % WORD)[:, None])
+
+
+def bit_plane(off: torch.Tensor, valid: torch.Tensor, w: int) -> torch.Tensor:
+    """[N, W] uint32 plane with row i's bit `off[i]` set where valid[i]
+    and 0 <= off[i] < W*32 (signed): the dense replacement for a
+    one-lane-per-row bit scatter, elementwise."""
+    o = off.clamp(0, w * WORD - 1)
+    wordsel = (torch.arange(w, device=off.device)[None, :]
+               == torch.div(o, WORD, rounding_mode="floor")[:, None])
+    ok = valid & (off >= 0) & (off < w * WORD)
+    return torch.where(ok[:, None] & wordsel, bit(o % WORD)[:, None], 0)
 
 
 def ooo_distance(t: PSNTracker) -> torch.Tensor:

@@ -35,6 +35,8 @@ SIGNATURES = {
     "sack": {
         "sack_advance_launch": (_P, _P, _P, _P, _P, _I, _I, _P),
         "sack_fused_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
+        "sack_advance_own_launch": (_P,) * 8 + (_I, _I, _P),
+        "sack_fused_own_launch": (_P,) * 11 + (_I, _I, _P),
     },
     "nack_mark": {
         "nack_mark_launch": (_P, _P, _P, _P, _I, _I, _I, _P),

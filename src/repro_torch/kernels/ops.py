@@ -1,7 +1,8 @@
-"""Dispatch for the port's five kernels (the port of
-``repro.kernels.ops``): the fabric tick's ``sack_fused``, ``nack_mark``
-and ``sack_advance``, and the batched ``nscc_update`` and
-``ecmp_select``.
+"""Dispatch for the port's kernels (the port of ``repro.kernels.ops``,
+plus the own-bit SACK forms of the port's tick): ``sack_fused``,
+``nack_mark`` and ``sack_advance`` of the reference's tick, their
+own-bit forms ``sack_fused_own`` / ``sack_advance_own`` that the port's
+tick runs, and the batched ``nscc_update`` and ``ecmp_select``.
 
 A CPU tensor goes to the plain PyTorch version in ``ref.py``; a CUDA
 tensor goes to the hand-written CUDA kernel (``csrc/``, built by
@@ -21,9 +22,12 @@ from repro_torch.core.cms.nscc import NSCCParams
 from repro_torch.kernels import build, ref
 
 LAUNCHES = {"sack_fused": 0, "nack_mark": 0, "sack_advance": 0,
+            "sack_fused_own": 0, "sack_advance_own": 0,
             "nscc_update": 0, "ecmp_select": 0}
 
-MAX_WORDS = 32  # one warp per ring row: W <= 32 words (mp_range <= 1024)
+MAX_WORDS = 32  # a ring row fits one warp: W <= 32 words (mp_range <= 1024)
+
+_C_FNS: dict = {}
 
 
 def reset_launches() -> None:
@@ -68,8 +72,24 @@ def _check(err: int, name: str) -> None:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
 
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+def _launch(name: str, lib: str, t: torch.Tensor, *args) -> None:
+    """Launch kernel ``name`` (C function ``{name}_launch`` of library
+    ``lib``, resolved once) on ``t``'s device and its current stream,
+    raise on the CUDA error the launch returns, and count the launch."""
+    fn = _C_FNS.get(name)
+    if fn is None:
+        fn = _C_FNS[name] = getattr(build.load(lib), f"{name}_launch")
+    dev = t.device
+    # the raw handle of the current stream, without building the
+    # torch.cuda.Stream object that current_stream() returns
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    if dev.index == torch.cuda.current_device():
+        err = fn(*args, stream)
+    else:
+        with torch.cuda.device(dev):
+            err = fn(*args, stream)
+    _check(err, name)
+    LAUNCHES[name] += 1
 
 
 # ------------------------------------------------------------- kernels --
@@ -83,13 +103,9 @@ def sack_advance_cuda(ring: torch.Tensor, base: torch.Tensor):
     ring_out, base_out = torch.empty_like(ring), torch.empty_like(base)
     adv = torch.empty_like(base)
     if n:
-        with torch.cuda.device(ring.device):
-            lib = build.load("sack")
-            _check(lib.sack_advance_launch(
-                ring.data_ptr(), base.data_ptr(), ring_out.data_ptr(),
-                base_out.data_ptr(), adv.data_ptr(), n, w, _stream(ring)),
-                "sack_advance")
-        LAUNCHES["sack_advance"] += 1
+        _launch("sack_advance", "sack", ring, ring.data_ptr(),
+                base.data_ptr(), ring_out.data_ptr(), base_out.data_ptr(),
+                adv.data_ptr(), n, w)
     return ring_out, base_out, adv
 
 
@@ -105,15 +121,56 @@ def sack_fused_cuda(ring: torch.Tensor, base: torch.Tensor, rtx: torch.Tensor,
     ring_out, rtx_out = torch.empty_like(ring), torch.empty_like(rtx)
     base_out, adv = torch.empty_like(base), torch.empty_like(base)
     if n:
-        with torch.cuda.device(ring.device):
-            lib = build.load("sack")
-            _check(lib.sack_fused_launch(
-                ring.data_ptr(), base.data_ptr(), rtx.data_ptr(),
-                mask.data_ptr(), ring_out.data_ptr(), base_out.data_ptr(),
-                rtx_out.data_ptr(), adv.data_ptr(), n, w, _stream(ring)),
-                "sack_fused")
-        LAUNCHES["sack_fused"] += 1
+        _launch("sack_fused", "sack", ring, ring.data_ptr(), base.data_ptr(),
+                rtx.data_ptr(), mask.data_ptr(), ring_out.data_ptr(),
+                base_out.data_ptr(), rtx_out.data_ptr(), adv.data_ptr(), n, w)
     return ring_out, base_out, rtx_out, adv
+
+
+def sack_advance_own_cuda(ring: torch.Tensor, base: torch.Tensor,
+                          off: torch.Tensor, ok: torch.Tensor):
+    """CUDA kernel: ``sack_advance`` recording each row's own bit
+    ``off`` (int32) where ``ok`` (bool); also returns ``already``."""
+    _on_cuda(ring, base, off, ok)
+    n, w = _ring_shape(ring)
+    _require("ring", ring, torch.int32, (n, w))
+    _require("base", base, torch.int32, (n,))
+    _require("off", off, torch.int32, (n,))
+    _require("ok", ok, torch.bool, (n,))
+    ring_out, base_out = torch.empty_like(ring), torch.empty_like(base)
+    adv, already = torch.empty_like(base), torch.empty_like(ok)
+    if n:
+        _launch("sack_advance_own", "sack", ring, ring.data_ptr(),
+                base.data_ptr(), off.data_ptr(), ok.data_ptr(),
+                ring_out.data_ptr(), base_out.data_ptr(), adv.data_ptr(),
+                already.data_ptr(), n, w)
+    return ring_out, base_out, adv, already
+
+
+def sack_fused_own_cuda(ring: torch.Tensor, base: torch.Tensor,
+                        rtx: torch.Tensor, off: torch.Tensor, ok: torch.Tensor,
+                        clear: torch.Tensor):
+    """CUDA kernel: ``sack_fused`` recording each row's own bit ``off``
+    (int32) where ``ok`` and clearing bit ``off - adv`` of the shifted
+    rtx where ``clear`` (bool); also returns ``already``."""
+    _on_cuda(ring, base, rtx, off, ok, clear)
+    n, w = _ring_shape(ring)
+    _require("ring", ring, torch.int32, (n, w))
+    _require("base", base, torch.int32, (n,))
+    _require("rtx", rtx, torch.int32, (n, w))
+    _require("off", off, torch.int32, (n,))
+    _require("ok", ok, torch.bool, (n,))
+    _require("clear", clear, torch.bool, (n,))
+    ring_out, rtx_out = torch.empty_like(ring), torch.empty_like(rtx)
+    base_out, adv = torch.empty_like(base), torch.empty_like(base)
+    already = torch.empty_like(ok)
+    if n:
+        _launch("sack_fused_own", "sack", ring, ring.data_ptr(),
+                base.data_ptr(), rtx.data_ptr(), off.data_ptr(),
+                ok.data_ptr(), clear.data_ptr(), ring_out.data_ptr(),
+                base_out.data_ptr(), rtx_out.data_ptr(), adv.data_ptr(),
+                already.data_ptr(), n, w)
+    return ring_out, base_out, rtx_out, adv, already
 
 
 def nack_mark_cuda(rtx: torch.Tensor, flow: torch.Tensor, off: torch.Tensor,
@@ -128,12 +185,9 @@ def nack_mark_cuda(rtx: torch.Tensor, flow: torch.Tensor, off: torch.Tensor,
     _require("valid", valid, torch.bool, (lanes,))
     out = rtx.clone()
     if lanes and f:
-        with torch.cuda.device(rtx.device):
-            lib = build.load("nack_mark")
-            _check(lib.nack_mark_launch(
-                out.data_ptr(), flow.data_ptr(), off.data_ptr(),
-                valid.data_ptr(), lanes, f, w, _stream(rtx)), "nack_mark")
-        LAUNCHES["nack_mark"] += 1
+        _launch("nack_mark", "nack_mark", rtx, out.data_ptr(),
+                flow.data_ptr(), off.data_ptr(), valid.data_ptr(), lanes, f,
+                w)
     return out
 
 
@@ -158,13 +212,9 @@ def nscc_update_cuda(cwnd: torch.Tensor, ecn: torch.Tensor, rtt: torch.Tensor,
         consts = (params.base_rtt * params.target_factor, -params.md,
                   params.quick_gain, params.ai, 1e-6, params.min_cwnd,
                   params.max_cwnd)
-        with torch.cuda.device(cwnd.device):
-            lib = build.load("nscc_update")
-            _check(lib.nscc_update_launch(
-                cwnd.data_ptr(), ecn.data_ptr(), rtt.data_ptr(),
-                count.data_ptr(), out.data_ptr(), n, *consts,
-                _stream(cwnd)), "nscc_update")
-        LAUNCHES["nscc_update"] += 1
+        _launch("nscc_update", "nscc_update", cwnd, cwnd.data_ptr(),
+                ecn.data_ptr(), rtt.data_ptr(), count.data_ptr(),
+                out.data_ptr(), n, *consts)
     return out
 
 
@@ -178,13 +228,9 @@ def ecmp_select_cuda(src: torch.Tensor, dst: torch.Tensor, ev: torch.Tensor,
         _require(name, t, torch.int32, (n,))
     out = torch.empty_like(src)
     if n:
-        with torch.cuda.device(src.device):
-            lib = build.load("ecmp_hash")
-            _check(lib.ecmp_select_launch(
-                src.data_ptr(), dst.data_ptr(), ev.data_ptr(),
-                salt.data_ptr(), out.data_ptr(), n, int(fanout),
-                _stream(src)), "ecmp_select")
-        LAUNCHES["ecmp_select"] += 1
+        _launch("ecmp_select", "ecmp_hash", src, src.data_ptr(),
+                dst.data_ptr(), ev.data_ptr(), salt.data_ptr(),
+                out.data_ptr(), n, int(fanout))
     return out
 
 
@@ -208,6 +254,24 @@ def sack_fused(ring, base, rtx, mask):
     if _on_cuda(ring, base, rtx, mask):
         return sack_fused_cuda(ring, base, rtx, mask)
     return ref.sack_fused_ref(ring, base, rtx, mask)
+
+
+def sack_advance_own(ring, base, off, ok):
+    """CACK advance recording each row's own received bit ``off``
+    (PSN - base, int32) where ``ok`` (bool): (ring', base', adv,
+    already)."""
+    if _on_cuda(ring, base, off, ok):
+        return sack_advance_own_cuda(ring, base, off, ok)
+    return ref.sack_advance_own_ref(ring, base, off, ok)
+
+
+def sack_fused_own(ring, base, rtx, off, ok, clear):
+    """Fused SACK on each row's own ACKed bit ``off`` (int32) where
+    ``ok``, then bit ``off - adv`` of the shifted rtx cleared where
+    ``clear`` (bool): (ring', base', rtx', adv, already)."""
+    if _on_cuda(ring, base, rtx, off, ok, clear):
+        return sack_fused_own_cuda(ring, base, rtx, off, ok, clear)
+    return ref.sack_fused_own_ref(ring, base, rtx, off, ok, clear)
 
 
 def nack_mark(rtx, flow, off, valid):

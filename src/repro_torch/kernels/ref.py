@@ -1,6 +1,7 @@
-"""Plain PyTorch versions of the port's five kernels: the fabric tick's
-three (SACK advance, fused SACK, NACK marking) and the batched NSCC
-window update and ECMP port selection.
+"""Plain PyTorch versions of the port's kernels: the three of the
+reference's tick (SACK advance, fused SACK, NACK marking), the own-bit
+forms of the two SACK kernels that the port's tick runs, and the batched
+NSCC window update and ECMP port selection.
 
 These run for CPU tensors (the tests) and are what ``chip_smoke.py``
 holds each CUDA kernel against on the card, bit for bit. All rings and
@@ -13,7 +14,7 @@ import torch
 
 from repro_torch._u32 import from_u64, umod
 from repro_torch.core.cms.nscc import NSCCParams, window_delta
-from repro_torch.core.pds import shift_ring, trailing_ones
+from repro_torch.core.pds import bit_plane, shift_ring, trailing_ones
 from repro_torch.network.ecmp import ecmp_hash
 
 
@@ -56,6 +57,33 @@ def sack_fused_ref(ring: torch.Tensor, base: torch.Tensor, rtx: torch.Tensor,
     ring = ring | mask
     adv = trailing_ones(ring)
     return shift_ring(ring, adv), base + adv, shift_ring(rtx, adv), adv
+
+
+def sack_advance_own_ref(ring: torch.Tensor, base: torch.Tensor,
+                         off: torch.Tensor, ok: torch.Tensor):
+    """``sack_advance`` with the row's own received bit: row i records
+    bit off[i] (PSN - base, int32) where ok[i] and 0 <= off[i] < W*32,
+    then advances. Returns (new_ring, new_base, advanced[int32],
+    already[bool]), ``already`` = the bit was set in the old ring."""
+    mask = bit_plane(off, ok, ring.shape[1])
+    already = ((ring & mask) != 0).any(dim=1)
+    return (*sack_advance_ref(ring | mask, base), already)
+
+
+def sack_fused_own_ref(ring: torch.Tensor, base: torch.Tensor,
+                       rtx: torch.Tensor, off: torch.Tensor, ok: torch.Tensor,
+                       clear: torch.Tensor):
+    """``sack_fused`` with the row's own ACKed bit: records bit off[i]
+    as ``sack_advance_own_ref`` does, advances and shifts both rings, and
+    where clear[i] clears bit off[i] - adv[i] (the ACKed PSN against the
+    new base, uint32 wrap) of the shifted rtx ring if it lies in
+    [0, W*32). Returns (new_ring, new_base, new_rtx, advanced[int32],
+    already[bool])."""
+    w = ring.shape[1]
+    mask = bit_plane(off, ok, w)
+    already = ((ring & mask) != 0).any(dim=1)
+    ring, base, rtx, adv = sack_fused_ref(ring, base, rtx, mask)
+    return ring, base, rtx & ~bit_plane(off - adv, clear, w), adv, already
 
 
 def nack_mark_ref(rtx: torch.Tensor, flow: torch.Tensor, off: torch.Tensor,

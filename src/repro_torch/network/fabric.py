@@ -11,10 +11,13 @@ numbered sections as the reference, so the two read side by side) and
 syncing with the host once per chunk to test quiescence.
 
 Three kernels run every tick through ``repro_torch.kernels.ops``:
-``sack_fused`` (section 1, source ACKs), ``nack_mark`` (section 1, NACKed
-PSNs into the retransmit ring) and ``sack_advance`` (section 5, receiver
-CACK). On CUDA tensors they are hand-written CUDA; on CPU tensors their
-plain PyTorch versions.
+``sack_fused_own`` (section 1, source ACKs), ``nack_mark`` (section 1,
+NACKed PSNs into the retransmit ring) and ``sack_advance_own`` (section
+5, receiver CACK). The two SACK kernels take each flow's own PSN offset
+and set, test and clear its bit themselves, where the reference builds
+an [F, W] bit plane around its dense ``sack_fused`` / ``sack_advance``.
+On CUDA tensors they are hand-written CUDA; on CPU tensors their plain
+PyTorch versions.
 
 Every profile of the paper's table runs: each CC composition (NSCC,
 RCCC, their hybrid, open loop), every LB scheme (STATIC, OBLIVIOUS,
@@ -169,14 +172,7 @@ def _first_set_bit(ring: torch.Tensor) -> torch.Tensor:
     return torch.where(has, first_w * 32 + ctz, -1).to(I32)
 
 
-def _bit_plane(off: torch.Tensor, valid: torch.Tensor, w: int) -> torch.Tensor:
-    """[F, W] uint32 plane with row i's bit `off[i]` set (elementwise —
-    the dense replacement for a one-lane-per-row bit scatter)."""
-    o = off.clamp(0, w * 32 - 1)
-    wordsel = (torch.arange(w, device=off.device)[None, :]
-               == torch.div(o, 32, rounding_mode="floor")[:, None])
-    ok = valid & (off >= 0) & (off < w * 32)
-    return torch.where(ok[:, None] & wordsel, bit(o % 32)[:, None], 0)
+_bit_plane = pds.bit_plane
 
 
 def _set_own_bit(ring, off, valid):
@@ -361,15 +357,16 @@ def make_step(g: QueueGraph, profile: TransportProfile, p: SimParams, F: int,
         ack_psn = _pick(hot_ack, ep)
 
         # ACKs: record at source, advance CACK, shift the rtx ring in
-        # lockstep — the fused SACK kernel
+        # lockstep, and clear the ACKed PSN's pending retransmit bit
+        # (its offset from the new base; ACK'd PSNs can't be pending
+        # retransmit anymore) — the fused SACK kernel on each row's own
+        # bit. Nothing between the reference's fused call and its clear
+        # touches rtx, so the kernel does both.
         ack_off0 = ack_psn - s.src_track.base          # uint32 wrap
         ack_in_range = has_ack & (ack_off0 >= 0) & (ack_off0 < mp)
-        ack_bit = bit(ack_off0 % 32)
-        ack_already = ack_in_range & (
-            (_own_word(s.src_track.ring, ack_off0) & ack_bit) != 0)
-        ack_mask = _bit_plane(ack_off0, ack_in_range, W)
-        src_ring, src_base, rtx, adv = kops.sack_fused(
-            s.src_track.ring, s.src_track.base, s.rtx, ack_mask)
+        src_ring, src_base, rtx, adv, ack_already = kops.sack_fused_own(
+            s.src_track.ring, s.src_track.base, s.rtx, ack_off0,
+            ack_in_range, has_ack)
         src_track = pds.PSNTracker(
             base=src_base, ring=src_ring,
             rx_ok=s.src_track.rx_ok + (ack_in_range & ~ack_already).to(I32),
@@ -391,11 +388,6 @@ def make_step(g: QueueGraph, profile: TransportProfile, p: SimParams, F: int,
         # at its base value: backoff is not ported)
         last_progress = torch.where(has_ack, tick, s.last_progress)
         rto = s.rto
-
-        # ACK'd PSNs can't be pending retransmit anymore (offsets are
-        # relative to the new base: rtx was shifted by the fused kernel)
-        ack_off = ack_psn - src_track.base
-        rtx = _clear_own_bit(rtx, ack_off, has_ack)
 
         # NACKs (trim / OOO): mark the PSN for selective retransmit (RUD;
         # ROD rewinds instead, section 3). Lanes [Q, E) are the
@@ -557,12 +549,9 @@ def make_step(g: QueueGraph, profile: TransportProfile, p: SimParams, F: int,
             d_rec = d_in_range & ~rod_rej_f
         else:
             d_rec = d_in_range
-        d_bit = bit(d_off % 32)
-        d_already = d_rec & (
-            (_own_word(s.dst_track.ring, d_off) & d_bit) != 0)
+        d_ring, d_base, _, d_already = kops.sack_advance_own(
+            s.dst_track.ring, s.dst_track.base, d_off, d_rec)
         fresh_f = d_rec & ~d_already
-        d_ring = s.dst_track.ring | _bit_plane(d_off, d_rec, W)
-        d_ring, d_base, _ = kops.sack_advance(d_ring, s.dst_track.base)
         dst_track = pds.PSNTracker(
             base=d_base, ring=d_ring,
             rx_ok=s.dst_track.rx_ok + fresh_f.to(I32),

@@ -1,4 +1,4 @@
-"""The port's five hand-written CUDA kernels against their plain PyTorch
+"""The port's hand-written CUDA kernels against their plain PyTorch
 versions on a card, bit for bit (float lanes as bit patterns, NaN
 included). Every test is ``cuda``-marked and skips without a card.
 
@@ -69,6 +69,34 @@ def test_sack_kernels_match_plain_on_card(cuda, n, w):
     for got, want in zip(ops.sack_advance_cuda(ring, base),
                          ref.sack_advance_ref(ring, base)):
         assert _same_bits(got, want)
+
+
+def _own_lanes(n, w):
+    """Row offsets over [-8, 32 W + 8) with the edge offsets -1, 31, 32
+    and 32 W, and ok / clear lanes, as numpy."""
+    off = RNG.integers(-8, 32 * w + 8, n).astype(np.int32)
+    k = min(n, 4)
+    off[:k] = [-1, 31, 32, 32 * w][:k]
+    return (off, RNG.integers(0, 4, n) > 0, RNG.integers(0, 4, n) > 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 33, 2048])
+@pytest.mark.parametrize("w", [1, 3, 8, 16, 17, 32])
+def test_sack_own_kernels_match_plain_on_card(cuda, n, w):
+    ring, base = _t(_sack_rows(n, w), cuda), _t(_words(n), cuda)
+    rtx = _t(_words((n, w)), cuda)
+    off, ok, clear = (_t(a, cuda) for a in _own_lanes(n, w))
+    got = ops.sack_fused_own_cuda(ring, base, rtx, off, ok, clear)
+    want = ref.sack_fused_own_ref(ring, base, rtx, off, ok, clear)
+    assert len(got) == len(want) == 5
+    for g, x in zip(got, want):
+        assert _same_bits(g, x)
+    got = ops.sack_advance_own_cuda(ring, base, off, ok)
+    want = ref.sack_advance_own_ref(ring, base, off, ok)
+    assert len(got) == len(want) == 4
+    for g, x in zip(got, want):
+        assert _same_bits(g, x)
 
 
 @pytest.mark.cuda

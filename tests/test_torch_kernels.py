@@ -170,18 +170,25 @@ def test_cpu_tensors_take_the_plain_versions_and_count_nothing():
                          ref.sack_advance_ref(ring, base)):
         assert torch.equal(got, want)
     ops.sack_fused(ring, base, ring, ring)
+    off, ok = _t(np.arange(8, dtype=np.int32)), _t(np.ones(8, bool))
+    ops.sack_fused_own(ring, base, ring, off, ok, ok)
+    ops.sack_advance_own(ring, base, off, ok)
     ops.nack_mark(ring, _t(np.zeros(3, np.int32)), _t(np.zeros(3, np.int32)),
                   _t(np.ones(3, bool)))
     assert ops.LAUNCHES == before
 
 
 @pytest.mark.parametrize("kernel", ["sack_fused", "sack_advance",
-                                    "nack_mark"])
+                                    "nack_mark", "sack_fused_own",
+                                    "sack_advance_own"])
 def test_kernels_refuse_cpu_tensors(kernel):
     ring, base = _t(_sack_rows(8, 4)), _t(_words(8))
     lanes = _t(np.zeros(3, np.int32))
+    off, ok = _t(np.zeros(8, np.int32)), _t(np.ones(8, bool))
     args = {"sack_fused": (ring, base, ring, ring),
             "sack_advance": (ring, base),
-            "nack_mark": (ring, lanes, lanes, _t(np.ones(3, bool)))}[kernel]
+            "nack_mark": (ring, lanes, lanes, _t(np.ones(3, bool))),
+            "sack_fused_own": (ring, base, ring, off, ok, ok),
+            "sack_advance_own": (ring, base, off, ok)}[kernel]
     with pytest.raises(ValueError, match="CUDA tensor"):
         getattr(ops, f"{kernel}_cuda")(*args)
