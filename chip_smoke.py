@@ -9,22 +9,29 @@ Phases, one line each:
    no run: the script exits non-zero before printing any result.
 2. build  — compile every CUDA kernel of the port from ``src/repro_torch/
    kernels/csrc`` (one ``nvcc`` per source, in parallel).
-3. kernels — each of the seven kernels against its plain PyTorch
+3. kernels — each of the ten kernels against its plain PyTorch
    version on the card, random inputs plus edge lanes, bitwise: the
    dense ``sack_fused`` / ``sack_advance`` and ``nack_mark`` at the main
    path's shapes (F = 2048 flows, W = 16 ring words, L = Q + 2F = 9216
    NACK lanes); the own-bit ``sack_fused_own`` / ``sack_advance_own``
-   at N in {1, 33, 2048} x W in {1, 3, 8, 16, 17, 32}, and timed at the
-   main shape; ``nscc_update`` (N = F = 2048) and ``ecmp_select``
-   (N = Q + F = 7168) at the entry-point path's shapes and at a pool of
-   N = 2**24 lanes. Kernel and plain times (CUDA events, warm, median of
-   20) beside the bound; each kernel's device time alone
-   (``torch.profiler``, CUDA kernel time / launches). Then the sites:
-   each own-bit kernel beside the dense composition that the tick ran
-   before it (bit plane, old-bit test, dense kernel, and for the ACK
-   site the clear of the ACKed bit; a copy of it is kept here), bitwise,
-   both timed with CUDA events in turns, with their device operations
-   per call.
+   at N in {1, 33, 2048} x W in {1, 3, 8, 16, 17, 32}, and the in-place
+   marks on the retransmit ring ``nack_mark_lanes`` (with and without a
+   ROD mask), ``set_own_bit`` (with and without ``unless``) and
+   ``clear_own_bit`` at F in {1, 33, 2048} x W in {1, 3, 16, 17, 32},
+   each timed at the main shape; ``nscc_update`` (N = F = 2048) and
+   ``ecmp_select`` (N = Q + F = 7168) at the entry-point path's shapes
+   and at a pool of N = 2**24 lanes. Kernel and plain times (CUDA
+   events, warm, median of 20) beside the bound (for the marks, the
+   bytes this data needs: the lanes, and the rows and words they
+   reach); each kernel's device time alone (``torch.profiler``, CUDA
+   kernel time / launches). Then the sites: each tick kernel beside the
+   dense composition that the tick ran before it (bit plane, old-bit
+   test, dense kernel, and for the ACK site the clear of the ACKed bit;
+   for the NACK site its lane arithmetic and the copying ``nack_mark``;
+   for the RTO set, the retransmit clear and the RR_SLOTS mark the
+   [F, W] plane, and the old-bit test for the last; a copy of each is
+   kept here), bitwise, both timed with CUDA events in turns, with their
+   device operations per call.
 4. goldens — the two reference goldens (``tests/golden/fabric_golden.npz``)
    reproduced bitwise on the card.
 5. full width — ``fat_tree3(k=16, pods=16)`` (1024 endpoints, Q = 5120)
@@ -36,16 +43,19 @@ Phases, one line each:
    per-flow stats, final state lanes and counters are bitwise equal to
    the JAX references (``tests/golden/torch_port_fullsize.npz`` and
    ``torch_port_profiles.npz``, written by
-   ``scripts/torch_port_reference.py``), and each tick kernel
-   (``sack_fused_own``, ``nack_mark``, ``sack_advance_own``) is launched
-   once per tick (``nack_mark`` not at all under all-ROD, whose tick has
-   no selective-retransmit path) and the dense SACK forms never. Then
-   the kernel entry points (``repro_torch.kernels.ops.nscc_update`` /
-   ``ecmp_select`` / ``sack_fused`` / ``sack_advance``): one batched
-   NSCC round over the hpc run's 2048 windows, the ECMP port choice of
-   7168 packet lanes of the ai_full run, and the dense SACK forms on the
-   mixed run's final rings, checked against the plain versions and the
-   tick's own routing.
+   ``scripts/torch_port_reference.py``), and each tick kernel is
+   launched as often per tick as the run's sites say (``PER_TICK``: the
+   two SACK kernels once; ``nack_mark_lanes``, ``set_own_bit`` and
+   ``clear_own_bit`` 1, 1, 1 under ``ai_full`` and ``ai_base``, 0, 0, 1
+   under all-ROD ``hpc()``, whose tick has no selective-retransmit path
+   or RTO mark, and 1, 3, 1 under RR_SLOTS, whose loss inference marks
+   twice) and the entry-point forms never. Then the kernel entry points
+   (``repro_torch.kernels.ops.nscc_update`` / ``ecmp_select`` /
+   ``sack_fused`` / ``sack_advance`` / ``nack_mark``): one batched NSCC
+   round over the hpc run's 2048 windows, the ECMP port choice of 7168
+   packet lanes of the ai_full run, and the dense SACK forms and the
+   copying NACK mark on the mixed run's final rings, checked against the
+   plain versions and the tick's own routing.
 6. cross-device — the first 128-tick chunk of the ai_full run with
    ``trace="full"`` on the card and on the CPU (plain versions), bitwise.
 
@@ -82,7 +92,8 @@ KERNELS = {
                    "src/repro/kernels/sack_fused.py:91",
                    "sack_kernel<true, false,"),
     "nack_mark": ("src/repro_torch/kernels/csrc/nack_mark.cu",
-                  "src/repro/kernels/nack_mark.py:70", "nack_mark_kernel"),
+                  "src/repro/kernels/nack_mark.py:70",
+                  "nack_mark_kernel<false,"),
     "sack_advance": ("src/repro_torch/kernels/csrc/sack.cu",
                      "src/repro/kernels/sack_bitmap.py:82",
                      "sack_kernel<false, false,"),
@@ -92,6 +103,15 @@ KERNELS = {
     "sack_advance_own": ("src/repro_torch/kernels/csrc/sack.cu",
                          "src/repro/kernels/sack_bitmap.py:82",
                          "sack_kernel<false, true,"),
+    "nack_mark_lanes": ("src/repro_torch/kernels/csrc/nack_mark.cu",
+                        "src/repro/kernels/nack_mark.py:70",
+                        "nack_mark_kernel<true,"),
+    "set_own_bit": ("src/repro_torch/kernels/csrc/nack_mark.cu",
+                    "src/repro/kernels/nack_mark.py:70",
+                    "own_bit_kernel<true,"),
+    "clear_own_bit": ("src/repro_torch/kernels/csrc/nack_mark.cu",
+                      "src/repro/kernels/nack_mark.py:70",
+                      "own_bit_kernel<false,"),
     "nscc_update": ("src/repro_torch/kernels/csrc/nscc_update.cu",
                     "src/repro/kernels/nscc_update.py:53",
                     "nscc_update_kernel"),
@@ -99,10 +119,18 @@ KERNELS = {
                     "src/repro/kernels/ecmp_hash.py:52",
                     "ecmp_select_kernel"),
 }
-TICK_KERNELS = ("sack_fused_own", "nack_mark", "sack_advance_own")
-ENTRY_KERNELS = ("sack_fused", "sack_advance", "nscc_update", "ecmp_select")
+TICK_KERNELS = ("sack_fused_own", "sack_advance_own", "nack_mark_lanes",
+                "set_own_bit", "clear_own_bit")
+#: launches per tick of each tick kernel, by run: under all-ROD the NACK
+#: site and the RTO's set are compiled out; RR_SLOTS's loss inference
+#: adds two sets
+PER_TICK = {"ai_full": (1, 1, 1, 1, 1), "hpc": (1, 1, 0, 0, 1),
+            "base": (1, 1, 1, 1, 1), "mixed": (1, 1, 1, 3, 1)}
+ENTRY_KERNELS = ("sack_fused", "sack_advance", "nack_mark", "nscc_update",
+                 "ecmp_select")
 OWN_WIDTHS = (1, 3, 8, 16, 17, 32)
 OWN_ROWS = (1, 33, F_MAIN)
+MARK_WIDTHS = (1, 3, 16, 17, 32)
 
 
 def say(phase: str, msg: str) -> None:
@@ -346,6 +374,31 @@ def phase_kernels() -> dict:
         rows[name] = _row(name, _max_abs_err(got, want),
                           _time_row(name, kern, plain, args, nbytes, nops))
         _say_row(name, rows[name], [tuple(a.shape) for a in args])
+    # the in-place marks on the retransmit ring: bitwise at every width
+    # and row count, each call on its own copy of the ring; timed at the
+    # main path's shape
+    for f in OWN_ROWS:
+        for w in MARK_WIDTHS:
+            for name, (kern, plain, args, _, _) in _mark_cases(
+                    _mark_inputs(rng, f, w, dev)).items():
+                got = kern(args[0].clone(), *args[1:])
+                want = plain(args[0].clone(), *args[1:])
+                torch.cuda.synchronize()
+                _assert_equal((got,), (want,), f"{name} f={f} w={w}")
+    say("3 kernels", f"nack_mark_lanes (with and without a ROD mask), "
+        f"set_own_bit (with and without unless), clear_own_bit: bitwise "
+        f"equal to plain at F in {OWN_ROWS} x W in {MARK_WIDTHS}")
+    for name, (kern, plain, args, nbytes, nops) in _mark_cases(
+            _mark_inputs(rng, F, W, dev)).items():
+        if name not in KERNELS:    # a variant: checked above, not timed
+            continue
+        got = kern(args[0].clone(), *args[1:])
+        want = plain(args[0].clone(), *args[1:])
+        torch.cuda.synchronize()
+        _assert_equal((got,), (want,), name)
+        rows[name] = _row(name, _max_abs_err((got,), (want,)),
+                          _time_row(name, kern, plain, args, nbytes, nops))
+        _say_row(name, rows[name], [tuple(a.shape) for a in args])
     # the entry-point kernels: every params set / fanout, both sizes
     tick_params = _nscc_params()[0]
     for n in (F_MAIN, POOL):
@@ -410,6 +463,104 @@ def _own_cases(ring, base, rtx, off, ok, clear) -> dict:
     }
 
 
+def _mark_inputs(rng, f, w, dev) -> dict:
+    """The in-place marks' operands at F rows of W words: the retransmit
+    ring, a source ring (``unless``), the source CACK, L = Q + 2F NACK
+    lanes (rows over [0, F), offsets over [-8, 32 W + 8), one lane in
+    three not a NACK; then edge lanes: offsets -1, 32 W and the int32
+    extremes, PSNs past the 2**32 and 2**31 wraps, duplicates, rows out
+    of range, non-NACK lanes), a ROD mask, and one offset and valid lane
+    per row with the edge offsets first."""
+    lanes = Q_MAIN + 2 * f
+    rtx = rng.integers(0, 2 ** 32, (f, w), dtype=np.uint64)
+    rtx[::3] = 0
+    ring = rng.integers(0, 2 ** 32, (f, w), dtype=np.uint64)
+    ring[1::3] = 0
+    base = rng.integers(0, 2 ** 32, f, dtype=np.uint64)
+    base[::4] = 0xFFFFFFFF - rng.integers(0, 16, base[::4].shape)
+    base[0], base[-1] = 0xFFFFFFF0, 0x7FFFFFF0
+    flow = rng.integers(0, f, lanes)
+    off = rng.integers(-8, 32 * w + 8, lanes)
+    nack = rng.integers(0, 3, lanes) > 0
+    edge_off = [-1, 0, 31, 32, 32 * w - 1, 32 * w, -(2 ** 31), 2 ** 31 - 1]
+    edges = ([(0, o, True) for o in edge_off + [16, 17]]
+             + [(f - 1, 17, True)] * 8
+             + [(r, 3, True) for r in (-1, f, f + 3, -(2 ** 31))]
+             + [(0, 2, False)] * 4)
+    for i, (r, o, v) in enumerate(edges):
+        flow[i], off[i], nack[i] = r, o, v
+    psn = (base[np.clip(flow, 0, f - 1)].astype(np.int64) + off) % 2 ** 32
+    rod = rng.integers(0, 2, f).astype(bool)
+    rod[0] = False
+    roff = rng.integers(-8, 32 * w + 8, f)
+    k = min(f, len(edge_off))
+    roff[:k] = edge_off[:k]
+    t = lambda a: torch.as_tensor(a).to(dev)   # noqa: E731
+    return {"rtx": _i32(rtx, dev), "ring": _i32(ring, dev),
+            "base": _i32(base, dev), "flow": t(flow.astype(np.int32)),
+            "psn": _i32(psn, dev), "nack": t(nack), "rod": t(rod),
+            "off": t(roff.astype(np.int32)),
+            "valid": t(rng.integers(0, 4, f) > 0)}
+
+
+def _lane_bytes(rtx, base, flow, psn, nack, rod=None) -> int:
+    """The bytes the NACK lanes need on this data: each lane's flow, PSN
+    and flag; base (and rod) of each row a NACK lane reaches; a read and
+    a write of each word it marks."""
+    f, w = rtx.shape
+    reach = nack & (flow >= 0) & (flow < f)
+    row = torch.where(reach, flow, 0).long()
+    off = psn - base[row]
+    ok = reach & (off >= 0) & (off < 32 * w)
+    if rod is not None:
+        ok = ok & ~rod[row]
+    rows = int(torch.unique(row[reach]).numel())
+    words = int(torch.unique(row[ok] * w + (off[ok] // 32)).numel())
+    return (flow.numel() * 9 + rows * (4 + (rod is not None))
+            + words * 8)
+
+
+def _row_bytes(rtx, off, valid, unless=None) -> int:
+    """The bytes one bit per row needs on this data: each row's offset
+    and flag; for each row in range, its ``unless`` word and a read and
+    a write of its word where the bit is not blocked."""
+    n, w = rtx.shape
+    ok = valid & (off >= 0) & (off < 32 * w)
+    k = int(ok.sum())
+    if unless is None:
+        return n * 5 + k * 8
+    o = off.clamp(0, 32 * w - 1).long()
+    word = unless.gather(1, (o // 32)[:, None])[:, 0]
+    blocked = ok & (((word >> (o % 32)) & 1) != 0)
+    return n * 5 + k * 4 + (k - int(blocked.sum())) * 8
+
+
+def _mark_cases(m) -> dict:
+    """name -> (kernel, plain, args, bytes, ops) of the in-place marks;
+    ``args[0]`` is the ring each call writes. The names with a space are
+    variants, checked but not timed."""
+    from repro_torch.kernels import ops, ref
+    lanes = (m["rtx"], m["base"], m["flow"], m["psn"], m["nack"])
+    rows = (m["rtx"], m["off"], m["valid"])
+    n_lanes, n_rows = m["flow"].numel(), m["off"].numel()
+    return {
+        "nack_mark_lanes": (ops.nack_mark_lanes_cuda,
+                            ref.nack_mark_lanes_ref_, lanes,
+                            _lane_bytes(*lanes), 10 * n_lanes),
+        "nack_mark_lanes rod": (ops.nack_mark_lanes_cuda,
+                                ref.nack_mark_lanes_ref_,
+                                lanes + (m["rod"],),
+                                _lane_bytes(*lanes, m["rod"]), 10 * n_lanes),
+        "set_own_bit": (ops.set_own_bit_cuda, ref.set_own_bit_ref_, rows,
+                        _row_bytes(*rows), 8 * n_rows),
+        "set_own_bit unless": (ops.set_own_bit_cuda, ref.set_own_bit_ref_,
+                               rows + (m["ring"],),
+                               _row_bytes(*rows, m["ring"]), 10 * n_rows),
+        "clear_own_bit": (ops.clear_own_bit_cuda, ref.clear_own_bit_ref_,
+                          rows, _row_bytes(*rows), 8 * n_rows),
+    }
+
+
 def _site_fused_dense(ring, base, rtx, off, ok, clear):
     """The tick's ACK site as it ran before the own-bit kernel, kept as
     the yardstick: the old bit's test, the [F, W] bit plane, the dense
@@ -438,6 +589,30 @@ def _site_advance_dense(ring, base, off, ok):
     return ring, base, adv, already
 
 
+def _site_nack_dense(rtx, base, flow, psn, nack, rod=None):
+    """The tick's NACK site as it ran before the lane kernel: the lane
+    arithmetic (offset from the source CACK, range and ROD tests, clip)
+    and the copying ``nack_mark``."""
+    from repro_torch.kernels import ops
+    mp = 32 * rtx.shape[1]
+    safe = torch.where(nack, flow, 0).long()
+    off = psn - base[safe]
+    ok = nack & (off >= 0) & (off < mp)
+    if rod is not None:
+        ok = ok & ~rod[safe]
+    return ops.nack_mark(rtx, flow, off.clamp(0, mp - 1), ok)
+
+
+def _site_rr_dense(rtx, off, valid, ring):
+    """The tick's RR_SLOTS mark as it ran before the row kernel: the
+    ``_own_word`` test of the source ring and ``_set_own_bit``."""
+    from repro_torch._u32 import bit
+    from repro_torch.network.fabric import _own_word, _set_own_bit
+    w_i = off.clamp(0, 32 * rtx.shape[1] - 1)
+    sacked = (_own_word(ring, off) & bit(w_i % 32)) != 0
+    return _set_own_bit(rtx, off, valid & ~sacked)
+
+
 def _device_ops(fn, calls: int = 10) -> float:
     """Device operations (kernels, memsets, copies) per call of ``fn``:
     the most that any of three traces holds."""
@@ -458,32 +633,54 @@ def _device_ops(fn, calls: int = 10) -> float:
 
 
 def phase_sites() -> dict:
-    """Each own-bit kernel beside the composition it replaced on the
-    tick, on the same inputs at the main path's shape: bitwise equal, and
-    both timed with CUDA events in turns (dense, own, own, dense)."""
+    """Each tick kernel beside the composition it replaced on the tick,
+    on the same inputs at the main path's shape: bitwise equal, and both
+    timed with CUDA events in turns (dense, own, own, dense). The
+    in-place forms write into ``args[0]``: each is checked on its own
+    copy, and timed on one of its own."""
     from repro_torch.kernels import ops
+    from repro_torch.network.fabric import _clear_own_bit, _set_own_bit
     dev = torch.device("cuda")
     rng = np.random.default_rng(1313)
     ring, base, rtx, off, ok, clear = _own_inputs(rng, F_MAIN, W_MAIN, dev)
     ok = ok & (off >= 0) & (off < 32 * W_MAIN)   # the tick's range test
+    m = _mark_inputs(rng, F_MAIN, W_MAIN, dev)
+    # the tick's NACK lanes reach rows in range only
+    m["flow"] = m["flow"].clamp(0, F_MAIN - 1)
+    lanes = (m["rtx"], m["base"], m["flow"], m["psn"], m["nack"])
+    zeros = torch.zeros_like(m["off"])
     sites = {
         "sack_fused_own": (_site_fused_dense, ops.sack_fused_own,
                            (ring, base, rtx, off, ok, clear)),
         "sack_advance_own": (_site_advance_dense, ops.sack_advance_own,
                              (ring, base, off, ok)),
+        "nack_mark_lanes": (_site_nack_dense, ops.nack_mark_lanes_, lanes),
+        "set_own_bit rto": (_set_own_bit, ops.set_own_bit_,
+                            (m["rtx"], zeros, m["valid"])),
+        "clear_own_bit": (_clear_own_bit, ops.clear_own_bit_,
+                          (m["rtx"], m["off"], m["valid"])),
+        "set_own_bit rr_slots": (
+            _site_rr_dense,
+            lambda r, o, v, u: ops.set_own_bit_(r, o, v, unless=u),
+            (m["rtx"], m["off"], m["valid"], m["ring"])),
     }
     out = {}
     for name, (dense, own, args) in sites.items():
-        got, want = own(*args), dense(*args)
+        got = own(args[0].clone(), *args[1:])
+        want = dense(*args)
+        if isinstance(got, torch.Tensor):
+            got, want = (got,), (want,)
         torch.cuda.synchronize()
         _assert_equal(got, want, f"site {name}")
-        t = [_median_ms(lambda f=f: f(*args))
-             for f in (dense, own, own, dense)]
+        own_args = (args[0].clone(), *args[1:])
+        t = [_median_ms(lambda f=f, a=a: f(*a))
+             for f, a in ((dense, args), (own, own_args), (own, own_args),
+                          (dense, args))]
         out[name] = {"dense_ms": (t[0] + t[3]) / 2, "own_ms": (t[1] + t[2]) / 2,
                      "dense_ms_runs": [t[0], t[3]],
                      "own_ms_runs": [t[1], t[2]],
                      "dense_device_ops": _device_ops(lambda: dense(*args)),
-                     "own_device_ops": _device_ops(lambda: own(*args))}
+                     "own_device_ops": _device_ops(lambda: own(*own_args))}
         r = out[name]
         say("3 sites", f"{name}: bitwise equal to the dense composition it "
             f"replaced at F={F_MAIN}, W={W_MAIN}; dense {r['dense_ms'] * 1e3:.2f} us "
@@ -588,10 +785,7 @@ def phase_fullwidth() -> dict:
     launches = dict(ops.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     assert (r.stat_completion >= 0).all(), "every flow must complete"
-    for k in TICK_KERNELS:
-        assert launches[k] == r.horizon, \
-            f"{k} launched {launches[k]} times in {r.horizon} ticks"
-    assert all(launches[k] == 0 for k in ENTRY_KERNELS), launches
+    _assert_launches("ai_full", launches, r.horizon)
     s = r.state
     checks = {
         "stat_completion": r.stat_completion,
@@ -619,6 +813,15 @@ def phase_fullwidth() -> dict:
         f"({secs:.2f} s), peak {peak / 2 ** 30:.2f} GiB, launches "
         f"{launches}; bitwise equal to the JAX reference {scalars}")
     return res
+
+
+def _assert_launches(tag: str, launches: dict, ticks: int) -> None:
+    """Each tick kernel launched ``PER_TICK[tag]`` times a tick, and no
+    entry-point form on the tick."""
+    for k, n in zip(TICK_KERNELS, PER_TICK[tag]):
+        assert launches[k] == n * ticks, \
+            f"{tag}: {k} launched {launches[k]} times in {ticks} ticks"
+    assert all(launches[k] == 0 for k in ENTRY_KERNELS), (tag, launches)
 
 
 def _profiles(num_flows: int) -> dict:
@@ -670,11 +873,7 @@ def phase_profiles() -> "tuple[dict, dict]":
         secs = time.perf_counter() - t0
         launches = dict(ops.LAUNCHES)
         peak = torch.cuda.max_memory_allocated()
-        all_rod = bool((modes == 1).all())
-        for k in TICK_KERNELS:
-            want = 0 if (k == "nack_mark" and all_rod) else r.horizon
-            assert launches[k] == want, (tag, k, launches[k], r.horizon)
-        assert all(launches[k] == 0 for k in ENTRY_KERNELS), launches
+        _assert_launches(tag, launches, r.horizon)
         _assert_bits(r.stat_completion, ref[f"{tag}/stat_completion"],
                      f"{tag} stat_completion")
         _assert_bits(r.stat_src_completion,
@@ -712,8 +911,10 @@ def phase_entry_points(states: dict) -> dict:
     hpc run's 2048 windows; the ECMP port choice of one tick's
     Q + F = 7168 packet lanes of the ai_full fabric (each queue's head
     packet at its next switch, each flow's next injection at its source
-    leaf); and the dense SACK forms of ``repro.kernels.ops`` on the mixed
-    run's final rings, one received PSN on half the flows."""
+    leaf); the dense SACK forms of ``repro.kernels.ops`` on the mixed
+    run's final rings, one received PSN on half the flows; and the
+    copying ``nack_mark`` of one NACK lane per flow on its final
+    retransmit ring."""
     from repro_torch.kernels import ops, ref
     from repro_torch.network.ecmp import RoutingTables
     from repro_torch.network.fabric import _bit_plane
@@ -742,11 +943,16 @@ def phase_entry_points(states: dict) -> dict:
         torch.as_tensor(rng.integers(0, 2, F).astype(bool)).to(dev), w)
     sack_in = (st.src_track.ring, st.src_track.base, st.rtx, mask)
     adv_in = (st.dst_track.ring | mask, st.dst_track.base)
+    nack_in = (st.rtx, torch.arange(F, dtype=torch.int32, device=dev),
+               torch.as_tensor(rng.integers(-4, 32 * w + 4, F).astype(
+                   np.int32)).to(dev),
+               torch.as_tensor(rng.integers(0, 2, F).astype(bool)).to(dev))
     ops.reset_launches()
     cwnd2 = ops.nscc_update(hpc_cwnd, ecn, rtt, count, params)
     port = ops.ecmp_select(src, dst, ev, salt, g.fanout1)
     fused = ops.sack_fused(*sack_in)
     advanced = ops.sack_advance(*adv_in)
+    marked = ops.nack_mark(*nack_in)
     torch.cuda.synchronize()
     launches = {k: ops.LAUNCHES[k] for k in ENTRY_KERNELS}
     for k, n in launches.items():
@@ -761,7 +967,9 @@ def phase_entry_points(states: dict) -> dict:
             ("sack_fused", fused, ref.sack_fused_ref(
                 *(t.cpu() for t in sack_in))),
             ("sack_advance", advanced, ref.sack_advance_ref(
-                *(t.cpu() for t in adv_in)))):
+                *(t.cpu() for t in adv_in))),
+            ("nack_mark", (marked,), (ref.nack_mark_ref(
+                *(t.cpu() for t in nack_in)),))):
         for i, (a, b) in enumerate(zip(got, want)):
             _assert_bits(a.cpu().numpy(), b.numpy(), f"{what} output {i}")
     # the injection lanes' ports are the tick's own first-hop choice
@@ -772,7 +980,8 @@ def phase_entry_points(states: dict) -> dict:
     assert torch.equal(up[remote], inj[remote]), "first-hop port"
     say("5 entry points", f"ops.nscc_update over {F} windows, "
         f"ops.ecmp_select over {Q + F} packet lanes (fanout {g.fanout1}) "
-        f"and ops.sack_fused / sack_advance over {F} rings of {w} words: "
+        f"and ops.sack_fused / sack_advance / nack_mark over {F} rings of "
+        f"{w} words: "
         f"bitwise equal to the plain versions on the CPU, injection ports "
         f"equal to the tick's routing; launches {launches}")
     return {"launches": launches}

@@ -30,7 +30,8 @@ from repro_torch.network.profile import TransportProfile
 from repro_torch.network.topology import fat_tree3
 
 KERNEL_ENTRIES = ("sack_fused", "sack_advance", "nack_mark",
-                  "sack_fused_own", "sack_advance_own")
+                  "sack_fused_own", "sack_advance_own", "nack_mark_lanes_",
+                  "set_own_bit_", "clear_own_bit_")
 
 
 class _Count(TorchDispatchMode):
@@ -66,10 +67,10 @@ def main() -> int:
         if fn is None:
             continue
 
-        def paused(*a, _fn=fn):
+        def paused(*a, _fn=fn, **kw):
             count.paused = True
             try:
-                return _fn(*a)
+                return _fn(*a, **kw)
             finally:
                 count.paused = False
         setattr(ops, name, paused)

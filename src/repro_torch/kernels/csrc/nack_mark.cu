@@ -1,25 +1,49 @@
-// Duplicate-safe NACK retransmit-bit marking for sm_90a.
+// In-place bit marks on the [F, W] retransmit ring, for sm_90a.
 //
 // Replaces the reference package's Pallas TPU kernel
 //   kernels/nack_mark.py  nack_mark -> _nack_kernel
+// and, on the port's tick, the dense [F, W] bit planes that the
+// reference tick builds around it to set or clear one bit per row.
 //
-// For every lane l with valid[l] and 0 <= flow[l] < F, set bit off[l]
-// (clipped to [0, W*32)) of row flow[l] of the [F, W] uint32 ring `out`,
-// which the wrapper has already filled with a copy of rtx. Lanes hitting
-// the same bit combine as OR; a lane with an out-of-range row marks
-// nothing (the TPU kernel's contract).
+// Two kernels, each a template, and four C entry points:
 //
-// Bound on this card: memory. The function reads rtx and the L lanes once
-// and writes the ring once — at the main path's F = 2048, W = 16,
-// L = Q + 2F = 9216 about 0.35 MB, 0.1 us at 3.35 TB/s, so a launch is
-// bound by launch latency.
+// * nack_mark_kernel<LANES, ROD> — one thread per lane. A lane marks
+//   nothing unless nack[l] and 0 <= flow[l] < F (an out-of-range row
+//   marks nothing: the TPU kernel's contract), and, with ROD, the row's
+//   ROD mask is clear. Its offset is
+//     LANES:  off = psn[l] - base[flow[l]] (uint32 wrap, read as int32),
+//             and the lane marks only where 0 <= off < W*32;
+//     !LANES: off = psn[l] clipped to [0, W*32) (the TPU kernel's form,
+//             where the caller passes the offset itself).
+//   It sets bit off & 31 of word off >> 5 of row flow[l] with atomicOr:
+//   lanes that hit one word or one bit combine as OR, which is
+//   commutative and idempotent, so the result does not depend on the
+//   order the atomics land in.
+//   nack_mark_launch      : !LANES, no ROD — ops.nack_mark, on a copy;
+//   nack_mark_lanes_launch: LANES, ROD if rod != nullptr — the tick's
+//                           NACK site, on the ring itself.
+//
+// * own_bit_kernel<SET, UNLESS> — one thread per row, which owns its
+//   row: no atomics. Row i acts only where valid[i] and
+//   0 <= off[i] < W*32, and sets (SET) or clears bit off[i] with one
+//   read-modify-write of word off[i] >> 5. With UNLESS it sets the bit
+//   only where the same bit of the [F, W] ring `unless` is clear.
+//   set_own_bit_launch   : SET, UNLESS if unless != nullptr;
+//   clear_own_bit_launch : CLEAR.
+//
+// Bound on this card: memory, and far below a launch. At the main
+// path's F = 2048, W = 16, L = Q + 2F = 9216 the lane form reads about
+// 83 KB of lanes plus the rows and words it marks; a row form reads
+// 5 B a row plus the words it touches. Each is well under 0.1 us at
+// 3.35 TB/s, so a launch is bound by launch latency: what the design
+// saves is the device operations around it (no copy of the ring, no
+// [F, W] plane, no lane arithmetic in PyTorch).
 //
 // Design: the TPU kernel could not scatter across lanes, so it built an
 // [F, L] x [L, W*32] f32 matmul of one-hots and packed the product back
-// into words. Here the scatter is what it is: one thread per lane and one
-// atomicOr into the target word. OR is commutative and idempotent, so the
-// result does not depend on the order the atomics land in — it is
-// deterministic and bitwise equal to the plain version.
+// into words. Here the scatter is what it is. Every independent load of
+// a thread is issued before the first test, so it waits on memory once
+// for its lane and once for the dependent row (base, rod, unless).
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -27,27 +51,109 @@ namespace {
 
 constexpr int kThreads = 256;
 
+template <bool LANES, bool ROD>
 __global__ void __launch_bounds__(kThreads)
-nack_mark_kernel(uint32_t* __restrict__ out, const int32_t* __restrict__ flow,
-                 const int32_t* __restrict__ off,
-                 const uint8_t* __restrict__ valid, int lanes, int f, int w) {
+nack_mark_kernel(uint32_t* __restrict__ rtx, const uint32_t* __restrict__ base,
+                 const int32_t* __restrict__ flow,
+                 const int32_t* __restrict__ psn,
+                 const uint8_t* __restrict__ nack,
+                 const uint8_t* __restrict__ rod, int lanes, int f, int w) {
   const int l = blockIdx.x * kThreads + threadIdx.x;
   if (l >= lanes) return;
   const int row = flow[l];
-  if (!valid[l] || row < 0 || row >= f) return;
-  const int o = min(max(off[l], 0), w * 32 - 1);
-  atomicOr(out + static_cast<size_t>(row) * w + (o >> 5), 1u << (o & 31));
+  const int p = psn[l];
+  const bool on = nack[l] != 0;
+  if (!on || row < 0 || row >= f) return;
+  if (ROD && rod[row]) return;
+  int o;
+  if (LANES) {
+    o = static_cast<int>(static_cast<uint32_t>(p) - base[row]);
+    if (o < 0 || o >= w * 32) return;
+  } else {
+    o = min(max(p, 0), w * 32 - 1);
+  }
+  atomicOr(rtx + static_cast<size_t>(row) * w + (o >> 5), 1u << (o & 31));
 }
+
+template <bool SET, bool UNLESS>
+__global__ void __launch_bounds__(kThreads)
+own_bit_kernel(uint32_t* __restrict__ rtx, const int32_t* __restrict__ off,
+               const uint8_t* __restrict__ valid,
+               const uint32_t* __restrict__ unless, int n, int w) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= n) return;
+  const int o = off[i];
+  const bool on = valid[i] != 0;
+  if (!on || o < 0 || o >= w * 32) return;
+  const size_t at = static_cast<size_t>(i) * w + (o >> 5);
+  const uint32_t b = 1u << (o & 31);
+  if (UNLESS && (unless[at] & b)) return;
+  if (SET) {
+    rtx[at] |= b;
+  } else {
+    rtx[at] &= ~b;
+  }
+}
+
+inline unsigned blocks(int n) { return (n + kThreads - 1) / kThreads; }
 
 }  // namespace
 
-extern "C" int nack_mark_launch(void* out, const void* flow, const void* off,
+extern "C" int nack_mark_launch(void* rtx, const void* flow, const void* off,
                                 const void* valid, int lanes, int f, int w,
                                 void* stream) {
-  nack_mark_kernel<<<(lanes + kThreads - 1) / kThreads, kThreads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<uint32_t*>(out), static_cast<const int32_t*>(flow),
-      static_cast<const int32_t*>(off), static_cast<const uint8_t*>(valid),
-      lanes, f, w);
+  nack_mark_kernel<false, false>
+      <<<blocks(lanes), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<uint32_t*>(rtx), nullptr,
+          static_cast<const int32_t*>(flow), static_cast<const int32_t*>(off),
+          static_cast<const uint8_t*>(valid), nullptr, lanes, f, w);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int nack_mark_lanes_launch(void* rtx, const void* base,
+                                      const void* flow, const void* psn,
+                                      const void* nack, const void* rod,
+                                      int lanes, int f, int w, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  auto r = static_cast<uint32_t*>(rtx);
+  auto b = static_cast<const uint32_t*>(base);
+  auto fl = static_cast<const int32_t*>(flow);
+  auto p = static_cast<const int32_t*>(psn);
+  auto nk = static_cast<const uint8_t*>(nack);
+  auto rd = static_cast<const uint8_t*>(rod);
+  if (rd != nullptr) {
+    nack_mark_kernel<true, true><<<blocks(lanes), kThreads, 0, s>>>(
+        r, b, fl, p, nk, rd, lanes, f, w);
+  } else {
+    nack_mark_kernel<true, false><<<blocks(lanes), kThreads, 0, s>>>(
+        r, b, fl, p, nk, nullptr, lanes, f, w);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int set_own_bit_launch(void* rtx, const void* off,
+                                  const void* valid, const void* unless,
+                                  int n, int w, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  auto r = static_cast<uint32_t*>(rtx);
+  auto o = static_cast<const int32_t*>(off);
+  auto v = static_cast<const uint8_t*>(valid);
+  auto u = static_cast<const uint32_t*>(unless);
+  if (u != nullptr) {
+    own_bit_kernel<true, true><<<blocks(n), kThreads, 0, s>>>(r, o, v, u, n, w);
+  } else {
+    own_bit_kernel<true, false><<<blocks(n), kThreads, 0, s>>>(r, o, v, nullptr,
+                                                              n, w);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int clear_own_bit_launch(void* rtx, const void* off,
+                                    const void* valid, int n, int w,
+                                    void* stream) {
+  own_bit_kernel<false, false>
+      <<<blocks(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<uint32_t*>(rtx), static_cast<const int32_t*>(off),
+          static_cast<const uint8_t*>(valid), nullptr, n, w);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,8 +1,15 @@
 """Dispatch for the port's kernels (the port of ``repro.kernels.ops``,
-plus the own-bit SACK forms of the port's tick): ``sack_fused``,
-``nack_mark`` and ``sack_advance`` of the reference's tick, their
-own-bit forms ``sack_fused_own`` / ``sack_advance_own`` that the port's
-tick runs, and the batched ``nscc_update`` and ``ecmp_select``.
+plus the forms the port's tick runs): ``sack_fused``, ``nack_mark`` and
+``sack_advance`` of the reference's tick; the own-bit SACK forms
+``sack_fused_own`` / ``sack_advance_own``; the in-place marks on the
+retransmit ring, ``nack_mark_lanes_`` (the NACK site), ``set_own_bit_``
+and ``clear_own_bit_`` (one bit per row); and the batched
+``nscc_update`` and ``ecmp_select``.
+
+The in-place forms (names ending in ``_``) write into the ring they are
+given and return it: no copy, no [F, W] plane, no allocation. The
+caller must own that ring; the tick does, since each tick's
+``sack_fused_own`` makes a new one.
 
 A CPU tensor goes to the plain PyTorch version in ``ref.py``; a CUDA
 tensor goes to the hand-written CUDA kernel (``csrc/``, built by
@@ -23,6 +30,7 @@ from repro_torch.kernels import build, ref
 
 LAUNCHES = {"sack_fused": 0, "nack_mark": 0, "sack_advance": 0,
             "sack_fused_own": 0, "sack_advance_own": 0,
+            "nack_mark_lanes": 0, "set_own_bit": 0, "clear_own_bit": 0,
             "nscc_update": 0, "ecmp_select": 0}
 
 MAX_WORDS = 32  # a ring row fits one warp: W <= 32 words (mp_range <= 1024)
@@ -35,10 +43,11 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def _on_cuda(*ts: torch.Tensor) -> bool:
+def _on_cuda(*ts: "torch.Tensor | None") -> bool:
     """True for operands on one CUDA device, False for CPU operands;
-    raises for mixed or other devices."""
-    dev = {t.device for t in ts}
+    raises for mixed or other devices. An absent optional operand
+    (None) is skipped."""
+    dev = {t.device for t in ts if t is not None}
     if len(dev) != 1:
         raise ValueError(f"kernel operands on several devices: {dev}")
     kind = next(iter(dev)).type
@@ -65,6 +74,10 @@ def _ring_shape(ring: torch.Tensor) -> "tuple[int, int]":
         raise ValueError(f"ring must be [N, W] with 1 <= W <= {MAX_WORDS}, "
                          f"got {tuple(ring.shape)}")
     return int(ring.shape[0]), int(ring.shape[1])
+
+
+def _lanes(t: torch.Tensor) -> int:
+    return int(t.shape[0]) if t.dim() == 1 else -1
 
 
 def _check(err: int, name: str) -> None:
@@ -175,10 +188,11 @@ def sack_fused_own_cuda(ring: torch.Tensor, base: torch.Tensor,
 
 def nack_mark_cuda(rtx: torch.Tensor, flow: torch.Tensor, off: torch.Tensor,
                    valid: torch.Tensor) -> torch.Tensor:
-    """CUDA kernel: OR lane-requested retransmit bits into [F, W] rings."""
+    """CUDA kernel: OR lane-requested retransmit bits into a copy of
+    [F, W] rings (off clipped to [0, W*32))."""
     _on_cuda(rtx, flow, off, valid)
     f, w = _ring_shape(rtx)
-    lanes = int(flow.shape[0]) if flow.dim() == 1 else -1
+    lanes = _lanes(flow)
     _require("rtx", rtx, torch.int32, (f, w))
     _require("flow", flow, torch.int32, (lanes,))
     _require("off", off, torch.int32, (lanes,))
@@ -191,8 +205,63 @@ def nack_mark_cuda(rtx: torch.Tensor, flow: torch.Tensor, off: torch.Tensor,
     return out
 
 
-def _lanes(t: torch.Tensor) -> int:
-    return int(t.shape[0]) if t.dim() == 1 else -1
+def nack_mark_lanes_cuda(rtx: torch.Tensor, base: torch.Tensor,
+                         flow: torch.Tensor, psn: torch.Tensor,
+                         nack: torch.Tensor,
+                         rod: "torch.Tensor | None" = None) -> torch.Tensor:
+    """CUDA kernel, in place on ``rtx``: the tick's NACK lanes, each
+    marking bit psn - base[flow] of its row (see ``nack_mark_lanes_``)."""
+    _on_cuda(rtx, base, flow, psn, nack, rod)
+    f, w = _ring_shape(rtx)
+    lanes = _lanes(flow)
+    _require("rtx", rtx, torch.int32, (f, w))
+    _require("base", base, torch.int32, (f,))
+    _require("flow", flow, torch.int32, (lanes,))
+    _require("psn", psn, torch.int32, (lanes,))
+    _require("nack", nack, torch.bool, (lanes,))
+    if rod is not None:
+        _require("rod", rod, torch.bool, (f,))
+    if lanes and f:
+        _launch("nack_mark_lanes", "nack_mark", rtx, rtx.data_ptr(),
+                base.data_ptr(), flow.data_ptr(), psn.data_ptr(),
+                nack.data_ptr(), None if rod is None else rod.data_ptr(),
+                lanes, f, w)
+    return rtx
+
+
+def _own_bit_operands(rtx, off, valid):
+    n, w = _ring_shape(rtx)
+    _require("rtx", rtx, torch.int32, (n, w))
+    _require("off", off, torch.int32, (n,))
+    _require("valid", valid, torch.bool, (n,))
+    return n, w
+
+
+def set_own_bit_cuda(rtx: torch.Tensor, off: torch.Tensor, valid: torch.Tensor,
+                     unless: "torch.Tensor | None" = None) -> torch.Tensor:
+    """CUDA kernel, in place on ``rtx``: row i sets bit off[i] where
+    valid[i] (and, with ``unless``, that bit of unless is clear)."""
+    _on_cuda(rtx, off, valid, unless)
+    n, w = _own_bit_operands(rtx, off, valid)
+    if unless is not None:
+        _require("unless", unless, torch.int32, (n, w))
+    if n:
+        _launch("set_own_bit", "nack_mark", rtx, rtx.data_ptr(),
+                off.data_ptr(), valid.data_ptr(),
+                None if unless is None else unless.data_ptr(), n, w)
+    return rtx
+
+
+def clear_own_bit_cuda(rtx: torch.Tensor, off: torch.Tensor,
+                       valid: torch.Tensor) -> torch.Tensor:
+    """CUDA kernel, in place on ``rtx``: row i clears bit off[i] where
+    valid[i]."""
+    _on_cuda(rtx, off, valid)
+    n, w = _own_bit_operands(rtx, off, valid)
+    if n:
+        _launch("clear_own_bit", "nack_mark", rtx, rtx.data_ptr(),
+                off.data_ptr(), valid.data_ptr(), n, w)
+    return rtx
 
 
 def nscc_update_cuda(cwnd: torch.Tensor, ecn: torch.Tensor, rtt: torch.Tensor,
@@ -275,10 +344,38 @@ def sack_fused_own(ring, base, rtx, off, ok, clear):
 
 
 def nack_mark(rtx, flow, off, valid):
-    """Duplicate-safe OR of NACK-requested retransmit bits (Sec. 3.2.4)."""
+    """Duplicate-safe OR of NACK-requested retransmit bits (Sec. 3.2.4),
+    into a new ring."""
     if _on_cuda(rtx, flow, off, valid):
         return nack_mark_cuda(rtx, flow, off, valid)
     return ref.nack_mark_ref(rtx, flow, off, valid)
+
+
+def nack_mark_lanes_(rtx, base, flow, psn, nack, rod=None):
+    """The tick's NACK site, in place on ``rtx`` [F, W] (Sec. 3.2.4):
+    lane l with nack[l], 0 <= flow[l] < F and, given the [F] ROD mask
+    ``rod``, a non-ROD row, sets bit psn[l] - base[flow[l]] (uint32 wrap)
+    of row flow[l] where that offset is in [0, W*32). Returns ``rtx``."""
+    if _on_cuda(rtx, base, flow, psn, nack, rod):
+        return nack_mark_lanes_cuda(rtx, base, flow, psn, nack, rod)
+    return ref.nack_mark_lanes_ref_(rtx, base, flow, psn, nack, rod)
+
+
+def set_own_bit_(rtx, off, valid, unless=None):
+    """In place on ``rtx`` [N, W]: row i sets bit off[i] (int32) where
+    valid[i] and 0 <= off[i] < W*32 and, given the [N, W] ring
+    ``unless``, where that bit of unless is clear. Returns ``rtx``."""
+    if _on_cuda(rtx, off, valid, unless):
+        return set_own_bit_cuda(rtx, off, valid, unless)
+    return ref.set_own_bit_ref_(rtx, off, valid, unless)
+
+
+def clear_own_bit_(rtx, off, valid):
+    """In place on ``rtx`` [N, W]: row i clears bit off[i] (int32) where
+    valid[i] and 0 <= off[i] < W*32. Returns ``rtx``."""
+    if _on_cuda(rtx, off, valid):
+        return clear_own_bit_cuda(rtx, off, valid)
+    return ref.clear_own_bit_ref_(rtx, off, valid)
 
 
 def nscc_update(cwnd, ecn, rtt, count, params: NSCCParams = NSCCParams()):

@@ -1,7 +1,9 @@
 """Plain PyTorch versions of the port's kernels: the three of the
 reference's tick (SACK advance, fused SACK, NACK marking), the own-bit
-forms of the two SACK kernels that the port's tick runs, and the batched
-NSCC window update and ECMP port selection.
+forms of the two SACK kernels and the in-place marks on the retransmit
+ring (the NACK lanes, one bit per row set or cleared) that the port's
+tick runs, and the batched NSCC window update and ECMP port selection.
+The in-place forms end in ``_`` and return the ring they were given.
 
 These run for CPU tensors (the tests) and are what ``chip_smoke.py``
 holds each CUDA kernel against on the card, bit for bit. All rings and
@@ -86,6 +88,21 @@ def sack_fused_own_ref(ring: torch.Tensor, base: torch.Tensor,
     return ring, base, rtx & ~bit_plane(off - adv, clear, w), adv, already
 
 
+def _lane_words(f: int, w: int, flow: torch.Tensor, off: torch.Tensor,
+                ok: torch.Tensor) -> torch.Tensor:
+    """[F, W] words holding bit off[l] of row flow[l] for every lane with
+    ok[l] (ok implies 0 <= flow[l] < F and 0 <= off[l] < W*32); lanes
+    hitting one bit combine as OR."""
+    rows = torch.where(ok, flow, f).long()      # row f is a discard row
+    cols = torch.where(ok, off, 0).long()
+    plane = torch.zeros((f + 1, w * 32), dtype=torch.bool, device=flow.device)
+    plane[rows, cols] = True
+    # bits are distinct powers of two per word: the pack-sum IS the OR
+    shifts = torch.arange(32, dtype=torch.int64, device=flow.device)
+    words = (plane[:f].view(f, w, 32).to(torch.int64) << shifts).sum(dim=2)
+    return from_u64(words)
+
+
 def nack_mark_ref(rtx: torch.Tensor, flow: torch.Tensor, off: torch.Tensor,
                   valid: torch.Tensor) -> torch.Tensor:
     """Duplicate-safe NACK retransmit-bit marking (Sec. 3.2.4).
@@ -96,16 +113,50 @@ def nack_mark_ref(rtx: torch.Tensor, flow: torch.Tensor, off: torch.Tensor,
     the reference's Pallas kernel (its jnp oracle instead wraps a
     negative row, see ROADMAP.md "Faults found").
 
-    rtx: [F, W]; flow/off: [L] int32; valid: [L] bool.
+    rtx: [F, W]; flow/off: [L] int32; valid: [L] bool. Returns a new ring.
     """
     f, w = rtx.shape
-    mp = w * 32
     ok = valid & (flow >= 0) & (flow < f)
-    rows = torch.where(ok, flow, f).long()      # row f is a discard row
-    cols = off.clamp(0, mp - 1).long()
-    plane = torch.zeros((f + 1, mp), dtype=torch.bool, device=rtx.device)
-    plane[rows, cols] = True
-    # bits are distinct powers of two per word: the pack-sum IS the OR
-    shifts = torch.arange(32, dtype=torch.int64, device=rtx.device)
-    words = (plane[:f].view(f, w, 32).to(torch.int64) << shifts).sum(dim=2)
-    return rtx | from_u64(words)
+    return rtx | _lane_words(f, w, flow, off.clamp(0, w * 32 - 1), ok)
+
+
+def nack_mark_lanes_ref_(rtx: torch.Tensor, base: torch.Tensor,
+                         flow: torch.Tensor, psn: torch.Tensor,
+                         nack: torch.Tensor,
+                         rod: "torch.Tensor | None" = None) -> torch.Tensor:
+    """The tick's NACK site, in place on ``rtx`` [F, W]: lane l with
+    nack[l], 0 <= flow[l] < F and (without ``rod``, or where
+    ~rod[flow[l]]) sets bit off = psn[l] - base[flow[l]] (uint32 wrap,
+    read as int32) of row flow[l] where 0 <= off < W*32; lanes hitting
+    one bit combine as OR. flow/psn: [L] int32; nack: [L] bool; base:
+    [F] int32; rod: [F] bool. Returns ``rtx``."""
+    f, w = rtx.shape
+    if not f:
+        return rtx
+    ok = nack & (flow >= 0) & (flow < f)
+    row = torch.where(ok, flow, 0).long()
+    off = psn - base[row]
+    ok = ok & (off >= 0) & (off < w * 32)
+    if rod is not None:
+        ok = ok & ~rod[row]
+    return rtx.bitwise_or_(_lane_words(f, w, flow, off, ok))
+
+
+def set_own_bit_ref_(rtx: torch.Tensor, off: torch.Tensor,
+                     valid: torch.Tensor,
+                     unless: "torch.Tensor | None" = None) -> torch.Tensor:
+    """In place on ``rtx`` [N, W]: row i sets bit off[i] where valid[i]
+    and 0 <= off[i] < W*32 and, with ``unless`` ([N, W]), where that bit
+    of unless is clear. off: [N] int32; valid: [N] bool. Returns
+    ``rtx``."""
+    plane = bit_plane(off, valid, rtx.shape[1])
+    if unless is not None:
+        plane = plane & ~unless
+    return rtx.bitwise_or_(plane)
+
+
+def clear_own_bit_ref_(rtx: torch.Tensor, off: torch.Tensor,
+                       valid: torch.Tensor) -> torch.Tensor:
+    """In place on ``rtx`` [N, W]: row i clears bit off[i] where valid[i]
+    and 0 <= off[i] < W*32. Returns ``rtx``."""
+    return rtx.bitwise_and_(~bit_plane(off, valid, rtx.shape[1]))

@@ -10,14 +10,18 @@ numbered sections as the reference, so the two read side by side) and
 ``simulate`` drives it in ``chunk_ticks``-tick chunks from a Python loop,
 syncing with the host once per chunk to test quiescence.
 
-Three kernels run every tick through ``repro_torch.kernels.ops``:
-``sack_fused_own`` (section 1, source ACKs), ``nack_mark`` (section 1,
-NACKed PSNs into the retransmit ring) and ``sack_advance_own`` (section
-5, receiver CACK). The two SACK kernels take each flow's own PSN offset
-and set, test and clear its bit themselves, where the reference builds
-an [F, W] bit plane around its dense ``sack_fused`` / ``sack_advance``.
-On CUDA tensors they are hand-written CUDA; on CPU tensors their plain
-PyTorch versions.
+The tick's kernels, through ``repro_torch.kernels.ops``:
+``sack_fused_own`` (section 1, source ACKs) and ``sack_advance_own``
+(section 5, receiver CACK) once a tick; and the in-place marks on the
+retransmit ring that ``sack_fused_own`` made: ``nack_mark_lanes_``
+(section 1, NACKed PSNs; not under all-ROD), ``set_own_bit_`` (the
+RR_SLOTS loss inference of section 1, twice, with the source ring as
+``unless``; the RTO of section 9, not under all-ROD) and
+``clear_own_bit_`` (the retransmit pick of section 3). Each takes each
+flow's own PSN offset, or the raw NACK lanes, and sets, tests and clears
+the bits itself, where the reference builds an [F, W] bit plane around
+its dense kernels; each site is one launch. On CUDA tensors they are
+hand-written CUDA; on CPU tensors their plain PyTorch versions.
 
 Every profile of the paper's table runs: each CC composition (NSCC,
 RCCC, their hybrid, open loop), every LB scheme (STATIC, OBLIVIOUS,
@@ -42,7 +46,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch._u32 import bit, c32, shr
+from repro_torch._u32 import c32, shr
 from repro_torch.core import pds
 from repro_torch.core.cms.nscc import NSCCParams
 from repro_torch.core.lb.schemes import LBPolicy, LBScheme, LBState, _mix32
@@ -172,6 +176,10 @@ def _first_set_bit(ring: torch.Tensor) -> torch.Tensor:
     return torch.where(has, first_w * 32 + ctz, -1).to(I32)
 
 
+# The reference tick's dense one-bit-per-row helpers. The port's tick
+# calls the in-place kernels instead (kops.set_own_bit_ / clear_own_bit_);
+# these stay as the compositions that the parity tests and chip_smoke.py
+# hold those kernels against.
 _bit_plane = pds.bit_plane
 
 
@@ -309,7 +317,6 @@ def make_step(g: QueueGraph, profile: TransportProfile, p: SimParams, F: int,
     D = p.ack_return_ticks + 1
     H = g.num_hosts
     mp = p.mp_range
-    W = mp // 32
     K = p.ev_slots
     i32 = dict(dtype=I32, device=dev)
     flow_ids = torch.arange(F, **i32)
@@ -393,18 +400,19 @@ def make_step(g: QueueGraph, profile: TransportProfile, p: SimParams, F: int,
         # ROD rewinds instead, section 3). Lanes [Q, E) are the
         # NACK-capable ones (lanes [0, Q) carry NACKs only for ROD
         # flows); several may hit one flow or one bit, so the mark is a
-        # duplicate-safe OR (the kernel). An all-ROD profile has no
-        # selective-retransmit path: the reference compiles it out, and
-        # the kernel is not launched.
-        nf, nep = ef[Q:], ep[Q:]
-        n_nack = is_nack[Q:]
-        safe_nf = torch.where(n_nack, nf, 0).long()
-        nack_off = nep - src_track.base[safe_nf]
+        # duplicate-safe OR. The kernel takes the raw lanes and computes
+        # each lane's offset from the new base itself. An all-ROD
+        # profile has no selective-retransmit path: the reference
+        # compiles it out, and the kernel is not launched.
+        # The marks here, in the RR_SLOTS inference, the retransmit pick
+        # and the RTO write into rtx in place. That is safe: rtx is the
+        # ring that sack_fused_own made this tick, no other name holds
+        # it (the input state keeps its own), and `out` does not record
+        # it.
         if not all_rod:
-            n_ok = n_nack & (nack_off >= 0) & (nack_off < mp)
-            if mixed_rod:
-                n_ok = n_ok & ~rod_mask[safe_nf]
-            rtx = kops.nack_mark(rtx, nf, nack_off.clamp(0, mp - 1), n_ok)
+            rtx = kops.nack_mark_lanes_(rtx, src_track.base, ef[Q:], ep[Q:],
+                                        is_nack[Q:],
+                                        rod_mask if mixed_rod else None)
         rod_gbn = hot_nack.any(dim=1)
 
         # EV-based loss inference (Sec. 3.2.4), RR_SLOTS layout: slot i
@@ -419,12 +427,12 @@ def make_step(g: QueueGraph, profile: TransportProfile, p: SimParams, F: int,
             # always <= 1)
             for back in (1, 2):
                 miss = ack_psn - back * K
-                off = miss - src_track.base
-                # skip PSNs already SACKed at the source (not lost)
-                w_i = off.clamp(0, W * 32 - 1)
-                sacked = (_own_word(src_track.ring, off) & bit(w_i % 32)) != 0
-                lost = has_ack_rr & (miss > prev) & (miss >= 0) & ~sacked
-                rtx = _set_own_bit(rtx, off, lost)
+                # skip PSNs already SACKed at the source (not lost): the
+                # kernel tests the bit of the source ring (`unless`)
+                rtx = kops.set_own_bit_(
+                    rtx, miss - src_track.base,
+                    has_ack_rr & (miss > prev) & (miss >= 0),
+                    unless=src_track.ring)
             hot_sl = (kslots[None, :] == sl[:, None]) & has_ack_rr[:, None]
             slot_last_ack = torch.where(
                 hot_sl, torch.maximum(slot_last_ack, ack_psn[:, None]),
@@ -501,7 +509,7 @@ def make_step(g: QueueGraph, profile: TransportProfile, p: SimParams, F: int,
         inj_q = rt.injection_queue(flow_src, flow_dst, ev_sel)
 
         # sender-state commit for this tick's injections
-        rtx = _clear_own_bit(rtx, rtx_off, use_rtx)
+        rtx = kops.clear_own_bit_(rtx, rtx_off, use_rtx)
         next_psn = torch.where(injected & ~use_rtx, next_psn + 1, next_psn)
         lbs = _where_rows(injected & ~rod_mask if mixed_rod else injected,
                           lbs2, lbs)
@@ -657,7 +665,7 @@ def make_step(g: QueueGraph, profile: TransportProfile, p: SimParams, F: int,
             if mixed_rod:
                 stalled = stalled & ~rod_mask  # ROD timeouts rewind instead
             # offset 0 == oldest unacked
-            rtx = _set_own_bit(rtx, zeros_f, stalled)
+            rtx = kops.set_own_bit_(rtx, zeros_f, stalled)
             # a timeout implies the outstanding packets are gone: reopen
             # the window
             inflight = torch.where(stalled, 0, inflight)

@@ -111,6 +111,66 @@ def test_nack_kernel_matches_plain_on_card(cuda, f, w, lanes):
                       ref.nack_mark_ref(rtx, flow, off, valid))
 
 
+def _mark_lanes(f, w, lanes):
+    """(base, flow, psn, nack, rod) as numpy: NACK lanes over rows
+    [0, F) and offsets over [-8, 32 W + 8), then edge lanes (offsets -1,
+    32 W and the int32 extremes, PSNs past the 2**32 and 2**31 wraps,
+    duplicates, rows out of range, non-NACK lanes)."""
+    base = _words(f)
+    base[::4] = 0xFFFFFFFF - RNG.integers(0, 16, base[::4].shape)
+    base[0] = 0xFFFFFFF0
+    base[-1] = 0x7FFFFFF0
+    flow = RNG.integers(0, f, lanes)
+    off = RNG.integers(-8, 32 * w + 8, lanes)
+    nack = RNG.integers(0, 3, lanes) > 0
+    edges = ([(0, o, True) for o in (-1, 0, 31, 32, 32 * w - 1, 32 * w,
+                                     -(2 ** 31), 2 ** 31 - 1, 16, 17)]
+             + [(f - 1, 17, True)] * 8
+             + [(r, 3, True) for r in (-1, f, f + 3, -(2 ** 31))]
+             + [(0, 2, False)] * 4)
+    for i, (r, o, v) in enumerate(edges[:lanes]):
+        flow[i], off[i], nack[i] = r, o, v
+    row = np.clip(flow, 0, f - 1)
+    psn = ((base[row].astype(np.int64) + off) % 2 ** 32).astype(np.uint32)
+    rod = RNG.integers(0, 2, f).astype(bool)
+    rod[0] = False                 # row 0 holds the edges: they must mark
+    return base, flow.astype(np.int32), psn, nack, rod
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mixed_rod", [False, True], ids=["rud", "mixed_rod"])
+@pytest.mark.parametrize("f", [1, 33, 2048])
+@pytest.mark.parametrize("w", [1, 3, 16, 17, 32])
+def test_nack_mark_lanes_kernel_matches_plain_on_card(cuda, f, w, mixed_rod):
+    rtx = _t(_words((f, w)), cuda)
+    base, flow, psn, nack, rod = (
+        _t(a, cuda) for a in _mark_lanes(f, w, max(64, 4 * f + 1024)))
+    rod = rod if mixed_rod else None
+    got = rtx.clone()
+    assert ops.nack_mark_lanes_cuda(got, base, flow, psn, nack, rod) is got
+    want = ref.nack_mark_lanes_ref_(rtx.clone(), base, flow, psn, nack, rod)
+    assert _same_bits(got, want) and not _same_bits(got, rtx)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 33, 2048])
+@pytest.mark.parametrize("w", [1, 3, 16, 17, 32])
+def test_own_bit_kernels_match_plain_on_card(cuda, n, w):
+    rtx, ring = _t(_words((n, w)), cuda), _t(_words((n, w)), cuda)
+    off = RNG.integers(-8, 32 * w + 8, n).astype(np.int32)
+    k = min(n, 6)
+    off[:k] = [-1, 0, 31, 32, 32 * w - 1, 32 * w][:k]
+    off, valid = _t(off, cuda), _t(RNG.integers(0, 4, n) > 0, cuda)
+    for unless in (None, ring):
+        got = rtx.clone()
+        assert ops.set_own_bit_cuda(got, off, valid, unless) is got
+        assert _same_bits(got, ref.set_own_bit_ref_(rtx.clone(), off, valid,
+                                                    unless))
+    got = rtx.clone()
+    assert ops.clear_own_bit_cuda(got, off, valid) is got
+    assert _same_bits(got, ref.clear_own_bit_ref_(rtx.clone(), off, valid))
+
+
 def _nscc_lanes(n, p, device):
     cwnd = RNG.uniform(0.25, p.max_cwnd * 1.2, n).astype(np.float32)
     ecn = RNG.integers(0, 2, n).astype(bool)

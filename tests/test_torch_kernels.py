@@ -1,4 +1,5 @@
-"""The port's three tick kernels against the reference package.
+"""The port's kernels of the reference's tick against the reference
+package.
 
 On the CPU the port's plain versions (``repro_torch.kernels.ref``) are
 held bitwise against both JAX forms of each kernel: the Pallas kernel in
@@ -175,12 +176,17 @@ def test_cpu_tensors_take_the_plain_versions_and_count_nothing():
     ops.sack_advance_own(ring, base, off, ok)
     ops.nack_mark(ring, _t(np.zeros(3, np.int32)), _t(np.zeros(3, np.int32)),
                   _t(np.ones(3, bool)))
+    lanes = _t(np.zeros(3, np.int32))
+    ops.nack_mark_lanes_(ring, base, lanes, lanes, _t(np.ones(3, bool)))
+    ops.set_own_bit_(ring, off, ok, unless=ring.clone())
+    ops.clear_own_bit_(ring, off, ok)
     assert ops.LAUNCHES == before
 
 
 @pytest.mark.parametrize("kernel", ["sack_fused", "sack_advance",
                                     "nack_mark", "sack_fused_own",
-                                    "sack_advance_own"])
+                                    "sack_advance_own", "nack_mark_lanes",
+                                    "set_own_bit", "clear_own_bit"])
 def test_kernels_refuse_cpu_tensors(kernel):
     ring, base = _t(_sack_rows(8, 4)), _t(_words(8))
     lanes = _t(np.zeros(3, np.int32))
@@ -189,6 +195,10 @@ def test_kernels_refuse_cpu_tensors(kernel):
             "sack_advance": (ring, base),
             "nack_mark": (ring, lanes, lanes, _t(np.ones(3, bool))),
             "sack_fused_own": (ring, base, ring, off, ok, ok),
-            "sack_advance_own": (ring, base, off, ok)}[kernel]
+            "sack_advance_own": (ring, base, off, ok),
+            "nack_mark_lanes": (ring, base, lanes, lanes,
+                                _t(np.ones(3, bool))),
+            "set_own_bit": (ring, off, ok, ring),
+            "clear_own_bit": (ring, off, ok)}[kernel]
     with pytest.raises(ValueError, match="CUDA tensor"):
         getattr(ops, f"{kernel}_cuda")(*args)

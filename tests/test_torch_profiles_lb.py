@@ -16,7 +16,7 @@ import torch
 from repro.core.lb.schemes import LBScheme as JLB
 from repro.network import profile as jprof
 from repro_torch.core.lb.schemes import LBScheme
-from repro_torch.network import fabric as tf
+from repro_torch.kernels import ops
 from repro_torch.network import profile as tprof
 from test_torch_fabric import K6_SRC
 from test_torch_profiles import assert_parity, run_pair
@@ -24,17 +24,20 @@ from test_torch_profiles import assert_parity, run_pair
 
 def test_rr_slots_loss_inference_trajectory(monkeypatch):
     """Count the retransmit bits set by the RR_SLOTS inference: every
-    call of ``_set_own_bit`` but section 9's stall mark (offset 0)."""
+    call of the in-place ``set_own_bit_`` that tests the source ring
+    (``unless``); section 9's stall mark passes none. The form writes
+    into its ring, so the spy compares against a copy taken before."""
     marked = []
-    set_bit = tf._set_own_bit
+    set_bit = ops.set_own_bit_
 
-    def spy(ring, off, valid):
-        out = set_bit(ring, off, valid)
-        if bool((off != 0).any()):
-            marked.append(int((out != ring).sum()))
+    def spy(ring, off, valid, unless=None):
+        before = ring.clone()
+        out = set_bit(ring, off, valid, unless=unless)
+        if unless is not None:
+            marked.append(int((out != before).sum()))
         return out
 
-    monkeypatch.setattr(tf, "_set_own_bit", spy)
+    monkeypatch.setattr(ops, "set_own_bit_", spy)
     ref, port = run_pair(jprof.TransportProfile.ai_full(lb=JLB.RR_SLOTS),
                          tprof.TransportProfile.ai_full(lb=LBScheme.RR_SLOTS))
     assert_parity(ref, port)
