@@ -18,7 +18,14 @@ Phases, one line each:
    marks on the retransmit ring ``nack_mark_lanes`` (with and without a
    ROD mask), ``set_own_bit`` (with and without ``unless``) and
    ``clear_own_bit`` at F in {1, 33, 2048} x W in {1, 3, 16, 17, 32},
-   each timed at the main shape; ``nscc_update`` (N = F = 2048) and
+   each timed at the main shape; then the five tick kernels at the batch
+   phase's shapes, B = 4 scenarios: the own-bit SACK forms and the row
+   marks over B·F = 8192 rows, and ``nack_mark_lanes`` with the
+   scenario stride (B x W in {1, 3, 8} x {1, 16, 17, 32} at F in
+   {1, 33, 2048}, lanes as [B, L] slices of wider rows, out-of-range
+   flows in every scenario), each bitwise and timed (kernel, plain,
+   device, bound from the lanes, the rows they reach and a read and a
+   write of each word marked); ``nscc_update`` (N = F = 2048) and
    ``ecmp_select`` (N = Q + F = 7168) at the entry-point path's shapes
    and at a pool of N = 2**24 lanes. Kernel and plain times (CUDA
    events, warm, median of 20) beside the bound (for the marks, the
@@ -33,7 +40,9 @@ Phases, one line each:
    kept here), bitwise, both timed with CUDA events in turns, with their
    device operations per call.
 4. goldens — the two reference goldens (``tests/golden/fabric_golden.npz``)
-   reproduced bitwise on the card.
+   reproduced bitwise on the card: A through ``simulate``, B (REPS, a
+   dead uplink, seed 0x5EED+3) through ``simulate_batch``, as its
+   definition says.
 5. full width — ``fat_tree3(k=16, pods=16)`` (1024 endpoints, Q = 5120)
    with two overlapping cross-pod permutations (F = 2048 flows of 256
    packets), ``SimParams()``: ``ai_full`` for ``max_ticks=4096`` (every
@@ -56,6 +65,16 @@ Phases, one line each:
    packet lanes of the ai_full run, and the dense SACK forms and the
    copying NACK mark on the mixed run's final rings, checked against the
    plain versions and the tick's own routing.
+   Then the batch: the same fabric and ``ai_full`` as B = 4 scenarios
+   of one ``simulate_batch`` call (stats tier, ``max_ticks=4096``):
+   seeds 0x5EED..0x5EED+3, lanes 0-1 healthy, lane 2's first edge-0
+   uplink (``up1_table[0, 0]``) dead from tick 0, lane 3's flapping over
+   [100, 400). Each lane's stats, final lanes and counters are bitwise
+   equal to ``tests/golden/torch_port_batch.npz`` (the JAX
+   ``simulate_batch``), lane 0 also to ``torch_port_fullsize.npz``;
+   each tick kernel is launched once per tick for all four; the
+   scenario-ticks per second beside the serial ``ai_full`` run's, and
+   the peak memory.
 6. cross-device — the first 128-tick chunk of the ai_full run with
    ``trace="full"`` on the card and on the CPU (plain versions), bitwise.
 
@@ -79,6 +98,7 @@ ROOT = Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "golden" / "fabric_golden.npz"
 FULLSIZE = ROOT / "tests" / "golden" / "torch_port_fullsize.npz"
 PROFILES = ROOT / "tests" / "golden" / "torch_port_profiles.npz"
+BATCH = ROOT / "tests" / "golden" / "torch_port_batch.npz"
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 INT_OPS_PER_S = 67e12       # H100 SXM non-tensor 32-bit rate
 F32_OPS_PER_S = 67e12       # H100 SXM non-tensor f32 rate
@@ -131,6 +151,9 @@ ENTRY_KERNELS = ("sack_fused", "sack_advance", "nack_mark", "nscc_update",
 OWN_WIDTHS = (1, 3, 8, 16, 17, 32)
 OWN_ROWS = (1, 33, F_MAIN)
 MARK_WIDTHS = (1, 3, 16, 17, 32)
+B_MAIN = 4                  # scenarios of the batch phase
+STRIDE_BATCHES = (1, 3, 8)
+STRIDE_WIDTHS = (1, 16, 17, 32)
 
 
 def say(phase: str, msg: str) -> None:
@@ -399,6 +422,38 @@ def phase_kernels() -> dict:
         rows[name] = _row(name, _max_abs_err((got,), (want,)),
                           _time_row(name, kern, plain, args, nbytes, nops))
         _say_row(name, rows[name], [tuple(a.shape) for a in args])
+    # the tick kernels at the batch phase's shapes: the NACK lanes with
+    # the scenario stride, bitwise at every batch, row count and width
+    # (with and without a ROD mask); then all five timed at B = 4
+    for b in STRIDE_BATCHES:
+        for f in OWN_ROWS:
+            for w in STRIDE_WIDTHS:
+                m = _stride_inputs(rng, b, f, w, dev)
+                lanes = (m["rtx"], m["base"], m["flow"], m["psn"], m["nack"])
+                for rod in (None, m["rod"]):
+                    got = ops.nack_mark_lanes_cuda(lanes[0].clone(),
+                                                   *lanes[1:], rod)
+                    want = ref.nack_mark_lanes_ref_(lanes[0].clone(),
+                                                    *lanes[1:], rod)
+                    torch.cuda.synchronize()
+                    _assert_equal((got,), (want,),
+                                  f"nack_mark_lanes b={b} f={f} w={w}")
+    say("3 kernels", f"nack_mark_lanes with the scenario stride ([B, L] "
+        f"lane slices, flows -1, F, F + 3 and -2**31 in every scenario, "
+        f"with and without a ROD mask): bitwise equal to plain at B in "
+        f"{STRIDE_BATCHES} x F in {OWN_ROWS} x W in {STRIDE_WIDTHS}")
+    for name, (kern, plain, args, nbytes, nops) in _batch_cases(
+            rng, dev).items():
+        got, want = kern(*_fresh(name, args)), plain(*_fresh(name, args))
+        if isinstance(got, torch.Tensor):
+            got, want = (got,), (want,)
+        torch.cuda.synchronize()
+        _assert_equal(got, want, f"{name} b={B_MAIN}")
+        rows[name]["batch"] = {
+            "b": B_MAIN, "max_abs_err": _max_abs_err(got, want),
+            **_time_row(name, kern, plain, args, nbytes, nops)}
+        _say_row(f"{name} (B={B_MAIN})", rows[name]["batch"],
+                 [tuple(a.shape) for a in args if a is not None])
     # the entry-point kernels: every params set / fanout, both sizes
     tick_params = _nscc_params()[0]
     for n in (F_MAIN, POOL):
@@ -503,17 +558,61 @@ def _mark_inputs(rng, f, w, dev) -> dict:
             "valid": t(rng.integers(0, 4, f) > 0)}
 
 
+def _stride_inputs(rng, b, f, w, dev) -> dict:
+    """B scenarios of ``_mark_inputs``: [B, F, W] rings, [B, F] bases
+    and [B, L] NACK lanes handed over as the tick hands them, the
+    [:, Q:] slice of [B, Q + L] rows; one [F] ROD mask for all."""
+    per = [_mark_inputs(rng, f, w, dev) for _ in range(b)]
+    out = {k: torch.stack([m[k] for m in per])
+           for k in ("rtx", "ring", "base", "off", "valid")}
+    for k in ("flow", "psn", "nack"):
+        wide = torch.zeros((b, Q_MAIN + per[0][k].numel()),
+                           dtype=per[0][k].dtype, device=dev)
+        wide[:, Q_MAIN:] = torch.stack([m[k] for m in per])
+        out[k] = wide[:, Q_MAIN:]
+    out["rod"] = per[0]["rod"]
+    return out
+
+
+def _batch_cases(rng, dev) -> dict:
+    """name -> (kernel, plain, args, bytes, ops) of the five tick
+    kernels at the batch phase's shapes: B = 4 scenarios of F = 2048
+    rows of W = 16 words, the row forms over the [B·F, W] view the tick
+    hands them, the NACK lanes as [B, L] slices with the stride."""
+    from repro_torch.kernels import ops, ref
+    n = B_MAIN * F_MAIN
+    cases = dict(_own_cases(*_own_inputs(rng, n, W_MAIN, dev)))
+    rows = _mark_cases(_mark_inputs(rng, n, W_MAIN, dev))
+    cases["set_own_bit"] = rows["set_own_bit"]
+    cases["clear_own_bit"] = rows["clear_own_bit"]
+    m = _stride_inputs(rng, B_MAIN, F_MAIN, W_MAIN, dev)
+    lanes = (m["rtx"], m["base"], m["flow"], m["psn"], m["nack"])
+    cases["nack_mark_lanes"] = (ops.nack_mark_lanes_cuda,
+                                ref.nack_mark_lanes_ref_, lanes,
+                                _lane_bytes(*lanes), 10 * m["flow"].numel())
+    return cases
+
+
+def _fresh(name, args):
+    """An in-place form's arguments with a copy of the ring it writes."""
+    if name in ("nack_mark_lanes", "set_own_bit", "clear_own_bit"):
+        return (args[0].clone(), *args[1:])
+    return args
+
+
 def _lane_bytes(rtx, base, flow, psn, nack, rod=None) -> int:
     """The bytes the NACK lanes need on this data: each lane's flow, PSN
-    and flag; base (and rod) of each row a NACK lane reaches; a read and
-    a write of each word it marks."""
-    f, w = rtx.shape
+    and flag; base (and rod) of each row a NACK lane reaches (scenario
+    b's flow f is row b*F + f of a [B, F, W] ring); a read and a write
+    of each word it marks."""
+    from repro_torch.core.types import scenario_rows
+    f, w = rtx.shape[-2:]
     reach = nack & (flow >= 0) & (flow < f)
-    row = torch.where(reach, flow, 0).long()
-    off = psn - base[row]
+    row = torch.where(reach, scenario_rows(flow, f) + flow, 0).long()
+    off = psn - base.reshape(-1)[row]
     ok = reach & (off >= 0) & (off < 32 * w)
     if rod is not None:
-        ok = ok & ~rod[row]
+        ok = ok & ~rod[torch.where(reach, flow, 0).long()]
     rows = int(torch.unique(row[reach]).numel())
     words = int(torch.unique(row[ok] * w + (off[ok] // 32)).numel())
     return (flow.numel() * 9 + rows * (4 + (rod is not None))
@@ -733,11 +832,18 @@ def _golden_configs():
 
 
 def phase_goldens() -> dict:
-    from repro_torch.network.fabric import simulate
+    from repro_torch.network.fabric import simulate, simulate_batch
     gold, cfgs = _golden_configs()
     out = {}
     for tag, (g, wl, prof, p, kw) in cfgs.items():
-        r = simulate(g, wl, prof, p, trace="full", device="cuda", **kw)
+        if tag == "a":
+            r = simulate(g, wl, prof, p, trace="full", device="cuda")
+        else:   # golden B is the batched run, as its definition says
+            mask = np.zeros((1, g.num_queues), bool)
+            mask[0, kw["failed"]] = True
+            r = simulate_batch(g, [wl], prof, p, failed=mask,
+                               seeds=np.asarray([kw["seed"]], np.uint32),
+                               trace="full", device="cuda")[0]
         h = r.horizon
         for lane, key in (("delivered_per_tick", "delivered"),
                           ("cwnd_per_tick", "cwnd"), ("qlen_max", "qlen")):
@@ -751,7 +857,7 @@ def phase_goldens() -> dict:
                      gold[f"{tag}_state_src_base"], f"golden {tag} src_base")
         out[tag] = h
         say("4 goldens", f"golden {tag.upper()} bitwise on the card "
-            f"(horizon {h})")
+            f"(horizon {h}{', through simulate_batch' if tag == 'b' else ''})")
     return out
 
 
@@ -812,6 +918,86 @@ def phase_fullwidth() -> dict:
         f"horizon {r.horizon}, {res['ticks_per_s']:.1f} ticks/s "
         f"({secs:.2f} s), peak {peak / 2 ** 30:.2f} GiB, launches "
         f"{launches}; bitwise equal to the JAX reference {scalars}")
+    return res
+
+
+def phase_batch(serial: dict) -> dict:
+    """The full-width ``ai_full`` fabric as B = 4 scenarios of one
+    ``simulate_batch`` call, against the JAX ``simulate_batch`` golden;
+    ``serial`` is phase 5's one-scenario run of the same call."""
+    from repro_torch.kernels import ops
+    from repro_torch.network.fabric import simulate_batch
+    from repro_torch.network.faults import FaultSchedule
+    full, g, wl, prof, p = _fullsize()
+    gold = np.load(BATCH)
+    seeds = gold["seeds"]
+    q = int(g.up1_table[0, 0])
+    assert q == int(gold["fail_queue"]), "the flapping uplink"
+    ok = FaultSchedule.healthy(g.num_queues)
+    faults = FaultSchedule.stack([ok, ok, ok.flap(q, 0), ok.flap(q, 100, 400)])
+    assert np.array_equal(faults.fail_at.numpy(), gold["fail_at"])
+    assert np.array_equal(faults.heal_at.numpy(), gold["heal_at"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    rs = simulate_batch(g, [wl] * B_MAIN, prof, p, faults=faults,
+                        seeds=seeds, trace="stats", max_ticks=4096,
+                        device="cuda")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    horizons = [r.horizon for r in rs]
+    # every scenario steps every tick until the last one stops: one
+    # launch per tick kernel per tick for all four
+    _assert_launches("ai_full", launches, max(horizons))
+    for b, r in enumerate(rs):
+        s = r.state
+        lanes = {
+            "stat_completion": r.stat_completion,
+            "stat_src_completion": r.stat_src_completion,
+            "delivered": s.delivered.cpu().numpy(),
+            "next_psn": s.next_psn.cpu().numpy(),
+            "src_base": s.src_track.base.cpu().numpy().view(np.uint32),
+            "dst_base": s.dst_track.base.cpu().numpy().view(np.uint32),
+            "cwnd": s.cc.cwnd.cpu().numpy(),
+        }
+        scalars = {"horizon": r.horizon, "trims": r.trims,
+                   "drops": r.drops, "dups": r.dups,
+                   "retransmits": r.rtx_packets, "timeouts": r.timeouts,
+                   "qlen_peak": r.qlen_peak,
+                   "ticks_degraded": r.ticks_degraded}
+        for k, v in lanes.items():
+            _assert_bits(v, gold[f"b{b}/{k}"], f"batch lane {b} {k}")
+        for k, v in scalars.items():
+            assert v == int(gold[f"b{b}/{k}"]), (b, k, v)
+        if b == 0:   # lane 0 is the serial full-width run
+            for k, v in lanes.items():
+                _assert_bits(v, full[k], f"batch lane 0 {k} vs fullsize")
+    sticks = sum(horizons)
+    res = {"b": B_MAIN, "seconds": secs, "horizons": horizons,
+           "ticks_run": max(horizons), "scenario_ticks": sticks,
+           "scenario_ticks_per_s": sticks / secs,
+           "lane_ticks_per_s": B_MAIN * max(horizons) / secs,
+           "serial_ticks_per_s": serial["ticks_per_s"],
+           "peak_bytes": peak, "serial_peak_bytes": serial["peak_bytes"],
+           "launches": launches,
+           "drops": [r.drops for r in rs],
+           "timeouts": [r.timeouts for r in rs]}
+    say("5 batch", f"B={B_MAIN} scenario-ticks/s {res['scenario_ticks_per_s']:.1f} "
+        f"({sticks} scenario-ticks in {secs:.2f} s; all lanes stepped "
+        f"{max(horizons)} ticks, {res['lane_ticks_per_s']:.1f} lane-ticks/s) "
+        f"against the serial ai_full run's {serial['ticks_per_s']:.1f} "
+        f"ticks/s")
+    say("5 batch", f"peak {peak / 2 ** 30:.2f} GiB against the serial "
+        f"run's {serial['peak_bytes'] / 2 ** 30:.2f} GiB")
+    say("5 batch", f"{g.name} F={wl.src.shape[0]} x B={B_MAIN} (seeds "
+        f"{[hex(int(x)) for x in seeds]}, uplink {q} dead / flapping on "
+        f"lanes 2 / 3): horizons {horizons}, drops {res['drops']}, "
+        f"timeouts {res['timeouts']}; every lane bitwise equal to the JAX "
+        f"simulate_batch golden, lane 0 to the serial one; launches "
+        f"{launches}")
     return res
 
 
@@ -1029,6 +1215,7 @@ def main(argv=None) -> int:
               "build": phase_build(), "kernels": phase_kernels(),
               "sites": phase_sites(), "goldens": phase_goldens(),
               "full_width": phase_fullwidth()}
+    result["batch"] = phase_batch(result["full_width"])
     result["profiles"], states = phase_profiles()
     result["entry_points"] = phase_entry_points(states)
     result["cross_device"] = phase_cross_device()
@@ -1039,6 +1226,10 @@ def main(argv=None) -> int:
         row["launches"] = (result["full_width"]["launches"][name]
                            if name in TICK_KERNELS
                            else result["entry_points"]["launches"][name])
+        if "batch" in row:   # the same kernel on the batch phase's path
+            row["batch"] = {**{k: v for k, v in row["batch"].items()
+                               if k != "bytes"},
+                            "launches": result["batch"]["launches"][name]}
         kernels.append(row)
     result["seconds"] = time.perf_counter() - t0
     if args.out is not None:

@@ -3,7 +3,8 @@
 kernel calls, on the CPU.
 
 Steps ``ai_full`` on a 3-tier k=6 fat tree (27 hosts, two permutations,
-F = 54 flows) and counts, with a ``TorchDispatchMode``, the ATen
+F = 54 flows), as ``--batch`` scenarios of one tick (seeds 0x5EED + b),
+and counts, with a ``TorchDispatchMode``, the ATen
 operations each tick dispatches (views included), leaving out those
 inside the ``repro_torch.kernels.ops`` entry points, which a card runs
 as one kernel each. On a card, each counted operation that is not a view
@@ -11,7 +12,8 @@ is one device operation, so the count tracks
 ``scripts/torch_port_profile.py``'s device operations per tick without
 a card. It is a count, not a time.
 
-    PYTHONPATH=src python3 scripts/torch_port_opcount.py [--ticks 32]
+    PYTHONPATH=src python3 scripts/torch_port_opcount.py [--ticks 32] \
+        [--batch 1]
 
 Run with another tree's ``src`` on ``PYTHONPATH`` to count that tree.
 """
@@ -49,16 +51,20 @@ class _Count(TorchDispatchMode):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--ticks", type=int, default=32)
+    ap.add_argument("--batch", type=int, default=1)
     args = ap.parse_args()
     g = fat_tree3(k=6, pods=3)
     h = np.arange(27, dtype=np.int32)
-    wl = fabric.Workload.of(np.concatenate([h, h]),
-                            np.concatenate([(h + 9) % 27, (h + 3) % 27]),
-                            64, device="cpu")
+    wl = fabric.Workload.stack([fabric.Workload.of(
+        np.concatenate([h, h]), np.concatenate([(h + 9) % 27, (h + 3) % 27]),
+        64, device="cpu")] * args.batch)
     p, prof = fabric.SimParams(), TransportProfile.ai_full()
-    fault = FaultSchedule.healthy(g.num_queues, "cpu")
-    step = fabric.make_step(g, prof, p, int(wl.src.shape[0]), device="cpu")
-    s = fabric.init_state(g, wl, prof, p, device="cpu")
+    fault = FaultSchedule.healthy(g.num_queues, batch=args.batch,
+                                  device="cpu")
+    step = fabric.make_step(g, prof, p, int(wl.src.shape[1]), device="cpu")
+    s = fabric.init_state(g, wl, prof, p,
+                          fabric.DEFAULT_SEED + np.arange(args.batch),
+                          device="cpu")
     for tick in range(args.ticks):            # past the start-up ticks
         s, _ = step(s, tick, wl, fault)
     count = _Count()
@@ -77,7 +83,7 @@ def main() -> int:
     with count:
         for tick in range(args.ticks, 2 * args.ticks):
             s, _ = step(s, tick, wl, fault)
-    print(f"{g.name} F={int(wl.src.shape[0])} ai_full: "
+    print(f"{g.name} F={int(wl.src.shape[1])} B={args.batch} ai_full: "
           f"{count.n / args.ticks:.1f} ATen ops per tick outside the kernel "
           f"entry points (ticks {args.ticks}..{2 * args.ticks - 1}, "
           f"torch {torch.__version__}, CPU)")

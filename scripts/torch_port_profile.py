@@ -3,7 +3,9 @@
 
 Runs the port's full-width configuration — ``fat_tree3(k=16, pods=16)``
 with the two overlapping cross-pod permutations of ``chip_smoke.py``
-(F = 2048 flows of 256 packets), ``ai_full``, ``SimParams()`` — twice:
+(F = 2048 flows of 256 packets), ``ai_full``, ``SimParams()``, as
+``--batch`` scenarios of one tick (seeds 0x5EED + b; 1 by default) —
+twice:
 
 1. unprofiled, to quiescence, timing every ``--window``-tick window
    (host wall ms per tick, synchronized at each window edge);
@@ -14,9 +16,12 @@ It reports the per-window wall times and, for the profiled window, the
 device busy time per tick (the sum of the device time of every kernel,
 memset and copy; one stream, so they do not overlap), the device's idle
 share against the unprofiled wall time of the same window, the number of
-device operations per tick, and the ten largest device-time consumers.
+device operations per tick, the peak device memory of the unprofiled
+run, and the ten largest device-time consumers. A tick of B scenarios
+is B scenario-ticks.
 
-    PYTHONPATH=src python3 scripts/torch_port_profile.py [--out FILE]
+    PYTHONPATH=src python3 scripts/torch_port_profile.py [--batch B] \
+        [--out FILE]
 
 Needs a CUDA card; imports nothing of JAX.
 """
@@ -46,6 +51,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--warm", type=int, default=64)
     ap.add_argument("--window", type=int, default=64)
+    ap.add_argument("--batch", type=int, default=1)
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -57,20 +63,23 @@ def main() -> int:
     dev = torch.device("cuda")
     g = fat_tree3(k=16, pods=16)
     h = np.arange(1024, dtype=np.int32)
-    wl = fabric.Workload.of(np.concatenate([h, h]),
-                            np.concatenate([(h + 512) % 1024,
-                                            (h + 256) % 1024]),
-                            256, device=dev)
+    B = args.batch
+    wl = fabric.Workload.stack([fabric.Workload.of(
+        np.concatenate([h, h]),
+        np.concatenate([(h + 512) % 1024, (h + 256) % 1024]), 256,
+        device=dev)] * B)
     p = fabric.SimParams()
     prof_ = TransportProfile.ai_full()
-    fault = FaultSchedule.healthy(g.num_queues, dev)
+    fault = FaultSchedule.healthy(g.num_queues, batch=B, device=dev)
     step = fabric.make_step(g, prof_, p, 2048, device=dev)
+    seeds = fabric.DEFAULT_SEED + np.arange(B)
     n = args.window
 
     # 1. unprofiled, windowed wall time over the whole run
-    s = fabric.init_state(g, wl, prof_, p, device=dev)
+    s = fabric.init_state(g, wl, prof_, p, seeds, device=dev)
     windows, tick = [], 0
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     while True:
         t0 = time.perf_counter()
         for tick in range(tick, tick + n):
@@ -78,12 +87,13 @@ def main() -> int:
         tick += 1
         torch.cuda.synchronize()
         windows.append((time.perf_counter() - t0) / n * 1e3)
-        if bool(fabric._quiescent(s, wl)) or tick >= 4096:
+        if bool(fabric._quiescent(s, wl).all()) or tick >= 4096:
             break
     ticks_run = tick
+    peak = torch.cuda.max_memory_allocated()
 
     # 2. one profiled window from a fresh state
-    s = fabric.init_state(g, wl, prof_, p, device=dev)
+    s = fabric.init_state(g, wl, prof_, p, seeds, device=dev)
     for tick in range(args.warm):
         s, _ = step(s, tick, wl, fault)
     torch.cuda.synchronize()
@@ -105,8 +115,9 @@ def main() -> int:
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     plain_ms = windows[args.warm // n] if args.warm % n == 0 else None
     res = {
-        "nvidia_smi": smi, "config": g.name, "flows": 2048,
-        "window_ticks": n, "ticks_run": ticks_run,
+        "nvidia_smi": smi, "config": g.name, "flows": 2048, "batch": B,
+        "window_ticks": n, "ticks_run": ticks_run, "peak_bytes": peak,
+        "scenario_ticks_per_s_by_window": [B * 1e3 / w for w in windows],
         "wall_ms_per_tick_by_window": windows,
         "wall_ms_per_tick_mean": float(np.mean(windows)),
         "profiled_first_tick": args.warm,
@@ -119,7 +130,8 @@ def main() -> int:
         "top_device_us_per_tick": [[k[:160], v / n] for k, v in top],
     }
     print(smi)
-    print(f"{g.name} F=2048: {ticks_run} ticks, wall ms/tick by {n}-tick "
+    print(f"{g.name} F=2048 B={B}: {ticks_run} ticks, peak "
+          f"{peak / 2 ** 30:.2f} GiB, wall ms/tick by {n}-tick "
           f"window {[round(w, 2) for w in windows]}")
     print(f"profiled ticks {args.warm}..{args.warm + n - 1}: device busy "
           f"{busy_ms:.3f} ms/tick, idle share (vs unprofiled wall) "

@@ -1,7 +1,8 @@
 #!/usr/bin/env python
 """Write the JAX references that the PyTorch port is held against at full
-width: ``tests/golden/torch_port_fullsize.npz`` and
-``tests/golden/torch_port_profiles.npz``.
+width: ``tests/golden/torch_port_fullsize.npz``,
+``tests/golden/torch_port_profiles.npz`` and
+``tests/golden/torch_port_batch.npz``.
 
 Both use the port's full-width fabric (``chip_smoke.py`` phase 5): a full
 3-tier k=16 fat tree (``fat_tree3(k=16, pods=16)``: 1024 endpoints, 320
@@ -23,11 +24,19 @@ downlink takes a 2:1 incast — under ``SimParams()`` with
     delivery=<ROD on odd flows, RUD on even>)`` (open loop, RR_SLOTS
     loss inference, mixed ROD).
 
+* ``batch``: ``ai_full`` through ``simulate_batch`` as B = 4
+  scenarios, ``max_ticks=4096``: lane 0 seed 0x5EED, healthy (the
+  ``fullsize`` run); lane 1 seed 0x5EED+1, healthy; lane 2 seed
+  0x5EED+2, the first uplink of edge switch 0 (``up1_table[0, 0]``)
+  dead from tick 0; lane 3 seed 0x5EED+3, that uplink flapping over
+  [100, 400).
+
 This script imports the JAX package and is not part of the port. It
-runs on the CPU (about five minutes per run on a few cores):
+runs on the CPU (about five minutes per one-scenario run on a few
+cores):
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/torch_port_reference.py \
-        [--which fullsize|profiles]
+        [--which fullsize|profiles|batch]
 
 ``fullsize`` holds the workload lanes (``src``, ``dst``, ``size``), the
 per-flow stats and final lanes (``stat_completion``,
@@ -43,6 +52,11 @@ lanes ``t/stat_completion``, ``t/stat_src_completion``, the scalars
 ``t/rod_rejects``, ``t/retransmits``, ``t/timeouts``, ``t/cpu_seconds``,
 and every final ``SimState`` lane but the packet and event buffers as
 ``t/state.<dotted path>`` (uint32 lanes as uint32).
+
+``batch`` holds ``seeds``, ``fail_queue``, the schedules' ``fail_at`` /
+``heal_at`` lanes ([4, Q]) and, per lane ``b<i>``, the stats and final
+lanes and the scalars of ``fullsize`` plus ``ticks_degraded``; and the
+wall-clock seconds of the batched run (``cpu_seconds``).
 """
 import argparse
 import dataclasses
@@ -52,7 +66,9 @@ from pathlib import Path
 import numpy as np
 
 from repro.core.lb.schemes import LBScheme
-from repro.network.fabric import SimParams, Workload, simulate
+from repro.network.fabric import (SimParams, Workload, simulate,
+                                  simulate_batch)
+from repro.network.faults import FaultSchedule
 from repro.network.profile import CCAlgo, DeliveryMode, TransportProfile
 from repro.network.topology import fat_tree3
 
@@ -60,6 +76,9 @@ REPO = Path(__file__).resolve().parent.parent
 GOLDEN = REPO / "tests" / "golden"
 OUT = GOLDEN / "torch_port_fullsize.npz"
 OUT_PROFILES = GOLDEN / "torch_port_profiles.npz"
+OUT_BATCH = GOLDEN / "torch_port_batch.npz"
+BATCH_SEEDS = (0x5EED, 0x5EED + 1, 0x5EED + 2, 0x5EED + 3)
+FLAP = (100, 400)
 HOSTS = 1024
 SIZE = 256
 MAX_TICKS = 4096
@@ -109,17 +128,10 @@ def _flatten(obj, prefix: str, out: dict) -> None:
         out[prefix[:-1]] = np.asarray(obj)
 
 
-def write_fullsize(path: Path) -> None:
-    g = fat_tree3(k=16, pods=16)
-    src, dst, size = workload_lanes()
-    wl = Workload.of(src, dst, size)
-    t0 = time.perf_counter()
-    r = simulate(g, wl, TransportProfile.ai_full(), SimParams(),
-                 trace="stats", max_ticks=MAX_TICKS)
-    secs = time.perf_counter() - t0
+def _run_lanes(r) -> dict:
+    """The stats and final [F] lanes and the scalars of one run."""
     s = r.state
-    out = {
-        "src": src, "dst": dst, "size": size,
+    return {
         "stat_completion": np.asarray(r.stat_completion),
         "stat_src_completion": np.asarray(r.stat_src_completion),
         "delivered": np.asarray(s.delivered),
@@ -131,8 +143,21 @@ def write_fullsize(path: Path) -> None:
         "trims": np.int64(r.trims), "drops": np.int64(r.drops),
         "dups": np.int64(r.dups), "retransmits": np.int64(r.rtx_packets),
         "timeouts": np.int64(r.timeouts), "qlen_peak": np.int64(r.qlen_peak),
-        "cpu_seconds": np.float64(secs),
+        "ticks_degraded": np.int64(r.ticks_degraded),
     }
+
+
+def write_fullsize(path: Path) -> None:
+    g = fat_tree3(k=16, pods=16)
+    src, dst, size = workload_lanes()
+    wl = Workload.of(src, dst, size)
+    t0 = time.perf_counter()
+    r = simulate(g, wl, TransportProfile.ai_full(), SimParams(),
+                 trace="stats", max_ticks=MAX_TICKS)
+    secs = time.perf_counter() - t0
+    out = {"src": src, "dst": dst, "size": size, **_run_lanes(r),
+           "cpu_seconds": np.float64(secs)}
+    del out["ticks_degraded"]
     path.parent.mkdir(parents=True, exist_ok=True)
     np.savez_compressed(path, **out)
     ct = out["stat_completion"]
@@ -173,6 +198,43 @@ def run_profile(tag: str) -> dict:
     return {f"{tag}/{k}": v for k, v in out.items()}
 
 
+def batch_faults(g) -> "tuple[int, FaultSchedule]":
+    """The batch's [4, Q] schedule: lanes 0-1 healthy, lane 2's uplink
+    dead from tick 0, lane 3's flapping over FLAP."""
+    q = int(g.up1_table[0, 0])
+    ok = FaultSchedule.healthy(g.num_queues)
+    return q, FaultSchedule.stack([ok, ok, ok.flap(q, 0), ok.flap(q, *FLAP)])
+
+
+def write_batch(path: Path) -> None:
+    g = fat_tree3(k=16, pods=16)
+    src, dst, size = workload_lanes()
+    wl = Workload.of(src, dst, size)
+    q, faults = batch_faults(g)
+    t0 = time.perf_counter()
+    rs = simulate_batch(g, Workload.stack([wl] * len(BATCH_SEEDS)),
+                        TransportProfile.ai_full(), SimParams(),
+                        faults=faults,
+                        seeds=np.asarray(BATCH_SEEDS, np.uint32),
+                        trace="stats", max_ticks=MAX_TICKS)
+    secs = time.perf_counter() - t0
+    out = {"seeds": np.asarray(BATCH_SEEDS, np.uint32),
+           "fail_queue": np.int64(q),
+           "fail_at": np.asarray(faults.fail_at),
+           "heal_at": np.asarray(faults.heal_at),
+           "cpu_seconds": np.float64(secs)}
+    for b, r in enumerate(rs):
+        out.update({f"b{b}/{k}": v for k, v in _run_lanes(r).items()})
+        ct = np.asarray(r.stat_completion)
+        print(f"lane {b}: horizon={r.horizon} completion {ct.min()}.."
+              f"{ct.max()} trims={r.trims} drops={r.drops} "
+              f"rtx={r.rtx_packets} timeouts={r.timeouts} "
+              f"degraded={r.ticks_degraded}", flush=True)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    np.savez_compressed(path, **out)
+    print(f"{g.name}: B={len(rs)} in {secs:.1f} s -> {path}")
+
+
 def write_profiles(path: Path) -> None:
     out = {}
     for tag in ("hpc", "base", "mixed"):
@@ -185,11 +247,13 @@ def write_profiles(path: Path) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--which", default="fullsize",
-                    choices=("fullsize", "profiles"))
+                    choices=("fullsize", "profiles", "batch"))
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args()
     if args.which == "fullsize":
         write_fullsize(args.out or OUT)
+    elif args.which == "batch":
+        write_batch(args.out or OUT_BATCH)
     else:
         write_profiles(args.out or OUT_PROFILES)
     return 0

@@ -26,6 +26,8 @@ from dataclasses import dataclass, replace
 
 import torch
 
+from repro_torch.core.types import lane_shape
+
 
 @dataclass(frozen=True)
 class NSCCParams:
@@ -57,12 +59,14 @@ class NSCCState:
     epoch_tick: torch.Tensor
 
     @staticmethod
-    def create(n: int, params: NSCCParams,
+    def create(n: "int | tuple[int, ...]", params: NSCCParams,
                device: torch.device) -> "NSCCState":
+        """n contexts, or a lane shape such as (B, F)."""
+        shape = lane_shape(n)
         # optimistic start: window at/near BDP (Sec. 3.3.3)
-        z = torch.zeros((n,), dtype=torch.int32, device=device)
+        z = torch.zeros(shape, dtype=torch.int32, device=device)
         return NSCCState(
-            cwnd=torch.full((n,), params.max_cwnd, dtype=torch.float32,
+            cwnd=torch.full(shape, params.max_cwnd, dtype=torch.float32,
                             device=device),
             epoch_acked=z, epoch_lost=z.clone(), epoch_tick=z.clone())
 
@@ -146,14 +150,14 @@ def quick_adapt(state: NSCCState, params: NSCCParams, now: int) -> NSCCState:
 @dataclass(frozen=True)
 class NSCCPolicy:
     """NSCC as the fabric engine's CC policy: per-tick hooks over
-    densified [F] lanes (the protocol of ``repro_torch.network.profile``).
+    densified [F] (or [B, F]) lanes (the protocol of ``repro_torch.network.profile``).
     Only the hooks the NSCC composition acts on do work; the rest return
     the state unchanged. Its arithmetic is the reference's compiled tick
     (module docstring)."""
 
     params: NSCCParams
 
-    def create(self, f: int, device: torch.device) -> NSCCState:
+    def create(self, f, device: torch.device) -> NSCCState:
         return NSCCState.create(f, self.params, device)
 
     def on_ack(self, st: NSCCState, has_ack, ecn, rtt) -> NSCCState:
@@ -180,5 +184,5 @@ class NSCCPolicy:
     def end_of_tick(self, st: NSCCState, tick: int) -> NSCCState:
         return quick_adapt(st, self.params, tick)
 
-    def cwnd_view(self, st: NSCCState, f: int) -> torch.Tensor:
+    def cwnd_view(self, st: NSCCState, f) -> torch.Tensor:
         return st.cwnd

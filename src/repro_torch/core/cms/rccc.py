@@ -16,12 +16,16 @@ from __future__ import annotations
 
 from dataclasses import dataclass, replace
 
+import math
+
 import torch
+
+from repro_torch.core.types import lane_shape, scenario_rows
 
 
 @dataclass(frozen=True)
 class RCCCState:
-    """SoA over F flows.
+    """SoA over F flows (or [B, F]: one scenario per row).
 
     balance: [F] float32 — credits the sender may spend (packets)
     seen:    [F] bool    — the receiver has seen this flow's first packet;
@@ -32,12 +36,13 @@ class RCCCState:
     seen: torch.Tensor
 
     @staticmethod
-    def create(f: int, initial_credit: float,
+    def create(f: "int | tuple[int, ...]", initial_credit: float,
                device: torch.device) -> "RCCCState":
+        shape = lane_shape(f)
         return RCCCState(
-            balance=torch.full((f,), initial_credit, dtype=torch.float32,
+            balance=torch.full(shape, initial_credit, dtype=torch.float32,
                                device=device),
-            seen=torch.zeros((f,), dtype=torch.bool, device=device))
+            seen=torch.zeros(shape, dtype=torch.bool, device=device))
 
 
 def grant_credits(state: RCCCState, flow_dst: torch.Tensor,
@@ -46,11 +51,13 @@ def grant_credits(state: RCCCState, flow_dst: torch.Tensor,
                   demand: "torch.Tensor | None" = None) -> RCCCState:
     """One receiver scheduling round.
 
-    flow_dst: [F] int32 destination host; active: [F] bool; dfc: [H]
-    float32 per-destination rate scale (Destination Flow Control, Sec.
-    3.3.4); demand: [F] float32 optional source demand weights. Each
-    destination grants ``rate * dfc[h]`` split over its active seen flows
-    in proportion to ``w`` (1 each by default).
+    flow_dst: [..., F] int32 destination host; active: [..., F] bool;
+    dfc: [H] float32 per-destination rate scale (Destination Flow
+    Control, Sec. 3.3.4); demand: [..., F] float32 optional source
+    demand weights. Each destination grants ``rate * dfc[h]`` split over
+    its active seen flows in proportion to ``w`` (1 each by default).
+    Leading axes are scenarios: scenario b's host h is row b*H + h of
+    one flat sum, so scenarios never share a destination row.
 
     The per-destination weight sum is a scatter-add: on CUDA
     ``index_add_`` adds with atomics in no fixed order. With the default
@@ -64,33 +71,40 @@ def grant_credits(state: RCCCState, flow_dst: torch.Tensor,
         w = act.to(torch.float32)
     else:
         w = torch.where(act, demand.to(torch.float32), 0.0)
+    row = (scenario_rows(flow_dst, num_hosts) + flow_dst).long()
+    per_dst = torch.zeros((math.prod(w.shape[:-1]) * num_hosts,),
+                          dtype=torch.float32, device=w.device)
+    per_dst.index_add_(0, row.reshape(-1), w.reshape(-1))
+    pd = per_dst[row]
     dst = flow_dst.long()
-    per_dst = torch.zeros((num_hosts,), dtype=torch.float32,
-                          device=w.device).index_add_(0, dst, w)
-    pd = per_dst[dst]
     share = torch.where(pd > 0, w / torch.clamp(pd, min=1e-9), 0.0)
     scale = rate if dfc is None else rate * dfc[dst]
     return replace(state, balance=state.balance + share * scale)
 
 
 def _scatter_rows(flow: torch.Tensor, valid: torch.Tensor,
-                  f: int) -> torch.Tensor:
-    """Scatter rows under JAX's ``.at[...](mode="drop")`` rules: a
-    negative flow counts from the end, an out-of-range one and a lane
-    with ``valid`` unset go to the spare row ``f``."""
+                  lane: torch.Tensor) -> torch.Tensor:
+    """Flat scatter rows of [..., L] lanes into the [..., F] state lane
+    ``lane`` under JAX's ``.at[...](mode="drop")`` rules: a negative
+    flow counts from the end; scenario b's flow f is row b*F + f; an
+    out-of-range flow and a lane with ``valid`` unset go to the spare
+    row B*F, which belongs to no scenario."""
+    f = lane.shape[-1]
     idx = torch.where(flow < 0, flow + f, flow)
     ok = valid & (idx >= 0) & (idx < f)
-    return torch.where(ok, idx, f).long()
+    return torch.where(ok, scenario_rows(flow, f) + idx,
+                       lane.numel()).long()
 
 
 def mark_seen(state: RCCCState, flow: torch.Tensor,
               valid: torch.Tensor) -> RCCCState:
     """The receiver observed the first packet(s) of flow(s): credits
     start flowing."""
-    f = state.seen.shape[0]
-    seen = torch.cat([state.seen, state.seen.new_zeros((1,))])
-    seen[_scatter_rows(flow, valid, f)] = True
-    return replace(state, seen=seen[:f])
+    rows = _scatter_rows(flow, valid, state.seen)
+    n = state.seen.numel()
+    seen = torch.cat([state.seen.reshape(-1), state.seen.new_zeros((1,))])
+    seen[rows.reshape(-1)] = True
+    return replace(state, seen=seen[:n].view(state.seen.shape))
 
 
 def can_send(state: RCCCState) -> torch.Tensor:
@@ -103,12 +117,14 @@ def spend(state: RCCCState, flow: torch.Tensor,
     """Deduct one credit per injected packet (lanes may repeat a flow:
     each adds -1.0, and repeated equal addends give one result in any
     order)."""
-    f = state.balance.shape[0]
-    bal = torch.cat([state.balance, state.balance.new_zeros((1,))])
-    bal.index_add_(0, _scatter_rows(flow, valid, f),
-                   torch.full(flow.shape, -1.0, dtype=torch.float32,
+    rows = _scatter_rows(flow, valid, state.balance)
+    n = state.balance.numel()
+    bal = torch.cat([state.balance.reshape(-1),
+                     state.balance.new_zeros((1,))])
+    bal.index_add_(0, rows.reshape(-1),
+                   torch.full((rows.numel(),), -1.0, dtype=torch.float32,
                               device=bal.device))
-    return replace(state, balance=bal[:f])
+    return replace(state, balance=bal[:n].view(state.balance.shape))
 
 
 @dataclass(frozen=True)
@@ -122,7 +138,7 @@ class RCCCPolicy:
     initial_credit: float
     report_cwnd: float
 
-    def create(self, f: int, device: torch.device) -> RCCCState:
+    def create(self, f, device: torch.device) -> RCCCState:
         return RCCCState.create(f, self.initial_credit, device)
 
     def on_ack(self, st, has_ack, ecn, rtt):
@@ -150,6 +166,6 @@ class RCCCPolicy:
     def end_of_tick(self, st, tick):
         return st
 
-    def cwnd_view(self, st: RCCCState, f: int) -> torch.Tensor:
-        return torch.full((f,), self.report_cwnd, dtype=torch.float32,
-                          device=st.balance.device)
+    def cwnd_view(self, st: RCCCState, f) -> torch.Tensor:
+        return torch.full(lane_shape(f), self.report_cwnd,
+                          dtype=torch.float32, device=st.balance.device)

@@ -15,7 +15,7 @@ from dataclasses import dataclass, replace
 import torch
 
 from repro_torch._u32 import c32, shr, umod
-from repro_torch.core.types import EV_SPACE
+from repro_torch.core.types import EV_SPACE, scenario_rows
 
 class LBScheme(enum.IntEnum):
     STATIC = 0
@@ -51,26 +51,35 @@ class LBState:
     last_ev: torch.Tensor     # [F] int32
 
     @staticmethod
-    def create(f: int, k: int, seed: int,
+    def create(f: int, k: int, seed: "int | torch.Tensor",
                device: torch.device) -> "LBState":
-        seed = c32(int(seed))
+        """The initial state of F flows. ``seed`` is one seed (a Python
+        int: [F] lanes) or a [B] lane of uint32 seeds as int32 patterns
+        ([B, F] lanes, one scenario per seed); the int32 multiply and add
+        wrap as the reference's traced uint32 arithmetic does."""
         i32 = dict(dtype=torch.int32, device=device)
+        if isinstance(seed, torch.Tensor):
+            seed = seed.to(**i32)
+        else:
+            seed = torch.tensor(c32(int(seed)), **i32)
+        lead = tuple(seed.shape)
         flows = torch.arange(f, **i32)
         # per-flow, per-slot initial EVs: well-mixed distinct values
         slot_ev = umod(_mix32(flows[:, None] * 977
-                              + torch.arange(k, **i32)[None, :] + seed),
-                       EV_SPACE)
+                              + torch.arange(k, **i32)[None, :]
+                              + seed[..., None, None]), EV_SPACE)
         return LBState(
-            rr_ptr=torch.zeros((f,), **i32),
-            reps_ring=torch.full((f, k), -1, **i32),
-            reps_head=torch.zeros((f,), **i32),
-            reps_size=torch.zeros((f,), **i32),
+            rr_ptr=torch.zeros(lead + (f,), **i32),
+            reps_ring=torch.full(lead + (f, k), -1, **i32),
+            reps_head=torch.zeros(lead + (f,), **i32),
+            reps_size=torch.zeros(lead + (f,), **i32),
             ev_set=slot_ev,
-            cong_bits=torch.zeros((f, k), dtype=torch.bool, device=device),
-            salt=_mix32(flows + c32(seed * 2654435761)),
-            bad_ev=torch.full((f, k), -1, **i32),
-            bad_n=torch.zeros((f,), **i32),
-            last_ev=torch.full((f,), -1, **i32),
+            cong_bits=torch.zeros(lead + (f, k), dtype=torch.bool,
+                                  device=device),
+            salt=_mix32(flows + seed[..., None] * c32(2654435761)),
+            bad_ev=torch.full(lead + (f, k), -1, **i32),
+            bad_n=torch.zeros(lead + (f,), **i32),
+            last_ev=torch.full(lead + (f,), -1, **i32),
         )
 
 
@@ -78,13 +87,14 @@ def select_ev(state: LBState, scheme: LBScheme, psn: torch.Tensor,
               tick: int) -> "tuple[LBState, torch.Tensor]":
     """Choose the EV for the next packet of every flow.
 
-    psn: [F] uint32 — the PSN about to be stamped. Returns (state',
-    ev [F] int32); the caller keeps the new state lanes only where a
-    packet was actually injected.
+    psn: [..., F] uint32 — the PSN about to be stamped (any leading
+    scenario axes, as the state's). Returns (state', ev [..., F] int32);
+    the caller keeps the new state lanes only where a packet was
+    actually injected.
     """
-    F, K = state.ev_set.shape
+    K = state.ev_set.shape[-1]
     if scheme == LBScheme.STATIC:
-        return state, state.ev_set[:, 0]
+        return state, state.ev_set[..., 0]
     if scheme == LBScheme.OBLIVIOUS:
         t8 = c32((int(tick) << 8) & 0xFFFFFFFF)
         ev = umod(_mix32(state.salt ^ _mix32(psn + t8)), EV_SPACE)
@@ -92,11 +102,11 @@ def select_ev(state: LBState, scheme: LBScheme, psn: torch.Tensor,
     if scheme == LBScheme.RR_SLOTS:
         # slot i carries PSNs i, i+K, i+2K... (psn as int32, floor mod)
         slot = psn % K
-        return state, state.ev_set.gather(1, slot[:, None].long())[:, 0]
+        return state, _row_pick(state.ev_set, slot)
     if scheme == LBScheme.REPS:
         has = state.reps_size > 0
         pos = state.reps_head % K
-        recycled = state.reps_ring.gather(1, pos[:, None].long())[:, 0]
+        recycled = _row_pick(state.reps_ring, pos)
         fresh = umod(_mix32(state.salt ^ _mix32(psn * c32(2246822519))),
                      EV_SPACE)
         # an evicted (tombstoned, -1) ring entry is consumed but replaced
@@ -113,33 +123,41 @@ def select_ev(state: LBState, scheme: LBScheme, psn: torch.Tensor,
     # EVBITMAP: advance the pointer, skipping (and clearing) a congested
     # slot — one skip per selection (the spec's skip-then-unset rounds)
     ptr = state.rr_ptr % K
-    congested = state.cong_bits.gather(1, ptr[:, None].long())[:, 0]
+    congested = _row_pick(state.cong_bits, ptr)
     use = torch.where(congested, (ptr + 1) % K, ptr)
-    ev = state.ev_set.gather(1, use[:, None].long())[:, 0]
+    ev = _row_pick(state.ev_set, use)
     # clear the skipped bit so the slot is retried next round
-    skipped = ((torch.arange(K, device=ptr.device)[None, :] == ptr[:, None])
-               & congested[:, None])
+    skipped = ((torch.arange(K, device=ptr.device) == ptr[..., None])
+               & congested[..., None])
     return replace(state, rr_ptr=(use + 1) % K,
                    cong_bits=state.cong_bits & ~skipped), ev
 
 
+def _row_pick(table: torch.Tensor, col: torch.Tensor) -> torch.Tensor:
+    """table[..., i, col[..., i]]: one column per row of a [..., F, K]
+    table (col in [0, K))."""
+    return table.gather(-1, col[..., None].long())[..., 0]
+
+
 def _pick_lane(hot: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
-    """Per-row value from <= 1 active lane: hot [R, L] bool, vals [L]."""
-    return torch.where(hot, vals[None, :], 0).sum(dim=1, dtype=vals.dtype)
+    """Per-row value from <= 1 active lane: hot [..., R, L] bool, vals
+    [..., L]."""
+    return torch.where(hot, vals[..., None, :], 0).sum(dim=-1,
+                                                       dtype=vals.dtype)
 
 
 def reps_recycle(state: LBState, ev: torch.Tensor,
                  valid: torch.Tensor) -> LBState:
     """Per-flow REPS recycle: push one clean-ACK EV per flow (ev, valid:
-    [F]); pure elementwise + one-hot work."""
-    K = state.ev_set.shape[1]
+    [..., F]); pure elementwise + one-hot work."""
+    K = state.ev_set.shape[-1]
     push = valid & (state.reps_size < K)
     pos = (state.reps_head + state.reps_size) % K
-    hot = ((torch.arange(K, device=ev.device)[None, :] == pos[:, None])
-           & push[:, None])
+    hot = ((torch.arange(K, device=ev.device) == pos[..., None])
+           & push[..., None])
     return replace(
         state,
-        reps_ring=torch.where(hot, ev[:, None], state.reps_ring),
+        reps_ring=torch.where(hot, ev[..., None], state.reps_ring),
         reps_size=state.reps_size + push.to(torch.int32),
     )
 
@@ -155,26 +173,35 @@ def on_ack(state: LBState, scheme: LBScheme, flow: torch.Tensor,
            valid: torch.Tensor) -> LBState:
     """Feed ACK/NACK path feedback back into the scheme, lane-wise.
 
-    flow, ev: [B] int32; congested: [B] bool (ECN-CE marked ACK or trim
-    NACK); valid: [B] lane mask. EVBITMAP marks the slot whose EV saw
+    flow, ev: [..., L] int32 lanes of the scenario(s) whose state is
+    [..., F]; congested: [..., L] bool (ECN-CE marked ACK or trim NACK);
+    valid: [..., L] lane mask. EVBITMAP marks the slot whose EV saw
     congestion: an OR over lanes that may repeat a flow, written as an
     integer count per (flow, slot) (``index_add_``, exact and
-    order-free) then ``> 0`` — torch has no boolean scatter-max. REPS
-    feedback on this lane-wise path is not ported (its ring write is a
+    order-free) then ``> 0`` — torch has no boolean scatter-max. The
+    rows are flat: scenario b's flow f is row b*F + f, and a lane that
+    marks nothing goes to a discard row past every scenario's, so no
+    lane reaches another scenario's rows. REPS feedback on this
+    lane-wise path is not ported (its ring write is a
     duplicate-order-dependent scatter); the fabric tick uses the dense
     :func:`reps_recycle`. Other schemes take no feedback.
     """
-    F, K = state.ev_set.shape
+    F, K = state.ev_set.shape[-2:]
     if scheme == LBScheme.EVBITMAP:
+        n = state.ev_set[..., 0].numel()          # B*F rows
+        base = scenario_rows(flow, F)
         safe = _rows(torch.where(valid, flow, 0), F).clamp(0, F - 1)
-        hit = ((state.ev_set[safe.long()] == ev[:, None])
-               & congested[:, None] & valid[:, None])
+        hit = ((state.ev_set.reshape(n, K)[(base + safe).long()]
+                == ev[..., None])
+               & congested[..., None] & valid[..., None])
         r = _rows(flow, F)
-        rows = torch.where(valid & (r >= 0) & (r < F), r, F).long()
-        plane = torch.zeros((F + 1, K), dtype=torch.int32,
+        rows = torch.where(valid & (r >= 0) & (r < F), base + r, n).long()
+        plane = torch.zeros((n + 1, K), dtype=torch.int32,
                             device=flow.device)
-        plane.index_add_(0, rows, hit.to(torch.int32))
-        return replace(state, cong_bits=state.cong_bits | (plane[:F] > 0))
+        plane.index_add_(0, rows.reshape(-1),
+                         hit.to(torch.int32).reshape(-1, K))
+        marks = plane[:n].view(state.cong_bits.shape) > 0
+        return replace(state, cong_bits=state.cong_bits | marks)
     if scheme == LBScheme.REPS:
         raise NotImplementedError(
             "lane-wise REPS feedback is not ported (the fabric tick uses "
@@ -198,15 +225,16 @@ class LBPolicy:
 
     def on_ack(self, st: LBState, hot_ack, ef, ee, ec, is_ack, is_nack,
                flow_ok=None) -> LBState:
-        """Feedback from this tick's control events (hot_ack: [F, E]
-        one-hot ACK lanes; ef/ee/ec: [E] lane flow/EV/ECN)."""
+        """Feedback from this tick's control events (hot_ack: [..., F, E]
+        one-hot ACK lanes; ef/ee/ec: [..., E] lane flow/EV/ECN; flow_ok:
+        [F], the same for every scenario)."""
         if self.scheme == LBScheme.REPS:
             # recycle EVs that came back on clean (un-marked) ACKs
-            hot_clean = hot_ack & (ec[None, :] == 0)
+            hot_clean = hot_ack & (ec[..., None, :] == 0)
             if flow_ok is not None:
                 hot_clean = hot_clean & flow_ok[:, None]
             return reps_recycle(st, _pick_lane(hot_clean, ee),
-                                hot_clean.any(dim=1))
+                                hot_clean.any(dim=-1))
         if self.scheme == LBScheme.EVBITMAP:
             valid = is_ack | is_nack
             if flow_ok is not None:
@@ -223,4 +251,4 @@ class LBPolicy:
 
     def static_ev(self, st: LBState) -> torch.Tensor:
         """The flow's pinned single-path EV (ROD lanes)."""
-        return st.ev_set[:, 0]
+        return st.ev_set[..., 0]

@@ -17,13 +17,15 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch._u32 import bit, funnel_r, shr
+from repro_torch.core.types import lane_shape
 
 WORD = 32  # ring bitmap word width
 
 
 @dataclass(frozen=True)
 class PSNTracker:
-    """Per-PDC receive tracking state (SoA over N PDCs).
+    """Per-PDC receive tracking state (SoA over N PDCs, or [B, N] with
+    one scenario per row).
 
     base:   [N] uint32 — lowest not-cumulatively-acked PSN
     ring:   [N, W] uint32 — ring bitmap covering mp_range = W*32 PSNs
@@ -39,19 +41,22 @@ class PSNTracker:
     oor: torch.Tensor
 
     @staticmethod
-    def create(n: int, mp_range: int, device: torch.device) -> "PSNTracker":
+    def create(n: "int | tuple[int, ...]", mp_range: int,
+               device: torch.device) -> "PSNTracker":
+        """n trackers, or a lane shape such as (B, N)."""
         if mp_range % WORD:
             raise ValueError(f"mp_range must be a multiple of {WORD}, "
                              f"got {mp_range}")
-        z = torch.zeros((n,), dtype=torch.int32, device=device)
+        shape = lane_shape(n)
+        z = torch.zeros(shape, dtype=torch.int32, device=device)
         return PSNTracker(
-            base=z, ring=torch.zeros((n, mp_range // WORD), dtype=torch.int32,
-                                     device=device),
+            base=z, ring=torch.zeros(shape + (mp_range // WORD,),
+                                     dtype=torch.int32, device=device),
             rx_ok=z.clone(), dup=z.clone(), oor=z.clone())
 
     @property
     def mp_range(self) -> int:
-        return self.ring.shape[1] * WORD
+        return self.ring.shape[-1] * WORD
 
 
 def _popcount32(x: torch.Tensor) -> torch.Tensor:
@@ -100,24 +105,26 @@ def shift_ring(ring: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
 
 
 def bit_plane(off: torch.Tensor, valid: torch.Tensor, w: int) -> torch.Tensor:
-    """[N, W] uint32 plane with row i's bit `off[i]` set where valid[i]
-    and 0 <= off[i] < W*32 (signed): the dense replacement for a
-    one-lane-per-row bit scatter, elementwise."""
+    """[..., N, W] uint32 plane with row i's bit `off[i]` set where
+    valid[i] and 0 <= off[i] < W*32 (signed): the dense replacement for
+    a one-lane-per-row bit scatter, elementwise."""
     o = off.clamp(0, w * WORD - 1)
-    wordsel = (torch.arange(w, device=off.device)[None, :]
-               == torch.div(o, WORD, rounding_mode="floor")[:, None])
+    wordsel = (torch.arange(w, device=off.device)
+               == torch.div(o, WORD, rounding_mode="floor")[..., None])
     ok = valid & (off >= 0) & (off < w * WORD)
-    return torch.where(ok[:, None] & wordsel, bit(o % WORD)[:, None], 0)
+    return torch.where(ok[..., None] & wordsel, bit(o % WORD)[..., None], 0)
 
 
 def ooo_distance(t: PSNTracker) -> torch.Tensor:
     """Out-of-order span: distance between the highest received PSN and the
-    CACK point — the OOO_COUNT loss-inference signal (Sec. 3.2.4)."""
-    W = t.ring.shape[1]
+    CACK point — the OOO_COUNT loss-inference signal (Sec. 3.2.4). Rows
+    may carry leading scenario axes ([..., N, W] rings)."""
+    W = t.ring.shape[-1]
     any_bit = t.ring != 0
     # highest word holding a set bit: the first max of the reversed row
-    word_idx = (W - 1) - torch.argmax(any_bit.flip(1).to(torch.int32), dim=1)
-    has = any_bit.any(dim=1)
-    w = t.ring.gather(1, word_idx.clamp(0, W - 1)[:, None])[:, 0]
+    word_idx = (W - 1) - torch.argmax(any_bit.flip(-1).to(torch.int32),
+                                      dim=-1)
+    has = any_bit.any(dim=-1)
+    w = t.ring.gather(-1, word_idx.clamp(0, W - 1)[..., None])[..., 0]
     msb = 31 - _clz32(w)
     return torch.where(has, word_idx * WORD + msb + 1, 0).to(torch.int32)

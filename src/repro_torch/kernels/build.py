@@ -40,7 +40,7 @@ SIGNATURES = {
     },
     "nack_mark": {
         "nack_mark_launch": (_P, _P, _P, _P, _I, _I, _I, _P),
-        "nack_mark_lanes_launch": (_P,) * 6 + (_I, _I, _I, _P),
+        "nack_mark_lanes_launch": (_P,) * 6 + (_I,) * 5 + (_P,),
         "set_own_bit_launch": (_P, _P, _P, _P, _I, _I, _P),
         "clear_own_bit_launch": (_P, _P, _P, _I, _I, _P),
     },

@@ -1,4 +1,5 @@
-// In-place bit marks on the [F, W] retransmit ring, for sm_90a.
+// In-place bit marks on the [B*F, W] retransmit ring of B scenarios, for
+// sm_90a.
 //
 // Replaces the reference package's Pallas TPU kernel
 //   kernels/nack_mark.py  nack_mark -> _nack_kernel
@@ -7,19 +8,26 @@
 //
 // Two kernels, each a template, and four C entry points:
 //
-// * nack_mark_kernel<LANES, ROD> — one thread per lane. A lane marks
-//   nothing unless nack[l] and 0 <= flow[l] < F (an out-of-range row
-//   marks nothing: the TPU kernel's contract), and, with ROD, the row's
-//   ROD mask is clear. Its offset is
-//     LANES:  off = psn[l] - base[flow[l]] (uint32 wrap, read as int32),
-//             and the lane marks only where 0 <= off < W*32;
-//     !LANES: off = psn[l] clipped to [0, W*32) (the TPU kernel's form,
+// * nack_mark_kernel<LANES, ROD> — one thread per lane, over B
+//   scenarios of L lanes each: lane l is lane j = l % L of scenario
+//   b = l / L, read at b*ld + j of the lane arrays (ld: the scenario
+//   stride of the lanes, so a [B, L] slice of wider rows is read in
+//   place), and it may mark only scenario b's rows b*F .. b*F + F-1. A
+//   lane marks nothing unless nack and 0 <= flow < F (an out-of-range
+//   flow marks nothing: the TPU kernel's contract, and what keeps a
+//   flow of -1 or F off the neighbour scenario's rows), and, with ROD,
+//   the flow's ROD mask rod[flow] (one [F] mask for every scenario) is
+//   clear. With row = b*F + flow, its offset is
+//     LANES:  off = psn - base[row] (uint32 wrap, read as int32), and
+//             the lane marks only where 0 <= off < W*32;
+//     !LANES: off = psn clipped to [0, W*32) (the TPU kernel's form,
 //             where the caller passes the offset itself).
-//   It sets bit off & 31 of word off >> 5 of row flow[l] with atomicOr:
+//   It sets bit off & 31 of word off >> 5 of that row with atomicOr:
 //   lanes that hit one word or one bit combine as OR, which is
 //   commutative and idempotent, so the result does not depend on the
 //   order the atomics land in.
-//   nack_mark_launch      : !LANES, no ROD — ops.nack_mark, on a copy;
+//   nack_mark_launch      : !LANES, no ROD, B = 1 — ops.nack_mark, on
+//                           a copy;
 //   nack_mark_lanes_launch: LANES, ROD if rod != nullptr — the tick's
 //                           NACK site, on the ring itself.
 //
@@ -33,7 +41,8 @@
 //
 // Bound on this card: memory, and far below a launch. At the main
 // path's F = 2048, W = 16, L = Q + 2F = 9216 the lane form reads about
-// 83 KB of lanes plus the rows and words it marks; a row form reads
+// 83 KB of lanes a scenario plus the rows and words it marks; a row
+// form reads
 // 5 B a row plus the words it touches. Each is well under 0.1 us at
 // 3.35 TB/s, so a launch is bound by launch latency: what the design
 // saves is the device operations around it (no copy of the ring, no
@@ -57,14 +66,18 @@ nack_mark_kernel(uint32_t* __restrict__ rtx, const uint32_t* __restrict__ base,
                  const int32_t* __restrict__ flow,
                  const int32_t* __restrict__ psn,
                  const uint8_t* __restrict__ nack,
-                 const uint8_t* __restrict__ rod, int lanes, int f, int w) {
+                 const uint8_t* __restrict__ rod, int lanes, int per, int ld,
+                 int f, int w) {
   const int l = blockIdx.x * kThreads + threadIdx.x;
   if (l >= lanes) return;
-  const int row = flow[l];
-  const int p = psn[l];
-  const bool on = nack[l] != 0;
-  if (!on || row < 0 || row >= f) return;
-  if (ROD && rod[row]) return;
+  const int b = l / per;                  // the lane's scenario
+  const size_t at = static_cast<size_t>(b) * ld + (l - b * per);
+  const int fl = flow[at];
+  const int p = psn[at];
+  const bool on = nack[at] != 0;
+  if (!on || fl < 0 || fl >= f) return;
+  if (ROD && rod[fl]) return;
+  const size_t row = static_cast<size_t>(b) * f + fl;
   int o;
   if (LANES) {
     o = static_cast<int>(static_cast<uint32_t>(p) - base[row]);
@@ -72,7 +85,7 @@ nack_mark_kernel(uint32_t* __restrict__ rtx, const uint32_t* __restrict__ base,
   } else {
     o = min(max(p, 0), w * 32 - 1);
   }
-  atomicOr(rtx + static_cast<size_t>(row) * w + (o >> 5), 1u << (o & 31));
+  atomicOr(rtx + row * w + (o >> 5), 1u << (o & 31));
 }
 
 template <bool SET, bool UNLESS>
@@ -106,14 +119,18 @@ extern "C" int nack_mark_launch(void* rtx, const void* flow, const void* off,
       <<<blocks(lanes), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
           static_cast<uint32_t*>(rtx), nullptr,
           static_cast<const int32_t*>(flow), static_cast<const int32_t*>(off),
-          static_cast<const uint8_t*>(valid), nullptr, lanes, f, w);
+          static_cast<const uint8_t*>(valid), nullptr, lanes, lanes, lanes, f,
+          w);
   return static_cast<int>(cudaGetLastError());
 }
 
+// lanes = B * per lanes in all; ld = the lane arrays' scenario stride
+// (elements); the ring and base hold B * f rows.
 extern "C" int nack_mark_lanes_launch(void* rtx, const void* base,
                                       const void* flow, const void* psn,
                                       const void* nack, const void* rod,
-                                      int lanes, int f, int w, void* stream) {
+                                      int lanes, int per, int ld, int f,
+                                      int w, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   auto r = static_cast<uint32_t*>(rtx);
   auto b = static_cast<const uint32_t*>(base);
@@ -123,10 +140,10 @@ extern "C" int nack_mark_lanes_launch(void* rtx, const void* base,
   auto rd = static_cast<const uint8_t*>(rod);
   if (rd != nullptr) {
     nack_mark_kernel<true, true><<<blocks(lanes), kThreads, 0, s>>>(
-        r, b, fl, p, nk, rd, lanes, f, w);
+        r, b, fl, p, nk, rd, lanes, per, ld, f, w);
   } else {
     nack_mark_kernel<true, false><<<blocks(lanes), kThreads, 0, s>>>(
-        r, b, fl, p, nk, nullptr, lanes, f, w);
+        r, b, fl, p, nk, nullptr, lanes, per, ld, f, w);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -11,6 +11,12 @@ given and return it: no copy, no [F, W] plane, no allocation. The
 caller must own that ring; the tick does, since each tick's
 ``sack_fused_own`` makes a new one.
 
+The tick's forms take rows with leading scenario axes: a [B, F, W] ring
+with [B, F] lanes is handed to the kernel as its [B·F, W] view (no
+copy: the rings are contiguous), and ``nack_mark_lanes_`` takes [B, L]
+NACK lanes, each scenario's lanes marking only its own F rows. One
+launch per call, whatever B is.
+
 A CPU tensor goes to the plain PyTorch version in ``ref.py``; a CUDA
 tensor goes to the hand-written CUDA kernel (``csrc/``, built by
 ``build.py``), and nothing else: there is no fallback, and a kernel that
@@ -210,23 +216,65 @@ def nack_mark_lanes_cuda(rtx: torch.Tensor, base: torch.Tensor,
                          nack: torch.Tensor,
                          rod: "torch.Tensor | None" = None) -> torch.Tensor:
     """CUDA kernel, in place on ``rtx``: the tick's NACK lanes, each
-    marking bit psn - base[flow] of its row (see ``nack_mark_lanes_``)."""
+    marking bit psn - base[row] of its scenario's row (see
+    ``nack_mark_lanes_``). rtx [B, F, W] (or [F, W]), base [B, F],
+    flow / psn / nack [B, L] views whose rows may be slices of wider
+    rows (a unit lane stride and one scenario stride for the three);
+    rod [F]."""
     _on_cuda(rtx, base, flow, psn, nack, rod)
-    f, w = _ring_shape(rtx)
-    lanes = _lanes(flow)
-    _require("rtx", rtx, torch.int32, (f, w))
-    _require("base", base, torch.int32, (f,))
-    _require("flow", flow, torch.int32, (lanes,))
-    _require("psn", psn, torch.int32, (lanes,))
-    _require("nack", nack, torch.bool, (lanes,))
+    bsz, f, w, per = _lane_batch(rtx, flow)
+    _require("rtx", rtx, torch.int32, (bsz, f, w) if rtx.dim() == 3
+             else (f, w))
+    _require("base", base, torch.int32, tuple(rtx.shape[:-1]))
+    ld = _lane_rows("flow", flow, torch.int32, bsz, per)
+    for name, t, dt in (("psn", psn, torch.int32), ("nack", nack, torch.bool)):
+        if _lane_rows(name, t, dt, bsz, per) != ld:
+            raise ValueError("flow, psn and nack must share one scenario "
+                             "stride")
     if rod is not None:
         _require("rod", rod, torch.bool, (f,))
+    lanes = bsz * per
     if lanes and f:
         _launch("nack_mark_lanes", "nack_mark", rtx, rtx.data_ptr(),
                 base.data_ptr(), flow.data_ptr(), psn.data_ptr(),
                 nack.data_ptr(), None if rod is None else rod.data_ptr(),
-                lanes, f, w)
+                lanes, per, ld, f, w)
     return rtx
+
+
+def _lane_batch(rtx: torch.Tensor, flow: torch.Tensor):
+    """(B, F, W, L) of a [B, F, W] ring with [B, L] lanes, or of an
+    [F, W] ring with [L] lanes (B = 1)."""
+    if rtx.dim() == 2:
+        f, w = _ring_shape(rtx)
+        if flow.dim() != 1:
+            raise ValueError(f"an [F, W] ring takes [L] lanes, got "
+                             f"{tuple(flow.shape)}")
+        return 1, f, w, int(flow.shape[0])
+    if rtx.dim() != 3 or flow.dim() != 2 or flow.shape[0] != rtx.shape[0]:
+        raise ValueError(f"a [B, F, W] ring takes [B, L] lanes, got "
+                         f"{tuple(rtx.shape)} and {tuple(flow.shape)}")
+    _, w = _ring_shape(rtx[0])
+    return (int(rtx.shape[0]), int(rtx.shape[1]), w, int(flow.shape[1]))
+
+
+def _lane_rows(name: str, t: torch.Tensor, dtype: torch.dtype, bsz: int,
+               per: int) -> int:
+    """Check [B, L] (or [L]) lanes on the card with a unit lane stride;
+    return their scenario stride in elements."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} must be a CUDA tensor for the kernel, "
+                         f"got {t.device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if t.dim() == 1:
+        if tuple(t.shape) != (per,) or (per > 1 and t.stride(0) != 1):
+            raise ValueError(f"{name} must be [{per}] and contiguous")
+        return per
+    if tuple(t.shape) != (bsz, per) or (per > 1 and t.stride(1) != 1):
+        raise ValueError(f"{name} must be [{bsz}, {per}] with unit lane "
+                         f"stride, got {tuple(t.shape)} {t.stride()}")
+    return int(t.stride(0)) if bsz > 1 else per
 
 
 def _own_bit_operands(rtx, off, valid):
@@ -325,22 +373,44 @@ def sack_fused(ring, base, rtx, mask):
     return ref.sack_fused_ref(ring, base, rtx, mask)
 
 
+def _flat_rows(ring: torch.Tensor, *lanes: torch.Tensor):
+    """The [..., N, W] ring and its [..., N] lanes as [R, W] rows and
+    [R] lanes (views of contiguous tensors)."""
+    return (ring.reshape(-1, ring.shape[-1]),
+            *(t.reshape(-1) for t in lanes))
+
+
+def _unflat(outs, ring_shape, lane_shape):
+    """Outputs over [R] rows back to the caller's leading axes."""
+    return tuple(o.view(ring_shape if o.dim() == 2 else lane_shape)
+                 for o in outs)
+
+
 def sack_advance_own(ring, base, off, ok):
     """CACK advance recording each row's own received bit ``off``
     (PSN - base, int32) where ``ok`` (bool): (ring', base', adv,
-    already)."""
-    if _on_cuda(ring, base, off, ok):
-        return sack_advance_own_cuda(ring, base, off, ok)
-    return ref.sack_advance_own_ref(ring, base, off, ok)
+    already). Rows may carry leading scenario axes ([..., N, W] ring,
+    [..., N] lanes): one launch over all of them."""
+    args = _flat_rows(ring, base, off, ok)
+    if _on_cuda(*args):
+        outs = sack_advance_own_cuda(*args)
+    else:
+        outs = ref.sack_advance_own_ref(*args)
+    return _unflat(outs, ring.shape, base.shape)
 
 
 def sack_fused_own(ring, base, rtx, off, ok, clear):
     """Fused SACK on each row's own ACKed bit ``off`` (int32) where
     ``ok``, then bit ``off - adv`` of the shifted rtx cleared where
-    ``clear`` (bool): (ring', base', rtx', adv, already)."""
-    if _on_cuda(ring, base, rtx, off, ok, clear):
-        return sack_fused_own_cuda(ring, base, rtx, off, ok, clear)
-    return ref.sack_fused_own_ref(ring, base, rtx, off, ok, clear)
+    ``clear`` (bool): (ring', base', rtx', adv, already). Rows may carry
+    leading scenario axes, as in ``sack_advance_own``."""
+    r, b, o, k, c = _flat_rows(ring, base, off, ok, clear)
+    x = rtx.reshape(-1, rtx.shape[-1])
+    if _on_cuda(r, b, x, o, k, c):
+        outs = sack_fused_own_cuda(r, b, x, o, k, c)
+    else:
+        outs = ref.sack_fused_own_ref(r, b, x, o, k, c)
+    return _unflat(outs, ring.shape, base.shape)
 
 
 def nack_mark(rtx, flow, off, valid):
@@ -352,30 +422,52 @@ def nack_mark(rtx, flow, off, valid):
 
 
 def nack_mark_lanes_(rtx, base, flow, psn, nack, rod=None):
-    """The tick's NACK site, in place on ``rtx`` [F, W] (Sec. 3.2.4):
-    lane l with nack[l], 0 <= flow[l] < F and, given the [F] ROD mask
-    ``rod``, a non-ROD row, sets bit psn[l] - base[flow[l]] (uint32 wrap)
-    of row flow[l] where that offset is in [0, W*32). Returns ``rtx``."""
+    """The tick's NACK site, in place on ``rtx`` (Sec. 3.2.4), over B
+    scenarios: ``rtx`` [B, F, W] with ``base`` [B, F] and [B, L] lanes
+    (or [F, W], [F] and [L]: B = 1). Lane l of scenario b with nack[b,
+    l], 0 <= flow[b, l] < F and, given the [F] ROD mask ``rod``, a
+    non-ROD flow, sets bit psn[b, l] - base[b, flow[b, l]] (uint32 wrap)
+    of scenario b's row flow[b, l] where that offset is in [0, W*32); a
+    lane never reaches another scenario's rows. Returns ``rtx``."""
     if _on_cuda(rtx, base, flow, psn, nack, rod):
+        _own_ring(rtx)
         return nack_mark_lanes_cuda(rtx, base, flow, psn, nack, rod)
     return ref.nack_mark_lanes_ref_(rtx, base, flow, psn, nack, rod)
 
 
+def _own_ring(rtx: torch.Tensor) -> None:
+    """An in-place form writes through a [R, W] view of ``rtx``: it must
+    be contiguous, or the view would be a copy and the marks lost."""
+    if not rtx.is_contiguous():
+        raise ValueError("the ring an in-place mark writes must be "
+                         "contiguous")
+
+
 def set_own_bit_(rtx, off, valid, unless=None):
-    """In place on ``rtx`` [N, W]: row i sets bit off[i] (int32) where
-    valid[i] and 0 <= off[i] < W*32 and, given the [N, W] ring
-    ``unless``, where that bit of unless is clear. Returns ``rtx``."""
-    if _on_cuda(rtx, off, valid, unless):
-        return set_own_bit_cuda(rtx, off, valid, unless)
-    return ref.set_own_bit_ref_(rtx, off, valid, unless)
+    """In place on ``rtx`` [..., N, W]: row i sets bit off[i] (int32)
+    where valid[i] and 0 <= off[i] < W*32 and, given the [..., N, W]
+    ring ``unless``, where that bit of unless is clear. Leading
+    scenario axes are one launch over all rows. Returns ``rtx``."""
+    _own_ring(rtx)
+    r, o, v = _flat_rows(rtx, off, valid)
+    u = None if unless is None else unless.reshape(r.shape)
+    if _on_cuda(r, o, v, u):
+        set_own_bit_cuda(r, o, v, u)
+    else:
+        ref.set_own_bit_ref_(r, o, v, u)
+    return rtx
 
 
 def clear_own_bit_(rtx, off, valid):
-    """In place on ``rtx`` [N, W]: row i clears bit off[i] (int32) where
-    valid[i] and 0 <= off[i] < W*32. Returns ``rtx``."""
-    if _on_cuda(rtx, off, valid):
-        return clear_own_bit_cuda(rtx, off, valid)
-    return ref.clear_own_bit_ref_(rtx, off, valid)
+    """In place on ``rtx`` [..., N, W]: row i clears bit off[i] (int32)
+    where valid[i] and 0 <= off[i] < W*32. Returns ``rtx``."""
+    _own_ring(rtx)
+    r, o, v = _flat_rows(rtx, off, valid)
+    if _on_cuda(r, o, v):
+        clear_own_bit_cuda(r, o, v)
+    else:
+        ref.clear_own_bit_ref_(r, o, v)
+    return rtx
 
 
 def nscc_update(cwnd, ecn, rtt, count, params: NSCCParams = NSCCParams()):

@@ -17,6 +17,7 @@ import torch
 from repro_torch._u32 import from_u64, umod
 from repro_torch.core.cms.nscc import NSCCParams, window_delta
 from repro_torch.core.pds import bit_plane, shift_ring, trailing_ones
+from repro_torch.core.types import scenario_rows
 from repro_torch.network.ecmp import ecmp_hash
 
 
@@ -124,22 +125,28 @@ def nack_mark_lanes_ref_(rtx: torch.Tensor, base: torch.Tensor,
                          flow: torch.Tensor, psn: torch.Tensor,
                          nack: torch.Tensor,
                          rod: "torch.Tensor | None" = None) -> torch.Tensor:
-    """The tick's NACK site, in place on ``rtx`` [F, W]: lane l with
-    nack[l], 0 <= flow[l] < F and (without ``rod``, or where
-    ~rod[flow[l]]) sets bit off = psn[l] - base[flow[l]] (uint32 wrap,
-    read as int32) of row flow[l] where 0 <= off < W*32; lanes hitting
-    one bit combine as OR. flow/psn: [L] int32; nack: [L] bool; base:
-    [F] int32; rod: [F] bool. Returns ``rtx``."""
-    f, w = rtx.shape
-    if not f:
+    """The tick's NACK site, in place on ``rtx``, over B scenarios:
+    ``rtx`` [B, F, W], ``base`` [B, F], flow/psn [B, L] int32 and nack
+    [B, L] bool (or [F, W], [F] and [L]: B = 1); rod: [F] bool, the same
+    for every scenario. Lane l of scenario b with nack, 0 <= flow < F
+    and (without ``rod``, or where ~rod[flow]) sets bit off = psn -
+    base[b, flow] (uint32 wrap, read as int32) of scenario b's row flow
+    (flat row b*F + flow) where 0 <= off < W*32; lanes hitting one bit
+    combine as OR. A lane whose flow is out of [0, F) marks nothing, so
+    no lane reaches a neighbour scenario's rows. Returns ``rtx``."""
+    f, w = rtx.shape[-2:]
+    if not f or not flow.numel():
         return rtx
+    rows = rtx.view(-1, w)
     ok = nack & (flow >= 0) & (flow < f)
-    row = torch.where(ok, flow, 0).long()
-    off = psn - base[row]
+    row = torch.where(ok, scenario_rows(flow, f) + flow, 0).long()
+    off = psn - base.reshape(-1)[row]
     ok = ok & (off >= 0) & (off < w * 32)
     if rod is not None:
-        ok = ok & ~rod[row]
-    return rtx.bitwise_or_(_lane_words(f, w, flow, off, ok))
+        ok = ok & ~rod[torch.where(ok, flow, 0).long()]
+    rows.bitwise_or_(_lane_words(rows.shape[0], w, row.reshape(-1),
+                                 off.reshape(-1), ok.reshape(-1)))
+    return rtx
 
 
 def set_own_bit_ref_(rtx: torch.Tensor, off: torch.Tensor,

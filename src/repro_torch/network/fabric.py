@@ -10,6 +10,16 @@ numbered sections as the reference, so the two read side by side) and
 ``simulate`` drives it in ``chunk_ticks``-tick chunks from a Python loop,
 syncing with the host once per chunk to test quiescence.
 
+The tick runs B scenarios at once: every lane of the state carries a
+leading [B] scenario axis (the reference vmaps its one-scenario step;
+here the axis is written out), and ``simulate`` is the B = 1 case of
+``simulate_batch``, so the two share one tick. Scatters that cross rows
+(the packet write into the queues, the ``seen`` mark, RCCC's
+per-destination sums, EVBITMAP's marks, the NACK lanes) index flat rows
+with a per-scenario offset and send dropped lanes to a discard row that
+belongs to no scenario. The kernels see the [B, F, W] rings as
+[B·F, W] rows; one launch per site and tick, whatever B is.
+
 The tick's kernels, through ``repro_torch.kernels.ops``:
 ``sack_fused_own`` (section 1, source ACKs) and ``sack_advance_own``
 (section 5, receiver CACK) once a tick; and the in-place marks on the
@@ -33,10 +43,10 @@ and telemetry raise ``NotImplementedError`` naming their ROADMAP.md item.
 uint32 lanes are int32 bit patterns (``_u32``); JAX's clamped gathers
 and dropped scatters are written out as clamps and masks.
 
-The dense one-hots of the reference stay ([F, E] ACK/NACK lanes, [H, F]
-host pick, [F, Q] deliveries, [n, n] enqueue ranks, [Q, n] enqueue
-counts), so parity is easy to reason about; they are quadratic and cap
-the fabric size (ROADMAP.md, "Scale cap").
+The dense one-hots of the reference stay ([B, F, E] ACK/NACK lanes,
+[B, H, F] host pick, [B, F, Q] deliveries, [B, n, n] enqueue ranks,
+[B, Q, n] enqueue counts), so parity is easy to reason about; they are
+quadratic and cap the fabric size (ROADMAP.md, "Scale cap").
 """
 from __future__ import annotations
 
@@ -53,7 +63,8 @@ from repro_torch.core.lb.schemes import LBPolicy, LBScheme, LBState, _mix32
 from repro_torch.core.lb.schemes import _pick_lane as _pick
 from repro_torch.kernels import ops as kops
 from repro_torch.network.ecmp import DELIVERED, RoutingTables
-from repro_torch.network.faults import FaultSchedule
+from repro_torch.network.faults import (FaultSchedule, as_schedule,
+                                        failed_to_mask)
 from repro_torch.network.profile import (DeliveryMode, TransportProfile,
                                          make_cc_policy)
 from repro_torch.network.topology import QueueGraph
@@ -101,7 +112,8 @@ class Workload:
     """Flow set: src/dst host ids, message size (packets), start tick, the
     dependency lane (flow f waits until flow dep[f] source-completes;
     -1 = none) and the INC reduction-group lane (-1 = none; read only by
-    INC profiles, which are not ported yet). All [F] int32."""
+    INC profiles, which are not ported yet). All [F] int32, or [B, F]
+    for a scenario batch (``Workload.stack``)."""
 
     src: torch.Tensor
     dst: torch.Tensor
@@ -123,14 +135,30 @@ class Workload:
                         size=lane(size, 0), start=lane(start, 0),
                         dep=lane(dep, -1), red=lane(red, -1))
 
+    @staticmethod
+    def stack(wls: "list[Workload] | tuple[Workload, ...]") -> "Workload":
+        """Stack same-F workloads along a leading scenario axis ([B, F])."""
+        f = {int(w.src.shape[-1]) for w in wls}
+        if len(f) != 1:
+            raise ValueError(f"scenario batch needs a uniform flow count, "
+                             f"got {sorted(f)}")
+        return Workload(*(torch.stack([getattr(w, fl.name) for w in wls])
+                          for fl in fields(Workload)))
+
     def to(self, device) -> "Workload":
         return Workload(*(getattr(self, f.name).to(device)
                           for f in fields(self)))
 
+    def lanes(self, idx) -> "Workload":
+        """The scenarios ``idx`` (an index array) of a [B, F] batch."""
+        return Workload(*(getattr(self, f.name)[idx] for f in fields(self)))
+
 
 @dataclass(frozen=True)
 class SimState:
-    """The whole fabric + protocol state of one scenario.
+    """The whole fabric + protocol state of B scenarios: every lane below
+    has a leading [B] axis (shapes are given per scenario). A result's
+    state (``SimResult.state``) is one scenario's, without it.
 
     Mirrors the reference ``SimState`` lane for lane, minus the lanes of
     features this slice does not port (INC contexts, the link-layer LLR /
@@ -152,7 +180,7 @@ class SimState:
     last_ooo_nack: torch.Tensor  # [F] int32
     cc: object               # CC policy state: NSCCState, RCCCState, the
                              # hybrid's {"nscc", "rccc"} dict, or the open
-                             # loop's empty [0] int32 tensor
+                             # loop's empty [0] int32 tensor ([B, 0])
     lb: LBState
     ev_buf: torch.Tensor     # [D, E, EVF_FIELDS] int32 control-TC delay ring
     delivered: torch.Tensor  # [F] int32 packets delivered (first copies)
@@ -167,11 +195,12 @@ class SimState:
 
 
 def _first_set_bit(ring: torch.Tensor) -> torch.Tensor:
-    """Per-row index of the lowest set bit of a [N, W] uint32 ring, or -1."""
+    """Per-row index of the lowest set bit of a [..., N, W] uint32 ring,
+    or -1."""
     nz = ring != 0
-    has = nz.any(dim=1)
-    first_w = torch.argmax(nz.to(I32), dim=1)   # first max, as jnp.argmax
-    w = ring.gather(1, first_w[:, None])[:, 0]
+    has = nz.any(dim=-1)
+    first_w = torch.argmax(nz.to(I32), dim=-1)  # first max, as jnp.argmax
+    w = ring.gather(-1, first_w[..., None])[..., 0]
     ctz = pds._popcount32((w & (0 - w)) - 1)
     return torch.where(has, first_w * 32 + ctz, -1).to(I32)
 
@@ -185,81 +214,120 @@ _bit_plane = pds.bit_plane
 
 def _set_own_bit(ring, off, valid):
     """Row i sets bit off[i] — elementwise, no scatter."""
-    return ring | _bit_plane(off, valid, ring.shape[1])
+    return ring | _bit_plane(off, valid, ring.shape[-1])
 
 
 def _clear_own_bit(ring, off, valid):
     """Row i clears bit off[i] — elementwise, no scatter."""
-    return ring & ~_bit_plane(off, valid, ring.shape[1])
+    return ring & ~_bit_plane(off, valid, ring.shape[-1])
 
 
 def _own_word(ring: torch.Tensor, off: torch.Tensor) -> torch.Tensor:
     """Row i's ring word containing bit offset off[i] (clipped)."""
-    w = ring.shape[1]
+    w = ring.shape[-1]
     word = torch.div(off.clamp(0, w * 32 - 1), 32, rounding_mode="floor")
-    return ring.gather(1, word[:, None].long())[:, 0]
+    return ring.gather(-1, word[..., None].long())[..., 0]
 
 
 def _rank_within(target, valid, base, lower=None):
     """Each candidate lane's arrival rank within its target queue, and its
     queue position ``base[target] + rank``: rank[i] = #{j < i : valid[j]
-    and target[j] == target[i]} as a masked pairwise count. ``lower`` is
-    the strictly-lower-triangular [n, n] mask (built once per step)."""
-    n = target.shape[0]
+    and target[j] == target[i]} as a masked pairwise count, per scenario
+    (target/valid [..., n], base [..., Q]). ``lower`` is the
+    strictly-lower-triangular [n, n] mask (built once per step, shared
+    by every scenario)."""
+    n = target.shape[-1]
     if lower is None:
         lane = torch.arange(n, device=target.device)
         lower = lane[None, :] < lane[:, None]
     t = torch.where(valid, target, -1)
-    same = (t[None, :] == t[:, None]) & valid[None, :] & lower
-    rank = same.sum(dim=1, dtype=I32)
-    pos = base[torch.where(valid, target, 0).long()] + rank
+    same = (t[..., None, :] == t[..., :, None]) & valid[..., None, :] & lower
+    rank = same.sum(dim=-1, dtype=I32)
+    pos = base.gather(-1, torch.where(valid, target, 0).long()) + rank
     return pos, rank
 
 
+def _tree_map(fn, *objs):
+    """``fn`` over the tensors of same-shaped state trees (dataclasses of
+    tensors, nested dataclasses and dicts), leaf by leaf."""
+    o = objs[0]
+    if isinstance(o, torch.Tensor):
+        return fn(*objs)
+    if isinstance(o, dict):
+        return {k: _tree_map(fn, *(x[k] for x in objs)) for k in o}
+    return type(o)(*(_tree_map(fn, *(getattr(x, f.name) for x in objs))
+                     for f in fields(o)))
+
+
 def _where_rows(cond: torch.Tensor, new, old):
-    """Field-wise select of two same-typed state dataclasses: keep `new`
-    rows where `cond` [F] is set."""
+    """Tree-wise select of two same-typed state trees: keep `new` where
+    `cond` is set — per flow ([B, F] against [B, F, ...] lanes) or per
+    scenario ([B] against every [B, ...] lane)."""
     def sel(a, b):
-        return torch.where(cond.reshape((-1,) + (1,) * (a.dim() - 1)), a, b)
-    return type(new)(*(sel(getattr(new, f.name), getattr(old, f.name))
-                       for f in fields(new)))
+        return torch.where(cond.reshape(cond.shape
+                                        + (1,) * (a.dim() - cond.dim())),
+                           a, b)
+    return _tree_map(sel, new, old)
+
+
+def take_lane(tree, b: int):
+    """Scenario b of a batched state tree (views, no copy)."""
+    return _tree_map(lambda a: a[b], tree)
+
+
+def stack_lanes(trees):
+    """One batched state tree from per-scenario trees ([B] axis first)."""
+    return _tree_map(lambda *a: torch.stack(a), *trees)
 
 
 def _cc_params(p: SimParams) -> NSCCParams:
     return NSCCParams(base_rtt=p.base_rtt, max_cwnd=p.max_cwnd)
 
 
+def _seed_lane(seeds, B: int, device) -> torch.Tensor:
+    """[B] uint32 seeds as int32 patterns, from one seed or B of them
+    (each taken modulo 2**32, as ``jnp.asarray(seeds, jnp.uint32)``)."""
+    a = np.asarray(seeds).astype(np.int64) & 0xFFFFFFFF
+    a = np.broadcast_to(a, (B,)).astype(np.uint32).view(np.int32)
+    return torch.as_tensor(a).to(device)
+
+
 def init_state(g: QueueGraph, wl: Workload, profile: TransportProfile,
-               p: SimParams, seed: int = DEFAULT_SEED,
-               device=None) -> SimState:
+               p: SimParams, seed=DEFAULT_SEED, device=None) -> SimState:
+    """The initial state of a [B, F] scenario batch (``Workload.stack``),
+    with one seed for every scenario or a [B] seed lane."""
     dev = resolve_device(device)
+    if wl.src.dim() != 2:
+        raise ValueError(f"init_state takes a [B, F] workload (build one "
+                         f"with Workload.stack), got {tuple(wl.src.shape)}")
+    B, F = (int(d) for d in wl.src.shape)
     Q, C = g.num_queues, p.queue_capacity
-    F = int(wl.src.shape[0])
     D = p.ack_return_ticks + 1
     E = 2 * Q + 2 * F
     W = p.mp_range // 32
     cc_pol = make_cc_policy(profile.cc, _cc_params(p), p.max_cwnd)
     i32 = dict(dtype=I32, device=dev)
-    q_pkt = torch.zeros((Q, C, PKT_FIELDS), **i32)
-    q_pkt[:, :, PKT_FLOW] = -1
-    zero = torch.zeros((), **i32)
+    q_pkt = torch.zeros((B, Q, C, PKT_FIELDS), **i32)
+    q_pkt[..., PKT_FLOW] = -1
+    zero = torch.zeros((B,), **i32)
     return SimState(
         q_pkt=q_pkt,
-        q_head=torch.zeros((Q,), **i32), q_len=torch.zeros((Q,), **i32),
-        next_psn=torch.zeros((F,), **i32), inflight=torch.zeros((F,), **i32),
-        src_track=pds.PSNTracker.create(F, p.mp_range, dev),
-        rtx=torch.zeros((F, W), **i32),
-        last_progress=torch.zeros((F,), **i32),
-        slot_last_ack=torch.full((F, p.ev_slots), -1, **i32),
-        dst_track=pds.PSNTracker.create(F, p.mp_range, dev),
-        last_ooo_nack=torch.full((F,), -10 ** 6, **i32),
-        cc=cc_pol.create(F, dev),
-        lb=LBState.create(F, p.ev_slots, seed, dev),
-        ev_buf=torch.zeros((D, E, EVF_FIELDS), **i32),
-        delivered=torch.zeros((F,), **i32),
+        q_head=torch.zeros((B, Q), **i32), q_len=torch.zeros((B, Q), **i32),
+        next_psn=torch.zeros((B, F), **i32),
+        inflight=torch.zeros((B, F), **i32),
+        src_track=pds.PSNTracker.create((B, F), p.mp_range, dev),
+        rtx=torch.zeros((B, F, W), **i32),
+        last_progress=torch.zeros((B, F), **i32),
+        slot_last_ack=torch.full((B, F, p.ev_slots), -1, **i32),
+        dst_track=pds.PSNTracker.create((B, F), p.mp_range, dev),
+        last_ooo_nack=torch.full((B, F), -10 ** 6, **i32),
+        cc=cc_pol.create((B, F), dev),
+        lb=LBState.create(F, p.ev_slots, _seed_lane(seed, B, dev), dev),
+        ev_buf=torch.zeros((B, D, E, EVF_FIELDS), **i32),
+        delivered=torch.zeros((B, F), **i32),
         trims=zero, drops=zero.clone(), dups=zero.clone(),
         rod_rejects=zero.clone(), retransmits=zero.clone(),
-        rto=torch.full((F,), p.timeout_ticks, **i32),
+        rto=torch.full((B, F), p.timeout_ticks, **i32),
         timeouts=zero.clone(), ticks_degraded=zero.clone(),
     )
 
@@ -300,13 +368,17 @@ def make_step(g: QueueGraph, profile: TransportProfile, p: SimParams, F: int,
     """Build the per-tick transition ``step(s, tick, wl, fault) -> (s',
     out)`` for one transport profile on one device.
 
-    ``tick`` is a Python int; the step never syncs with the host. The
-    statics mirror the reference's ``make_step``: any CC composition, LB
-    scheme and per-flow delivery modes (ROD flows run go-back-N on one
-    static path, gate injection on in-order CACK advance, and their
-    receiver accepts only the next expected PSN; an all-ROD profile pins
-    LB to STATIC). ``lossy``/``hosty``/``corrupty``, ``tel``, ``link``,
-    INC, RTO backoff, eviction and PDC teardown are not ported and raise
+    ``s`` is the state of B scenarios ([B, ...] lanes), ``wl`` their
+    [B, F] workload and ``fault`` their [B, Q] schedule; ``tick`` is one
+    Python int for every scenario, and the step never syncs with the
+    host. Scenarios share nothing but the topology and the profile: each
+    cross-row scatter offsets its rows by scenario. The statics mirror
+    the reference's ``make_step``: any CC composition, LB scheme and
+    per-flow delivery modes (ROD flows run go-back-N on one static path,
+    gate injection on in-order CACK advance, and their receiver accepts
+    only the next expected PSN; an all-ROD profile pins LB to STATIC).
+    ``lossy``/``hosty``/``corrupty``, ``tel``, ``link``, INC, RTO
+    backoff, eviction and PDC teardown are not ported and raise
     ``NotImplementedError``.
     """
     dev = resolve_device(device)
@@ -322,11 +394,9 @@ def make_step(g: QueueGraph, profile: TransportProfile, p: SimParams, F: int,
     flow_ids = torch.arange(F, **i32)
     qidx = torch.arange(Q, **i32)
     hosts = torch.arange(H, **i32)
-    zeros_f = torch.zeros((F,), **i32)
-    zeros_qf = torch.zeros((Q + F,), **i32)
     n_cand = Q + F
     lane = torch.arange(n_cand, device=dev)
-    lower = lane[None, :] < lane[:, None]        # [n, n] for _rank_within
+    lower = lane[None, :] < lane[:, None]   # [n, n], shared by all scenarios
     cc_pol = make_cc_policy(profile.cc, _cc_params(p), p.max_cwnd)
     # per-flow delivery modes are static: compiled into the step
     rod_np = profile.delivery_modes(F) == int(DeliveryMode.ROD)
@@ -342,33 +412,54 @@ def make_step(g: QueueGraph, profile: TransportProfile, p: SimParams, F: int,
     rr_slots = profile.lb == LBScheme.RR_SLOTS and not all_rod
     kslots = torch.arange(K, device=dev)
     ooo_gap = int(p.base_rtt)
+    # per batch size: [B, 1] first flat row of each scenario (queue
+    # records, flows) and the [B, ...] zero lanes, made once
+    consts: dict = {}
+
+    def batch_consts(B: int) -> dict:
+        c = consts.get(B)
+        if c is None:
+            b = torch.arange(B, **i32)[:, None]
+            c = consts[B] = {
+                "rec0": b * (Q * C), "flow0": b * F,
+                "flow_ids": flow_ids.expand(B, F),
+                "zeros_f": torch.zeros((B, F), **i32),
+                "zeros_qf": torch.zeros((B, Q + F), **i32),
+                "no_f": torch.zeros((B, F), dtype=torch.bool, device=dev),
+            }
+        return c
 
     def step(s: SimState, tick: int, wl: Workload, fault: FaultSchedule):
+        B = int(wl.src.shape[0])
+        bc = batch_consts(B)
+        zeros_f = bc["zeros_f"]
         flow_src = wl.src
         flow_dst = wl.dst
         slot = tick % D
-        dead = (fault.fail_at <= tick) & (tick < fault.heal_at)
+        dead = fault.dead_at(tick)                              # [B, Q]
 
         # ------------------------------------------------ 1. control events
-        evs = s.ev_buf[slot]                                  # [E, 6]
-        et, ef, ep, ee, ec, ets = (evs[:, k].contiguous()
+        evs = s.ev_buf[:, slot]                               # [B, E, 6]
+        et, ef, ep, ee, ec, ets = (evs[..., k].contiguous()
                                    for k in range(EVF_FIELDS))
         is_ack = et == EV_ACK
         is_nack = (et == EV_NACK) | (et == EV_OOO)
-        # at most one ACK lane per flow per tick: one [F, E] one-hot
-        # densifies every ACK-driven update to [F] / [F, W] work
-        hot_ack = (ef[None, :] == flow_ids[:, None]) & is_ack[None, :]
-        hot_nack = (ef[None, :] == flow_ids[:, None]) & is_nack[None, :]
-        has_ack = hot_ack.any(dim=1)
-        nack_count = hot_nack.sum(dim=1, dtype=I32)
+        # at most one ACK lane per flow per tick: one [B, F, E] one-hot
+        # densifies every ACK-driven update to [B, F] / [B, F, W] work
+        own = ef[:, None, :] == flow_ids[:, None]
+        hot_ack = own & is_ack[:, None, :]
+        hot_nack = own & is_nack[:, None, :]
+        del own   # [B, F, E]: not held through the tick's peak
+        has_ack = hot_ack.any(dim=-1)
+        nack_count = hot_nack.sum(dim=-1, dtype=I32)
         ack_psn = _pick(hot_ack, ep)
 
         # ACKs: record at source, advance CACK, shift the rtx ring in
         # lockstep, and clear the ACKed PSN's pending retransmit bit
         # (its offset from the new base; ACK'd PSNs can't be pending
         # retransmit anymore) — the fused SACK kernel on each row's own
-        # bit. Nothing between the reference's fused call and its clear
-        # touches rtx, so the kernel does both.
+        # bit, over the B*F rows. Nothing between the reference's fused
+        # call and its clear touches rtx, so the kernel does both.
         ack_off0 = ack_psn - s.src_track.base          # uint32 wrap
         ack_in_range = has_ack & (ack_off0 >= 0) & (ack_off0 < mp)
         src_ring, src_base, rtx, adv, ack_already = kops.sack_fused_own(
@@ -381,7 +472,7 @@ def make_step(g: QueueGraph, profile: TransportProfile, p: SimParams, F: int,
             oor=s.src_track.oor + (has_ack & ~ack_in_range).to(I32),
         )
 
-        # retire inflight, CC + LB feedback (policy hooks over [F] lanes)
+        # retire inflight, CC + LB feedback (policy hooks over [B, F])
         retire = has_ack.to(I32) + nack_count
         inflight = torch.clamp(s.inflight - retire, min=0)
         ack_ecn = _pick(hot_ack, ec).to(torch.bool)
@@ -400,7 +491,8 @@ def make_step(g: QueueGraph, profile: TransportProfile, p: SimParams, F: int,
         # ROD rewinds instead, section 3). Lanes [Q, E) are the
         # NACK-capable ones (lanes [0, Q) carry NACKs only for ROD
         # flows); several may hit one flow or one bit, so the mark is a
-        # duplicate-safe OR. The kernel takes the raw lanes and computes
+        # duplicate-safe OR. The kernel takes the raw [B, L] lanes,
+        # keeps each scenario's lanes on its own F rows and computes
         # each lane's offset from the new base itself. An all-ROD
         # profile has no selective-retransmit path: the reference
         # compiles it out, and the kernel is not launched.
@@ -410,10 +502,10 @@ def make_step(g: QueueGraph, profile: TransportProfile, p: SimParams, F: int,
         # it (the input state keeps its own), and `out` does not record
         # it.
         if not all_rod:
-            rtx = kops.nack_mark_lanes_(rtx, src_track.base, ef[Q:], ep[Q:],
-                                        is_nack[Q:],
+            rtx = kops.nack_mark_lanes_(rtx, src_track.base, ef[:, Q:],
+                                        ep[:, Q:], is_nack[:, Q:],
                                         rod_mask if mixed_rod else None)
-        rod_gbn = hot_nack.any(dim=1)
+        rod_gbn = hot_nack.any(dim=-1)
 
         # EV-based loss inference (Sec. 3.2.4), RR_SLOTS layout: slot i
         # carries PSNs i, i+K, i+2K...; an ACK for PSN x implies every
@@ -422,7 +514,7 @@ def make_step(g: QueueGraph, profile: TransportProfile, p: SimParams, F: int,
         if rr_slots:
             has_ack_rr = has_ack & ~rod_mask if mixed_rod else has_ack
             sl = ack_psn % K
-            prev = slot_last_ack.gather(1, sl[:, None].long())[:, 0]
+            prev = slot_last_ack.gather(-1, sl[..., None].long())[..., 0]
             # mark up to 2 predecessors (losses per ACK are almost
             # always <= 1)
             for back in (1, 2):
@@ -433,26 +525,26 @@ def make_step(g: QueueGraph, profile: TransportProfile, p: SimParams, F: int,
                     rtx, miss - src_track.base,
                     has_ack_rr & (miss > prev) & (miss >= 0),
                     unless=src_track.ring)
-            hot_sl = (kslots[None, :] == sl[:, None]) & has_ack_rr[:, None]
+            hot_sl = (kslots == sl[..., None]) & has_ack_rr[..., None]
             slot_last_ack = torch.where(
-                hot_sl, torch.maximum(slot_last_ack, ack_psn[:, None]),
+                hot_sl, torch.maximum(slot_last_ack, ack_psn[..., None]),
                 slot_last_ack)
 
         # consume the slot: clear only the EVF_TYPE lane (the slot is
         # fully rewritten when it next comes up as out_slot)
         ev_buf = s.ev_buf.clone()
-        ev_buf[slot, :, EVF_TYPE] = EV_NONE
+        ev_buf[:, slot, :, EVF_TYPE] = EV_NONE
 
         # ------------------------------------------- 2. RCCC receiver grants
         done = src_track.base >= wl.size
         # dependency lane: eligible once flow dep[f] source-completed
         safe_dep = torch.where(wl.dep >= 0, wl.dep, 0).long()
-        dep_ok = (wl.dep < 0) | done[safe_dep]
+        dep_ok = (wl.dep < 0) | done.gather(-1, safe_dep)
         active = ~done & (tick >= wl.start) & dep_ok
         cc_st = cc_pol.on_grant_tick(cc_st, flow_dst, active, H)
 
         # --------------------------------------------------- 3. injection
-        has_rtx = (rtx != 0).any(dim=1)
+        has_rtx = (rtx != 0).any(dim=-1)
         if all_rod:
             has_rtx = torch.zeros_like(has_rtx)
         elif mixed_rod:
@@ -463,7 +555,7 @@ def make_step(g: QueueGraph, profile: TransportProfile, p: SimParams, F: int,
         overdue = (tick - last_progress) > rto
         # ROD go-back-N: on a NACK or a timeout, rewind next_psn to base
         next_psn = s.next_psn
-        timeout_rod = torch.zeros((F,), dtype=torch.bool, device=dev)
+        timeout_rod = bc["no_f"]
         if any_rod:
             timeout_rod = (inflight > 0) & overdue
             rewind = rod_gbn | timeout_rod
@@ -477,8 +569,8 @@ def make_step(g: QueueGraph, profile: TransportProfile, p: SimParams, F: int,
         if any_rod:
             # in-order CACK gate (ROD): the ordered window may not race
             # more than one congestion window past the cumulative ACK
-            rod_win = torch.floor(cc_pol.cwnd_view(cc_st, F)).to(I32).clamp(
-                min=1)
+            rod_win = torch.floor(cc_pol.cwnd_view(cc_st, (B, F))).to(
+                I32).clamp(min=1)
             rod_ok = (next_psn - src_track.base) < rod_win
             win_ok = win_ok & (rod_ok | ~rod_mask)
         mp_ok = (next_psn - src_track.base) < p.mp_range
@@ -491,9 +583,10 @@ def make_step(g: QueueGraph, profile: TransportProfile, p: SimParams, F: int,
         rot = shr(_mix32(flow_ids * c32(2654435761) ^ c32(tick)), 16)
         key = rot * F + flow_ids
         key = torch.where(eligible, key, 2 ** 30)
-        hot_host = flow_src[None, :] == hosts[:, None]           # [H, F]
-        host_min = torch.where(hot_host, key[None, :], 2 ** 30).amin(dim=1)
-        injected = (eligible & (key == host_min[flow_src.long()])
+        hot_host = flow_src[:, None, :] == hosts[:, None]      # [B, H, F]
+        host_min = torch.where(hot_host, key[:, None, :], 2 ** 30).amin(
+            dim=-1)
+        injected = (eligible & (key == host_min.gather(-1, flow_src.long()))
                     & (key < 2 ** 30))
 
         rtx_off = _first_set_bit(rtx)
@@ -515,15 +608,16 @@ def make_step(g: QueueGraph, profile: TransportProfile, p: SimParams, F: int,
                           lbs2, lbs)
         inflight = inflight + injected.to(I32)
         cc_st = cc_pol.on_inject(cc_st, injected)
-        retransmits = s.retransmits + use_rtx.sum(dtype=I32)
+        retransmits = s.retransmits + use_rtx.sum(dim=-1, dtype=I32)
 
         # ------------------------------------------------- 4. forwarding
         nonempty = s.q_len > 0
         # with the link layer off every nonempty queue transmits its head
         txq = leaves = nonempty
         head_pkt = s.q_pkt.gather(
-            1, s.q_head.long()[:, None, None].expand(Q, 1, PKT_FIELDS))[:, 0]
-        pf, pp, pe, pm, pt = (head_pkt[:, k].contiguous()
+            2, s.q_head.long()[:, :, None, None].expand(B, Q, 1, PKT_FIELDS)
+        )[:, :, 0]
+        pf, pp, pe, pm, pt = (head_pkt[..., k].contiguous()
                               for k in range(PKT_FIELDS))
         # egress ECN marking: queue length at departure above threshold
         mark = txq & (s.q_len > p.ecn_threshold)
@@ -531,9 +625,9 @@ def make_step(g: QueueGraph, profile: TransportProfile, p: SimParams, F: int,
         q_head = torch.where(leaves, (s.q_head + 1) % C, s.q_head)
         q_len = torch.where(leaves, s.q_len - 1, s.q_len)
 
-        safe_pf = torch.where(nonempty, pf, 0)
-        nq = rt.route_step(qidx, flow_src[safe_pf.long()],
-                           flow_dst[safe_pf.long()], pe)
+        safe_pf = torch.where(nonempty, pf, 0).long()
+        nq = rt.route_step(qidx, flow_src.gather(-1, safe_pf),
+                           flow_dst.gather(-1, safe_pf), pe)
         deliver = txq & (nq == DELIVERED)
         forward = txq & (nq >= 0)
 
@@ -541,9 +635,10 @@ def make_step(g: QueueGraph, profile: TransportProfile, p: SimParams, F: int,
         dtrim = deliver & ((pm & META_TRIMMED) != 0)
         ddata = deliver & ~dtrim
         # one host downlink per destination => at most one delivery per
-        # flow per tick: densify to per-flow [F] values
-        hot_d = (pf[None, :] == flow_ids[:, None]) & ddata[None, :]  # [F, Q]
-        has_d = hot_d.any(dim=1)
+        # flow per tick: densify to per-flow [B, F] values
+        hot_d = ((pf[:, None, :] == flow_ids[:, None])
+                 & ddata[:, None, :])                          # [B, F, Q]
+        has_d = hot_d.any(dim=-1)
         d_psn = _pick(hot_d, pp)
         d_off = d_psn - s.dst_track.base               # uint32 wrap
         d_in_range = has_d & (d_off >= 0) & (d_off < mp)
@@ -567,20 +662,22 @@ def make_step(g: QueueGraph, profile: TransportProfile, p: SimParams, F: int,
             oor=s.dst_track.oor + (has_d & ~d_in_range).to(I32),
         )
         if any_rod:
-            dups = s.dups + (has_d & ~fresh_f & ~rod_rej_f).sum(dtype=I32)
-            rod_rejects = s.rod_rejects + rod_rej_f.sum(dtype=I32)
+            dups = s.dups + (has_d & ~fresh_f & ~rod_rej_f).sum(dim=-1,
+                                                                 dtype=I32)
+            rod_rejects = s.rod_rejects + rod_rej_f.sum(dim=-1, dtype=I32)
         else:
-            dups = s.dups + (has_d & ~fresh_f).sum(dtype=I32)
+            dups = s.dups + (has_d & ~fresh_f).sum(dim=-1, dtype=I32)
             rod_rejects = s.rod_rejects
         delivered_ctr = s.delivered + fresh_f.to(I32)
         # flows whose packet reached its receiver this tick (trimmed or
-        # not), as a scatter into a spare row instead of an [F, Q] pass
-        seen = torch.zeros((F + 1,), dtype=torch.bool, device=dev)
-        seen[torch.where(deliver, pf, F).long()] = True
-        cc_st = cc_pol.on_rx_seen(cc_st, seen[:F])
+        # not), as a scatter into flat rows b*F + flow, with a spare
+        # discard row past every scenario's, instead of a [B, F, Q] pass
+        seen = torch.zeros((B * F + 1,), dtype=torch.bool, device=dev)
+        seen[torch.where(deliver, bc["flow0"] + pf, B * F).long()] = True
+        cc_st = cc_pol.on_rx_seen(cc_st, seen[:B * F].view(B, F))
 
         # ------------------------------------- 6. OOO-count loss inference
-        ooo_fire = torch.zeros((F,), dtype=torch.bool, device=dev)
+        ooo_fire = bc["no_f"]
         if p.ooo_threshold > 0:
             dist = pds.ooo_distance(dst_track)
             ooo_fire = ((dist > p.ooo_threshold)
@@ -593,43 +690,46 @@ def make_step(g: QueueGraph, profile: TransportProfile, p: SimParams, F: int,
         # ------------------------------------------------- 7. enqueue phase
         # candidates: forwarded packets (Q lanes) + injections (F lanes)
         cand_q = torch.cat([torch.where(forward, nq, -1),
-                            torch.where(injected, inj_q, -1)])
-        cand_flow = torch.cat([pf, flow_ids])
-        cand_psn = torch.cat([pp, psn_out])
-        cand_ev = torch.cat([pe, ev_sel])
-        cand_meta = torch.cat([pm, zeros_f])
-        cand_ts = torch.cat([pt, torch.full((F,), tick, **i32)])
+                            torch.where(injected, inj_q, -1)], dim=-1)
+        cand_flow = torch.cat([pf, bc["flow_ids"]], dim=-1)
+        cand_psn = torch.cat([pp, psn_out], dim=-1)
+        cand_ev = torch.cat([pe, ev_sel], dim=-1)
+        cand_meta = torch.cat([pm, zeros_f], dim=-1)
+        cand_ts = torch.cat([pt, torch.full((B, F), tick, **i32)], dim=-1)
         cvalid = cand_q >= 0
         safe_cq = torch.where(cvalid, cand_q, 0).long()
         # failed links (outage window): packets routed into them vanish
-        is_dead = dead[safe_cq] & cvalid
+        is_dead = dead.gather(-1, safe_cq) & cvalid
         cvalid = cvalid & ~is_dead
         pos, _ = _rank_within(cand_q, cvalid, q_len, lower)
         fits = cvalid & (pos < C)
         overflow = cvalid & ~fits
 
-        wslot = (q_head[safe_cq] + pos) % C
-        # JAX drops the scatter rows of packets that do not fit (row Q);
-        # here they go to a spare discard record past the last queue
-        dst_rec = torch.where(fits, cand_q * C + wslot, Q * C).long()
+        wslot = (q_head.gather(-1, safe_cq) + pos) % C
+        # JAX drops the scatter rows of packets that do not fit; here
+        # they go to a spare discard record past every scenario's queues,
+        # and scenario b's records start at b*Q*C
+        dst_rec = torch.where(fits, bc["rec0"] + cand_q * C + wslot,
+                              B * Q * C).long()
         cand_pkt = torch.stack(
             [cand_flow, cand_psn, cand_ev, cand_meta, cand_ts], dim=-1)
-        q_flat = torch.cat([s.q_pkt.reshape(Q * C, PKT_FIELDS),
+        q_flat = torch.cat([s.q_pkt.reshape(B * Q * C, PKT_FIELDS),
                             cand_pkt.new_zeros((1, PKT_FIELDS))])
-        q_flat[dst_rec] = cand_pkt
-        q_pkt = q_flat[:Q * C].view(Q, C, PKT_FIELDS)
-        hot_enq = (cand_q[None, :] == qidx[:, None]) & fits[None, :]  # [Q, n]
-        q_len = q_len + hot_enq.sum(dim=1, dtype=I32)
+        q_flat[dst_rec.reshape(-1)] = cand_pkt.reshape(-1, PKT_FIELDS)
+        q_pkt = q_flat[:B * Q * C].view(B, Q, C, PKT_FIELDS)
+        hot_enq = ((cand_q[:, None, :] == qidx[:, None])
+                   & fits[:, None, :])                         # [B, Q, n]
+        q_len = q_len + hot_enq.sum(dim=-1, dtype=I32)
 
         # overflow: trim (fast NACK via control TC) or drop
-        n_over = overflow.sum(dtype=I32)
+        n_over = overflow.sum(dim=-1, dtype=I32)
         if p.trimming:
             trims, drops, nack_mask = s.trims + n_over, s.drops, overflow
         else:
             trims, drops = s.trims, s.drops + n_over
             nack_mask = torch.zeros_like(overflow)
         # failed links drop silently: no trim header, no NACK
-        drops = drops + is_dead.sum(dtype=I32)
+        drops = drops + is_dead.sum(dim=-1, dtype=I32)
 
         # ------------------------------------------- 8. schedule control TC
         out_slot = (tick + p.ack_return_ticks) % D
@@ -640,19 +740,20 @@ def make_step(g: QueueGraph, profile: TransportProfile, p: SimParams, F: int,
         ack_lane_t = ddata.to(I32) * EV_ACK
         ack_lane_psn = pp
         if any_rod:
-            rod_rej_lane = ddata & rod_rej_f[safe_pf.long()]
+            rod_rej_lane = ddata & rod_rej_f.gather(-1, safe_pf)
             ack_lane_t = torch.where(rod_rej_lane, EV_OOO, ack_lane_t)
-            ack_lane_psn = torch.where(rod_rej_lane,
-                                       dst_track.base[safe_pf.long()], pp)
+            ack_lane_psn = torch.where(
+                rod_rej_lane, dst_track.base.gather(-1, safe_pf), pp)
         new_type = torch.cat([ack_lane_t, nack_mask.to(I32) * EV_NACK,
-                              ooo_fire.to(I32) * EV_OOO])
-        new_flow = torch.cat([safe_pf, cand_flow, flow_ids])
-        new_psn = torch.cat([ack_lane_psn, cand_psn, dst_track.base])
-        new_val = torch.cat([pe, cand_ev, zeros_f])
-        new_ecn = torch.cat([((pm & META_ECN) != 0).to(I32), zeros_qf,
-                             zeros_f])
-        new_ts = torch.cat([pt, cand_ts, zeros_f])
-        ev_buf[out_slot] = torch.stack(
+                              ooo_fire.to(I32) * EV_OOO], dim=-1)
+        new_flow = torch.cat([safe_pf.to(I32), cand_flow, bc["flow_ids"]],
+                             dim=-1)
+        new_psn = torch.cat([ack_lane_psn, cand_psn, dst_track.base], dim=-1)
+        new_val = torch.cat([pe, cand_ev, zeros_f], dim=-1)
+        new_ecn = torch.cat([((pm & META_ECN) != 0).to(I32), bc["zeros_qf"],
+                             zeros_f], dim=-1)
+        new_ts = torch.cat([pt, cand_ts, zeros_f], dim=-1)
+        ev_buf[:, out_slot] = torch.stack(
             [new_type, new_flow, new_psn, new_val, new_ecn, new_ts], dim=-1)
 
         # ------------------------------------------------- 9. timeouts + QA
@@ -677,8 +778,8 @@ def make_step(g: QueueGraph, profile: TransportProfile, p: SimParams, F: int,
         # ---------------------------------------- 10. recovery loop lanes
         # (backoff, eviction and PDC teardown are not ported: the
         # counters below are the whole section under the ported statics)
-        timeouts = s.timeouts + timeout_fire.sum(dtype=I32)
-        ticks_degraded = s.ticks_degraded + dead.any().to(I32)
+        timeouts = s.timeouts + timeout_fire.sum(dim=-1, dtype=I32)
+        ticks_degraded = s.ticks_degraded + dead.any(dim=-1).to(I32)
 
         ns = SimState(
             q_pkt=q_pkt, q_head=q_head, q_len=q_len,
@@ -687,13 +788,13 @@ def make_step(g: QueueGraph, profile: TransportProfile, p: SimParams, F: int,
             slot_last_ack=slot_last_ack, dst_track=dst_track,
             last_ooo_nack=last_ooo_nack, cc=cc_st, lb=lbs, ev_buf=ev_buf,
             delivered=delivered_ctr, trims=trims, drops=drops, dups=dups,
-            rod_rejects=rod_rejects, retransmits=retransmits, rto=rto, timeouts=timeouts,
-            ticks_degraded=ticks_degraded,
+            rod_rejects=rod_rejects, retransmits=retransmits, rto=rto,
+            timeouts=timeouts, ticks_degraded=ticks_degraded,
         )
         out = {
             "delivered": fresh_f.to(I32),
-            "cwnd": cc_pol.cwnd_view(cc_st, F),
-            "qlen_max": q_len.max(),
+            "cwnd": cc_pol.cwnd_view(cc_st, (B, F)),
+            "qlen_max": q_len.amax(dim=-1),
             "rx_base": dst_track.base,
             "src_base": src_track.base,
         }
@@ -814,26 +915,26 @@ class SimResult:
 # --------------------------------------------------------------------------
 
 def _quiescent(s: SimState, wl: Workload) -> torch.Tensor:
-    """Scenario-wide quiescence: every source CACK-complete, nothing
-    inflight, all queues empty and the control-TC ring drained. Once it
-    holds no later tick can make protocol progress."""
-    done = (s.src_track.base >= wl.size).all()
-    idle = (s.inflight == 0).all() & (s.q_len == 0).all()
-    drained = (s.ev_buf[:, :, EVF_TYPE] == EV_NONE).all()
+    """Per-scenario quiescence ([B] bool): every source CACK-complete,
+    nothing inflight, all queues empty and the control-TC ring drained.
+    Once it holds no later tick can make protocol progress."""
+    done = (s.src_track.base >= wl.size).all(dim=-1)
+    idle = (s.inflight == 0).all(dim=-1) & (s.q_len == 0).all(dim=-1)
+    drained = (s.ev_buf[..., EVF_TYPE] == EV_NONE).flatten(1).all(dim=-1)
     return done & idle & drained
 
 
-def _stats_init(F: int, device) -> dict:
+def _stats_init(B: int, F: int, device) -> dict:
     i32 = dict(dtype=I32, device=device)
-    return {"comp": torch.full((F,), -1, **i32),
-            "src_comp": torch.full((F,), -1, **i32),
-            "win_delivered": torch.zeros((F,), **i32),
-            "qlen_peak": torch.zeros((), **i32)}
+    return {"comp": torch.full((B, F), -1, **i32),
+            "src_comp": torch.full((B, F), -1, **i32),
+            "win_delivered": torch.zeros((B, F), **i32),
+            "qlen_peak": torch.zeros((B,), **i32)}
 
 
 def _stats_update(st: dict, prev: SimState, s: SimState, wl: Workload,
                   tick: int, w0: int, w1: int) -> dict:
-    """The streamed trace="stats" lanes: elementwise [F] updates off
+    """The streamed trace="stats" lanes: elementwise [B, F] updates off
     state the tick already computed."""
     win = st["win_delivered"]
     if w0 <= tick < w1:
@@ -845,53 +946,24 @@ def _stats_update(st: dict, prev: SimState, s: SimState, wl: Workload,
             (st["src_comp"] < 0) & (s.src_track.base >= wl.size), tick,
             st["src_comp"]),
         "win_delivered": win,
-        "qlen_peak": torch.maximum(st["qlen_peak"], s.q_len.max()),
+        "qlen_peak": torch.maximum(st["qlen_peak"], s.q_len.amax(dim=-1)),
     }
-
-
-def _fault_schedule(g: QueueGraph, failed, faults, device) -> FaultSchedule:
-    """One [Q] FaultSchedule from the public (failed=, faults=) pair."""
-    if faults is not None:
-        if failed is not None:
-            raise ValueError("pass either failed= (static mask) or faults= "
-                             "(FaultSchedule), not both")
-        if not isinstance(faults, FaultSchedule):
-            raise TypeError(f"faults= must be a FaultSchedule, got "
-                            f"{type(faults).__name__}")
-        if faults.num_queues != g.num_queues:
-            raise ValueError(f"fault schedule is over {faults.num_queues} "
-                             f"queues but the topology has {g.num_queues}")
-        return faults.to(device)
-    mask = np.zeros((g.num_queues,), bool)
-    if failed is not None:
-        arr = np.asarray(failed)
-        if arr.dtype == bool:
-            if arr.shape != mask.shape:
-                raise ValueError(f"failed mask must be [Q={g.num_queues}], "
-                                 f"got {arr.shape}")
-            mask = arr
-        else:
-            if arr.size and (arr.min() < 0 or arr.max() >= g.num_queues):
-                raise ValueError(f"failed queue ids must be in [0, "
-                                 f"{g.num_queues})")
-            mask[arr.astype(np.int64)] = True
-    return FaultSchedule.from_mask(mask, device)
 
 
 _FULL_LANES = ("delivered", "cwnd", "qlen_max", "rx_base", "src_base")
 
 
 def _chunk_to_host(outs: "list[dict]", quiet: torch.Tensor):
-    """Stack one chunk's per-tick out lanes and copy them, with the
-    quiescence flag, to the host in ONE transfer (the chunk's only sync).
-    Returns ({lane: np array [T, ...]}, quiet)."""
+    """Stack one chunk's per-tick out lanes and copy them, with the [B]
+    quiescence flags, to the host in ONE transfer (the chunk's only
+    sync). Returns ({lane: np array [T, B, ...]}, quiet [B] bool)."""
     T = len(outs)
     parts = []
     for k in _FULL_LANES:
         a = torch.stack([o[k] for o in outs])
         parts.append((a.view(I32) if a.dtype == torch.float32 else a)
                      .reshape(-1))
-    host = torch.cat(parts + [quiet.to(I32).reshape(1)]).cpu().numpy()
+    host = torch.cat(parts + [quiet.to(I32)]).cpu().numpy()
     lanes, at = {}, 0
     for k in _FULL_LANES:
         shape = (T,) + tuple(outs[0][k].shape)
@@ -901,40 +973,108 @@ def _chunk_to_host(outs: "list[dict]", quiet: torch.Tensor):
     lanes["cwnd"] = lanes["cwnd"].view(np.float32)
     lanes["rx_base"] = lanes["rx_base"].view(np.uint32)
     lanes["src_base"] = lanes["src_base"].view(np.uint32)
-    return lanes, bool(host[-1])
+    return lanes, host[at:].astype(bool)
 
 
 def run_chunks(step, s: SimState, wl: Workload, fault: FaultSchedule,
                budget: int, chunk: int, trace: str, w0: int = 0,
                w1: int = 0, tick0: int = 0):
-    """Drive ``step`` from tick ``tick0`` in ``chunk``-tick chunks until
-    the scenario is quiescent at a chunk boundary or the budget is spent.
-    Ticks at or past the budget do not run. Returns (final state, stats
-    lanes or None, host out lanes per chunk, horizon)."""
-    st = _stats_init(int(wl.src.shape[0]), wl.src.device) \
-        if trace == "stats" else None
+    """Drive ``step`` over B scenarios from tick ``tick0`` in
+    ``chunk``-tick chunks. Each scenario stops at the first chunk
+    boundary where it is quiescent, or at the budget; the run ends when
+    every scenario has stopped. Ticks at or past the budget do not run.
+
+    A chunk in which no scenario has stopped runs the tick as it is; a
+    chunk after some scenario stopped runs the masked body, which keeps
+    a stopped scenario's whole state and stat lanes frozen at its own
+    boundary (a select per lane, bitwise what the unmasked tick gives
+    the others). The host reads the [B] quiescence flags once per chunk.
+    Returns (final state, stats lanes or None, host out lanes per chunk,
+    horizon [B] int64: each scenario's stop boundary, clamped to the
+    budget)."""
+    B, F = (int(d) for d in wl.src.shape)
+    dev = wl.src.device
+    st = _stats_init(B, F, dev) if trace == "stats" else None
+    stop = np.full((B,), budget <= tick0)
+    horizon = np.where(stop, min(tick0, budget), -1).astype(np.int64)
     chunks: list = []
-    horizon = min(tick0, budget)
-    while tick0 < budget:
-        end = min(tick0 + chunk, budget)
+    while not stop.all():
+        live = (torch.as_tensor(~stop, device=dev) if stop.any() else None)
         outs = []
-        for tick in range(tick0, end):
+        for tick in range(tick0, min(tick0 + chunk, budget)):
             ns, out = step(s, tick, wl, fault)
             if st is not None:
-                st = _stats_update(st, s, ns, wl, tick, w0, w1)
+                nst = _stats_update(st, s, ns, wl, tick, w0, w1)
+                st = nst if live is None else _where_rows(live, nst, st)
             else:
                 outs.append(out)
-            s = ns
+            s = ns if live is None else _where_rows(live, ns, s)
         tick0 += chunk
-        horizon = min(tick0, budget)
         if st is not None:
-            quiet = bool(_quiescent(s, wl))
+            quiet = _quiescent(s, wl).cpu().numpy()
         else:
             lanes, quiet = _chunk_to_host(outs, _quiescent(s, wl))
             chunks.append(lanes)
-        if quiet:
-            break
+        nstop = stop | quiet | (tick0 >= budget)
+        horizon[nstop & ~stop] = min(tick0, budget)
+        stop = nstop
     return s, st, chunks, horizon
+
+
+def _results(s: SimState, st, chunks, horizon, sizes: np.ndarray,
+             budget: int, trace: str, goodput_window) -> "list[SimResult]":
+    """One SimResult per scenario of a batched run: its own state lanes
+    (views of the batch's), horizon and stat or trace lanes."""
+    B, F = sizes.shape
+    if trace == "stats":
+        host = {k: v.cpu().numpy() for k, v in st.items()}
+        return [SimResult(
+            state=take_lane(s, b), msg_size=sizes[b],
+            horizon=int(horizon[b]), max_ticks=budget, trace="stats",
+            stat_completion=host["comp"][b],
+            stat_src_completion=host["src_comp"][b],
+            stat_win_delivered=host["win_delivered"][b],
+            goodput_window=(None if goodput_window is None
+                            else tuple(int(w) for w in goodput_window)),
+            qlen_peak=int(host["qlen_peak"][b])) for b in range(B)]
+    if chunks:
+        full = {k: np.concatenate([c[k] for c in chunks]) for k in _FULL_LANES}
+    else:      # a zero budget runs no tick
+        empty = {"delivered": (np.int32, (F,)), "cwnd": (np.float32, (F,)),
+                 "qlen_max": (np.int32, ()), "rx_base": (np.uint32, (F,)),
+                 "src_base": (np.uint32, (F,))}
+        full = {k: np.zeros((0, B) + shp, dt) for k, (dt, shp) in
+                empty.items()}
+    out = []
+    for b in range(B):
+        h = int(horizon[b])
+        lane = {k: np.ascontiguousarray(v[:h, b]) for k, v in full.items()}
+        out.append(SimResult(
+            state=take_lane(s, b), msg_size=sizes[b], horizon=h,
+            max_ticks=budget, trace="full",
+            delivered_per_tick=lane["delivered"],
+            cwnd_per_tick=lane["cwnd"], qlen_max=lane["qlen_max"],
+            rx_base_per_tick=lane["rx_base"],
+            src_base_per_tick=lane["src_base"]))
+    return out
+
+
+def _run_batch(g: QueueGraph, wls: Workload, profile: TransportProfile,
+               p: SimParams, fault: FaultSchedule, seeds: np.ndarray,
+               trace: str, budget: int, goodput_window,
+               dev: torch.device) -> "list[SimResult]":
+    """One (graph, profile) group: B scenarios through one tick."""
+    F = int(wls.src.shape[1])
+    profile.delivery_modes(F)  # validate per-flow tuples early
+    wls = wls.to(dev)
+    step = make_step(g, profile, p, F, device=dev)
+    s0 = init_state(g, wls, profile, p, seeds, device=dev)
+    w0, w1 = (0, budget) if goodput_window is None else map(int,
+                                                            goodput_window)
+    s, st, chunks, horizon = run_chunks(step, s0, wls, fault.to(dev),
+                                        budget, p.chunk_ticks, trace, w0, w1)
+    return _results(s, st, chunks, horizon, wls.size.cpu().numpy(), budget,
+                    trace, goodput_window)
 
 
 def simulate(g: QueueGraph, wl: Workload,
@@ -945,17 +1085,87 @@ def simulate(g: QueueGraph, wl: Workload,
              goodput_window: "tuple[int, int] | None" = None,
              device=None) -> SimResult:
     """Run one scenario for at most ``max_ticks`` (default p.ticks),
-    exiting at the first chunk boundary where it is quiescent.
+    exiting at the first chunk boundary where it is quiescent: the B = 1
+    case of :func:`simulate_batch`, through the same tick.
 
     profile: the transport composition (defaults to ai_full()).
     failed:  queue ids or a [Q] bool mask of dead links; ``faults``: a
-             link-outage :class:`FaultSchedule` (mutually exclusive).
+             [Q] link-outage :class:`FaultSchedule` (mutually exclusive).
     trace:   "stats" (streamed stat lanes) or "full" (dense per-tick
              lanes, copied to the host once per chunk).
     device:  where the run lives: ``cuda`` unless given (``"cpu"`` runs
              the plain PyTorch path, as the tests do).
     """
+    if wl.src.dim() != 1:
+        raise ValueError(f"simulate runs one [F] workload, got "
+                         f"{tuple(wl.src.shape)}; use simulate_batch")
+    if faults is not None and isinstance(faults, FaultSchedule) \
+            and faults.fail_at.dim() != 1:
+        raise ValueError(f"serial simulate() takes a [Q] fault schedule, "
+                         f"got {tuple(faults.fail_at.shape)}")
+    if failed is not None:
+        failed = failed_to_mask(g.num_queues, failed)
+    return simulate_batch(
+        g, Workload.stack([wl]), profile, p, failed=failed, faults=faults,
+        seeds=[seed], trace=trace, max_ticks=max_ticks,
+        goodput_window=goodput_window, device=device)[0]
+
+
+def simulate_batch(g, wls, profile=None, p: "SimParams | None" = None, *,
+                   failed=None, faults=None, seeds=None,
+                   trace: str = "stats", max_ticks: "int | None" = None,
+                   goodput_window: "tuple[int, int] | None" = None,
+                   shard: bool = False, devices=None, telemetry=None,
+                   link=None, device=None) -> "list[SimResult]":
+    """Run B scenarios through one tick with an explicit [B] lane axis;
+    one SimResult per scenario, bitwise what B ``simulate`` calls give.
+
+    g:       one QueueGraph for every scenario, or a length-B list of
+             per-scenario graphs (grouped by graph and profile).
+    wls:     a [B, F] Workload (``Workload.stack``) or a list of same-F
+             Workloads.
+    profile: one TransportProfile, or a length-B list of per-scenario
+             profiles. Scenarios are grouped by (graph, profile); the
+             groups run one after another on the device and the results
+             come back in scenario order.
+    failed:  a [B, Q] bool mask, one [Q] mask, or queue ids (broadcast);
+    faults:  a [B, Q] or [Q] (broadcast) link-outage
+             :class:`FaultSchedule`. Mutually exclusive; with
+             per-scenario graphs of different queue counts, neither may
+             be given.
+    seeds:   [B] per-scenario LB/EV seeds (default DEFAULT_SEED each).
+    trace / max_ticks / goodput_window: as in :func:`simulate`. Each
+             scenario stops at its own chunk boundary; a group runs
+             until its slowest scenario stops.
+    shard / devices / telemetry / link: not ported (raise
+             ``NotImplementedError`` naming their ROADMAP.md item).
+    device:  ``cuda`` unless given (``"cpu"``: the plain PyTorch path).
+    """
+    if shard or devices is not None:
+        raise _not_ported("sharding the scenario axis across devices "
+                          "(shard= / devices=)", "10: workloads + "
+                          "multi-GPU")
     dev = resolve_device(device)
+    if isinstance(wls, (list, tuple)):
+        wls = Workload.stack(wls)
+    graphs = None
+    if isinstance(g, (list, tuple)):
+        graphs = list(g)
+        if not graphs:
+            raise ValueError("per-scenario topology list is empty")
+        if not all(isinstance(gr, QueueGraph) for gr in graphs):
+            raise TypeError("per-scenario topologies must all be "
+                            "QueueGraph instances")
+        g = graphs[0]
+        if all(gr is graphs[0] for gr in graphs):
+            graphs = None               # degenerate list: one graph
+    profiles = None
+    if isinstance(profile, (list, tuple)):
+        profiles = list(profile)
+        profile = None
+        if not all(isinstance(q, TransportProfile) for q in profiles):
+            raise TypeError("per-scenario profiles must all be "
+                            "TransportProfile instances")
     profile = TransportProfile.ai_full() if profile is None else profile
     p = SimParams() if p is None else p
     if trace not in TRACE_MODES:
@@ -963,35 +1173,41 @@ def simulate(g: QueueGraph, wl: Workload,
                          f"{TRACE_MODES}")
     if p.chunk_ticks < 1:
         raise ValueError(f"chunk_ticks must be >= 1, got {p.chunk_ticks}")
+    for q in profiles or [profile]:
+        _check_statics(q, False, telemetry, False, False, link)
     budget = int(p.ticks if max_ticks is None else max_ticks)
-    F = int(wl.src.shape[0])
-    profile.delivery_modes(F)  # validate per-flow tuples early
-    fault = _fault_schedule(g, failed, faults, dev)
-    wl = wl.to(dev)
-    step = make_step(g, profile, p, F, device=dev)
-    s0 = init_state(g, wl, profile, p, seed, device=dev)
-    msg_size = wl.size.cpu().numpy()
-    w0, w1 = (0, budget) if goodput_window is None else map(int,
-                                                            goodput_window)
-    s, st, chunks, horizon = run_chunks(step, s0, wl, fault, budget,
-                                        p.chunk_ticks, trace, w0, w1)
-    if trace == "stats":
-        return SimResult(
-            state=s, msg_size=msg_size, horizon=horizon, max_ticks=budget,
-            trace="stats",
-            stat_completion=st["comp"].cpu().numpy(),
-            stat_src_completion=st["src_comp"].cpu().numpy(),
-            stat_win_delivered=st["win_delivered"].cpu().numpy(),
-            goodput_window=(None if goodput_window is None
-                            else tuple(int(w) for w in goodput_window)),
-            qlen_peak=int(st["qlen_peak"]))
-    lanes = {k: np.concatenate([c[k] for c in chunks])[:horizon]
-             for k in _FULL_LANES} if chunks else None
-    return SimResult(
-        state=s, msg_size=msg_size, horizon=horizon, max_ticks=budget,
-        trace="full",
-        delivered_per_tick=None if lanes is None else lanes["delivered"],
-        cwnd_per_tick=None if lanes is None else lanes["cwnd"],
-        qlen_max=None if lanes is None else lanes["qlen_max"],
-        rx_base_per_tick=None if lanes is None else lanes["rx_base"],
-        src_base_per_tick=None if lanes is None else lanes["src_base"])
+    B, F = (int(d) for d in wls.src.shape)
+    if graphs is not None and len(graphs) != B:
+        raise ValueError(f"got {len(graphs)} topologies for B={B} scenarios")
+    if profiles is not None and len(profiles) != B:
+        raise ValueError(f"got {len(profiles)} profiles for B={B} scenarios")
+    seeds = np.broadcast_to(np.asarray(DEFAULT_SEED if seeds is None
+                                       else seeds), (B,))
+    # fault lanes are [B, Q]: with per-scenario topologies of differing
+    # queue counts there is no uniform Q to normalize against
+    mixed_q = (graphs is not None
+               and len({gr.num_queues for gr in graphs}) > 1)
+    if mixed_q and (failed is not None or faults is not None):
+        raise ValueError(
+            "failed=/faults= with per-scenario topologies requires all "
+            "graphs to share num_queues — run unequal groups separately")
+    fault = None if mixed_q else as_schedule(g.num_queues, failed, faults,
+                                             B)
+    if profiles is None and graphs is None:
+        return _run_batch(g, wls, profile, p, fault, seeds, trace, budget,
+                          goodput_window, dev)
+    per_g = graphs if graphs is not None else [g] * B
+    per_q = profiles if profiles is not None else [profile] * B
+    groups: "dict[tuple, tuple]" = {}
+    for i, (gr, q) in enumerate(zip(per_g, per_q)):
+        groups.setdefault((id(gr), q), (gr, q, []))[2].append(i)
+    results: "list[SimResult | None]" = [None] * B
+    for gr, q, idxs in groups.values():
+        sel = torch.as_tensor(idxs)
+        sub_fault = (FaultSchedule.healthy(gr.num_queues, len(idxs))
+                     if fault is None else fault.lanes(sel))
+        rs = _run_batch(gr, wls.lanes(sel), q, p, sub_fault, seeds[idxs],
+                        trace, budget, goodput_window, dev)
+        for i, r in zip(idxs, rs):
+            results[i] = r
+    return results

@@ -8,7 +8,9 @@ constructors are the paper's profile table; ``make_cc_policy`` builds
 every CC composition (NSCC, RCCC, the hybrid of both, open loop) and
 ``cc_ablation`` the CC-ablation axis.
 
-CC policy protocol (hooks the tick calls over densified [F] lanes)::
+CC policy protocol (hooks the tick calls over densified [F] lanes, or
+[B, F] lanes with one scenario per row; ``F`` below is the lane shape,
+an int or a tuple such as (B, F))::
 
     create(F, device)              -> state
     on_ack(st, has_ack, ecn, rtt)  -> st    ACK arrived (<=1 per flow/tick)
@@ -32,6 +34,7 @@ import torch
 from repro_torch.core.cms.nscc import NSCCParams, NSCCPolicy
 from repro_torch.core.cms.rccc import RCCCPolicy
 from repro_torch.core.lb.schemes import LBScheme
+from repro_torch.core.types import lane_shape
 
 
 class CCAlgo(enum.IntEnum):
@@ -140,12 +143,14 @@ class TransportProfile:
 @dataclass(frozen=True)
 class OpenLoopPolicy:
     """No congestion control: a fixed window of ``max_cwnd`` packets. Its
-    state is an empty [0] int32 tensor (as the reference's placeholder)."""
+    state is an empty [0] int32 tensor (as the reference's placeholder;
+    [B, 0] over B scenarios)."""
 
     max_cwnd: float
 
-    def create(self, f: int, device: torch.device) -> torch.Tensor:
-        return torch.zeros((0,), dtype=torch.int32, device=device)
+    def create(self, f, device: torch.device) -> torch.Tensor:
+        return torch.zeros(lane_shape(f)[:-1] + (0,), dtype=torch.int32,
+                           device=device)
 
     def on_ack(self, st, has_ack, ecn, rtt):
         return st
@@ -171,8 +176,8 @@ class OpenLoopPolicy:
     def end_of_tick(self, st, tick):
         return st
 
-    def cwnd_view(self, st: torch.Tensor, f: int) -> torch.Tensor:
-        return torch.full((f,), self.max_cwnd, dtype=torch.float32,
+    def cwnd_view(self, st: torch.Tensor, f) -> torch.Tensor:
+        return torch.full(lane_shape(f), self.max_cwnd, dtype=torch.float32,
                           device=st.device)
 
 
@@ -186,7 +191,7 @@ class HybridCCPolicy:
     nscc: NSCCPolicy
     rccc: RCCCPolicy
 
-    def create(self, f: int, device: torch.device) -> dict:
+    def create(self, f, device: torch.device) -> dict:
         return {"nscc": self.nscc.create(f, device),
                 "rccc": self.rccc.create(f, device)}
 
@@ -223,7 +228,7 @@ class HybridCCPolicy:
         return {"nscc": self.nscc.end_of_tick(st["nscc"], tick),
                 "rccc": st["rccc"]}
 
-    def cwnd_view(self, st, f: int) -> torch.Tensor:
+    def cwnd_view(self, st, f) -> torch.Tensor:
         return self.nscc.cwnd_view(st["nscc"], f)
 
 

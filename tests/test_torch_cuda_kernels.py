@@ -153,6 +153,39 @@ def test_nack_mark_lanes_kernel_matches_plain_on_card(cuda, f, w, mixed_rod):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("mixed_rod", [False, True], ids=["rud", "mixed_rod"])
+@pytest.mark.parametrize("b", [1, 3, 8])
+@pytest.mark.parametrize("f", [1, 33, 2048])
+@pytest.mark.parametrize("w", [1, 16, 17, 32])
+def test_strided_nack_mark_lanes_kernel_matches_plain_on_card(cuda, b, f, w,
+                                                             mixed_rod):
+    """B scenarios of [F, W] rings: each scenario's NACK lanes (edge lanes
+    with flows -1, F, F + 3 and -2**31 included) are a [B, L] slice of
+    wider rows, as the tick hands them over; the kernel equals the plain
+    version, and scenario by scenario the unbatched plain version (no
+    lane reaches a neighbour scenario's rows)."""
+    lanes, skip = max(64, 4 * f + 1024), 7
+    per = [_mark_lanes(f, w, lanes) for _ in range(b)]
+    base = _t(np.stack([x[0] for x in per]), cuda)
+    wide = [np.zeros((b, skip + lanes), dt) for dt in (np.int32, np.uint32,
+                                                       bool)]
+    for i, x in enumerate(per):
+        for a, v in zip(wide, x[1:4]):
+            a[i, skip:] = v
+    flow, psn, nack = (_t(a, cuda)[:, skip:] for a in wide)
+    rod = _t(per[0][4], cuda) if mixed_rod else None
+    rtx = _t(_words((b, f, w)), cuda)
+    got = rtx.clone()
+    assert ops.nack_mark_lanes_cuda(got, base, flow, psn, nack, rod) is got
+    want = ref.nack_mark_lanes_ref_(rtx.clone(), base, flow, psn, nack, rod)
+    assert _same_bits(got, want) and not _same_bits(got, rtx)
+    for i in range(b):
+        one = ref.nack_mark_lanes_ref_(rtx[i].clone(), base[i], flow[i],
+                                       psn[i], nack[i], rod)
+        assert _same_bits(got[i], one), i
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("n", [1, 33, 2048])
 @pytest.mark.parametrize("w", [1, 3, 16, 17, 32])
 def test_own_bit_kernels_match_plain_on_card(cuda, n, w):

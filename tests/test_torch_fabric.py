@@ -2,15 +2,17 @@
 the CPU (plain kernel versions):
 
 * the two goldens of ``tests/golden/fabric_golden.npz`` (config A as a
-  bitwise prefix; config B — REPS, a dead uplink, seed 0x5EED+3 — run
-  serially and matched over its whole 400-tick budget);
+  bitwise prefix; config B — REPS, a dead uplink, seed 0x5EED+3 —
+  through ``simulate_batch``, as its definition says, and matched over
+  its whole 400-tick budget);
 * trajectory parity with ``repro.network.fabric.simulate(trace="full")``
   on a 3-tier k=6 fat tree (fanout 3) with a 6:1 incast on top of a
   cross-pod permutation, so trims, NACKs, ``nack_mark`` and retransmits
   all run: every out lane and every final state lane bitwise;
 * the stats tier against the full tier;
 * a handover: the reference's state after 128 ticks, carried across with
-  ``repro_torch.convert``, stepped one chunk by the port;
+  ``repro_torch.convert`` as a [1, F] batch, stepped one chunk by the
+  port;
 * the statics the port does not carry yet raising.
 """
 import dataclasses
@@ -110,14 +112,18 @@ def test_golden_a_is_a_bitwise_prefix():
                                   gold["a_state_src_base"])
 
 
-def test_golden_b_reps_dead_uplink_seed_serial():
+def test_ai_full_reps_failure_matches_golden_batched():
     gold = np.load(GOLDEN)
     g = leaf_spine(leaves=2, spines=4, hosts_per_leaf=8)
     wl = tf.Workload.of(list(range(8)), [8 + i for i in range(8)], 700)
     p = tf.SimParams(ticks=400, timeout_ticks=64, ooo_threshold=24)
-    r = tf.simulate(g, wl, TransportProfile.ai_full(lb=LBScheme.REPS), p,
-                    failed=[int(gold["b_failed_queue"][0])],
-                    seed=0x5EED + 3, trace="full", device="cpu")
+    mask = np.zeros((1, g.num_queues), bool)
+    mask[0, int(gold["b_failed_queue"][0])] = True
+    r = tf.simulate_batch(g, tf.Workload.stack([wl]),
+                          TransportProfile.ai_full(lb=LBScheme.REPS), p,
+                          failed=mask,
+                          seeds=np.asarray([0x5EED + 3], np.uint32),
+                          trace="full", device="cpu")[0]
     assert r.horizon == 400
     np.testing.assert_array_equal(r.delivered_per_tick, gold["b_delivered"])
     np.testing.assert_array_equal(_bits(r.cwnd_per_tick),
@@ -183,35 +189,38 @@ def test_stats_tier_equals_full_tier(k6_port):
 
 def test_handover_from_a_reference_mid_run_state(k6_jax):
     """Start the port from the reference's state after 128 ticks and run
-    one chunk: lanes and state equal the reference's ticks 128..255."""
+    one chunk: lanes and state equal the reference's ticks 128..255. The
+    reference's [F] state enters the tick as a batch of one ([1, F])."""
     mid = _k6_jax(trace="full", max_ticks=128)
     end = _k6_jax(trace="full", max_ticks=256)
     g = fat_tree3(k=6, pods=3)
-    s = convert.state_from_numpy(_jax_dict(mid.state), "cpu")
-    wl = convert.workload_from_numpy(
-        _jax_dict(jf.Workload.of(K6_SRC, K6_DST, K6_SIZE)), "cpu")
-    fault = convert.faults_from_numpy(
-        _jax_dict(JFaults.from_mask(np.zeros(g.num_queues, bool))), "cpu")
+    s = tf.stack_lanes([convert.state_from_numpy(_jax_dict(mid.state),
+                                                 "cpu")])
+    wl = tf.Workload.stack([convert.workload_from_numpy(
+        _jax_dict(jf.Workload.of(K6_SRC, K6_DST, K6_SIZE)), "cpu")])
+    fault = tf.FaultSchedule.stack([convert.faults_from_numpy(
+        _jax_dict(JFaults.from_mask(np.zeros(g.num_queues, bool))), "cpu")])
     step = tf.make_step(g, TransportProfile.ai_full(),
                         tf.SimParams(**K6_PARAMS), len(K6_SRC), device="cpu")
     s2, _, chunks, horizon = tf.run_chunks(step, s, wl, fault, budget=256,
                                            chunk=128, trace="full",
                                            tick0=128)
-    assert horizon == 256 and len(chunks) == 1
+    assert horizon.tolist() == [256] and len(chunks) == 1
     for lane, key in zip(LANES, ("delivered", "cwnd", "qlen_max", "rx_base",
                                  "src_base")):
         np.testing.assert_array_equal(
-            _bits(chunks[0][key]), _bits(getattr(k6_jax, lane)[128:256]),
-            err_msg=lane)
-    _assert_state_matches(s2, end.state)
+            _bits(chunks[0][key][:, 0]),
+            _bits(getattr(k6_jax, lane)[128:256]), err_msg=lane)
+    _assert_state_matches(tf.take_lane(s2, 0), end.state)
 
 
 def test_init_state_and_convert_round_trip():
     g, jg = fat_tree3(k=6, pods=3), jt.fat_tree3(k=6, pods=3)
     for seed in (0x5EED, 0xFFFFFFF0):
-        s = tf.init_state(g, tf.Workload.of(K6_SRC, K6_DST, K6_SIZE),
-                          TransportProfile.ai_full(), tf.SimParams(), seed,
-                          device="cpu")
+        s = tf.take_lane(tf.init_state(
+            g, tf.Workload.stack([tf.Workload.of(K6_SRC, K6_DST, K6_SIZE)]),
+            TransportProfile.ai_full(), tf.SimParams(), seed, device="cpu"),
+            0)
         js = jf.init_state(jg, jf.Workload.of(K6_SRC, K6_DST, K6_SIZE),
                            JProfile.ai_full(), jf.SimParams(),
                            np.uint32(seed))

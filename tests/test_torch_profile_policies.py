@@ -280,9 +280,10 @@ def test_init_state_and_convert_round_trip_per_profile(name):
     else:
         tp = getattr(profile.TransportProfile, name)()
         jp = getattr(jprof.TransportProfile, name)()
-    s = tf.init_state(fat_tree3(k=6, pods=3),
-                      tf.Workload.of(K6_SRC, K6_DST, K6_SIZE), tp,
-                      tf.SimParams(), device="cpu")
+    s = tf.take_lane(tf.init_state(
+        fat_tree3(k=6, pods=3),
+        tf.Workload.stack([tf.Workload.of(K6_SRC, K6_DST, K6_SIZE)]), tp,
+        tf.SimParams(), device="cpu"), 0)
     js = jf.init_state(jt.fat_tree3(k=6, pods=3),
                        jf.Workload.of(K6_SRC, K6_DST, K6_SIZE), jp,
                        jf.SimParams())

@@ -142,8 +142,9 @@ def test_delivery_tuple_length_validated():
 
 @pytest.mark.parametrize("name", ["hpc", "ai_base"])
 def test_handover_from_a_reference_mid_run_state(name):
-    """Start the port from the reference's state after 128 ticks and run
-    one chunk: lanes and state equal the reference's ticks 128..255."""
+    """Start the port from the reference's state after 128 ticks, as a
+    [1, F] batch, and run one chunk: lanes and state equal the
+    reference's ticks 128..255."""
     jp = getattr(jprof.TransportProfile, name)()
     tp = getattr(TransportProfile, name)()
 
@@ -158,20 +159,20 @@ def test_handover_from_a_reference_mid_run_state(name):
     if name == "hpc":
         assert set(d["cc"]) == {"nscc", "rccc"} and d["rod_rejects"] > 0
     g = fat_tree3(k=6, pods=3)
-    s = convert.state_from_numpy(d, "cpu")
-    wl = convert.workload_from_numpy(
-        _jax_dict(jf.Workload.of(K6_SRC, K6_DST, K6_SIZE)), "cpu")
-    fault = convert.faults_from_numpy(
-        _jax_dict(JFaults.from_mask(np.zeros(g.num_queues, bool))), "cpu")
+    s = tf.stack_lanes([convert.state_from_numpy(d, "cpu")])
+    wl = tf.Workload.stack([convert.workload_from_numpy(
+        _jax_dict(jf.Workload.of(K6_SRC, K6_DST, K6_SIZE)), "cpu")])
+    fault = tf.FaultSchedule.stack([convert.faults_from_numpy(
+        _jax_dict(JFaults.from_mask(np.zeros(g.num_queues, bool))), "cpu")])
     step = tf.make_step(g, tp, tf.SimParams(**K6_PARAMS), len(K6_SRC),
                         device="cpu")
     s2, _, chunks, horizon = tf.run_chunks(step, s, wl, fault, budget=256,
                                            chunk=128, trace="full",
                                            tick0=128)
-    assert horizon == 256 and len(chunks) == 1
+    assert horizon.tolist() == [256] and len(chunks) == 1
     for lane, key in zip(LANES, ("delivered", "cwnd", "qlen_max", "rx_base",
                                  "src_base")):
         np.testing.assert_array_equal(
-            _bits(chunks[0][key]), _bits(getattr(end, lane)[128:256]),
+            _bits(chunks[0][key][:, 0]), _bits(getattr(end, lane)[128:256]),
             err_msg=lane)
-    _assert_state_matches(s2, end.state)
+    _assert_state_matches(tf.take_lane(s2, 0), end.state)

@@ -279,11 +279,12 @@ def test_step_leaves_its_input_state_untouched(name, monkeypatch):
         monkeypatch.setattr(ops, form, counted)
     prof = make()
     g = fat_tree3(k=6, pods=3)
-    wl = tf.Workload.of(K6_SRC, K6_DST, K6_SIZE, device="cpu")
+    wl = tf.Workload.stack([tf.Workload.of(K6_SRC, K6_DST, K6_SIZE,
+                                           device="cpu")])
     p = tf.SimParams(**K6_PARAMS)
     step = tf.make_step(g, prof, p, len(K6_SRC), device="cpu")
-    fault = FaultSchedule.healthy(g.num_queues, "cpu")
-    s = tf.init_state(g, wl, prof, p, device="cpu")
+    fault = FaultSchedule.healthy(g.num_queues, batch=1, device="cpu")
+    s = tf.init_state(g, wl, prof, p, device="cpu")      # [1, F] state
     ticks, rtx_bits = 160, 0
     for tick in range(ticks):
         before = [(k, t.clone()) for k, t in _tensors(s)]
