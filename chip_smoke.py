@@ -75,6 +75,21 @@ Phases, one line each:
    each tick kernel is launched once per tick for all four; the
    scenario-ticks per second beside the serial ``ai_full`` run's, and
    the peak memory.
+   Then the faulted batch: the same fabric as B = 4 lanes of one
+   ``simulate_batch`` call under ``TransportProfile.resilient()`` (RTO
+   backoff, EV eviction, PDC teardown), ``SimParams(timeout_ticks=64,
+   ooo_threshold=24)``, budget 2048, stats tier, seeds 0x5EED + b,
+   fault-draw seed b: lane 0 gray links (1 % loss on edge switch 0's
+   uplinks), lane 1 host 0 dead from tick 100 for good and host 1's NIC
+   stalled over [100, 400), lane 2 PHY corruption (1 % BER on edge 1's
+   uplinks, no link layer), lane 3 all of these and edge 0's first
+   uplink dead from tick 0. Each lane's stats, final lanes (the
+   recovery lanes included) and counters are bitwise equal to
+   ``tests/golden/torch_port_faults.npz`` (the JAX ``simulate_batch``);
+   lane 1 quarantines its four flows and stops before the budget, every
+   other flow of every lane completes, some EV is evicted; each tick
+   kernel is launched once per tick; scenario-ticks per second and peak
+   memory beside the healthy batch's of the same call.
 6. cross-device — the first 128-tick chunk of the ai_full run with
    ``trace="full"`` on the card and on the CPU (plain versions), bitwise.
 
@@ -99,6 +114,7 @@ GOLDEN = ROOT / "tests" / "golden" / "fabric_golden.npz"
 FULLSIZE = ROOT / "tests" / "golden" / "torch_port_fullsize.npz"
 PROFILES = ROOT / "tests" / "golden" / "torch_port_profiles.npz"
 BATCH = ROOT / "tests" / "golden" / "torch_port_batch.npz"
+FAULTS = ROOT / "tests" / "golden" / "torch_port_faults.npz"
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 INT_OPS_PER_S = 67e12       # H100 SXM non-tensor 32-bit rate
 F32_OPS_PER_S = 67e12       # H100 SXM non-tensor f32 rate
@@ -145,7 +161,12 @@ TICK_KERNELS = ("sack_fused_own", "sack_advance_own", "nack_mark_lanes",
 #: site and the RTO's set are compiled out; RR_SLOTS's loss inference
 #: adds two sets
 PER_TICK = {"ai_full": (1, 1, 1, 1, 1), "hpc": (1, 1, 0, 0, 1),
-            "base": (1, 1, 1, 1, 1), "mixed": (1, 1, 1, 3, 1)}
+            "base": (1, 1, 1, 1, 1), "mixed": (1, 1, 1, 3, 1),
+            "resilient": (1, 1, 1, 1, 1)}
+#: SimState lanes of the recovery loop (RTO strikes, quarantine, their
+#: counters); the profile goldens leave them out
+RECOVERY_LANES = ("ev_evictions", "rto_strikes", "quarantined",
+                  "flows_abandoned", "ticks_unreachable")
 ENTRY_KERNELS = ("sack_fused", "sack_advance", "nack_mark", "nscc_update",
                  "ecmp_select")
 OWN_WIDTHS = (1, 3, 8, 16, 17, 32)
@@ -1001,6 +1022,124 @@ def phase_batch(serial: dict) -> dict:
     return res
 
 
+def fault_schedule(g):
+    """The faulted batch's [4, Q] / [4, H] schedule, as
+    ``scripts/torch_port_reference.py`` builds it for the golden."""
+    from repro_torch.network.faults import FaultSchedule
+    up0 = [int(q) for q in g.up1_table[0, :]]
+    up1 = [int(q) for q in g.up1_table[1, :]]
+    ok = FaultSchedule.healthy(g.num_queues, num_hosts=g.num_hosts)
+    lanes = [
+        ok.lossy(up0, 0.01),
+        ok.host_fail(0, 100).nic_stall(1, 100, 400),
+        ok.corrupt(up1, 0.01),
+        ok.lossy(up0, 0.01).host_fail(0, 100).nic_stall(1, 100, 400)
+        .corrupt(up1, 0.01).flap(up0[0], 0),
+    ]
+    return FaultSchedule.stack([s.with_seed(b) for b, s in enumerate(lanes)])
+
+
+def phase_faults(batch: dict) -> dict:
+    """The full-width fabric as B = 4 faulted lanes of one
+    ``simulate_batch`` call under ``resilient()``, against the JAX
+    golden; ``batch`` is the healthy batch phase of the same call."""
+    from dataclasses import fields
+    from repro_torch.kernels import ops
+    from repro_torch.network.fabric import SimParams, simulate_batch
+    from repro_torch.network.profile import TransportProfile
+    _, g, wl, _, _ = _fullsize()
+    gold = np.load(FAULTS)
+    sched = fault_schedule(g)
+    for f in fields(sched):
+        got = getattr(sched, f.name).numpy()
+        want = gold[f"sched.{f.name}"]
+        _assert_bits(got.view(want.dtype) if f.name == "seed" else got,
+                     want, f"schedule lane {f.name}")
+    p = SimParams(timeout_ticks=int(gold["timeout_ticks"]),
+                  ooo_threshold=int(gold["ooo_threshold"]))
+    budget = int(gold["max_ticks"])
+    prof = TransportProfile.resilient()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    rs = simulate_batch(g, [wl] * B_MAIN, prof, p, faults=sched,
+                        seeds=gold["seeds"], trace="stats",
+                        max_ticks=budget, device="cuda")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    horizons = [r.horizon for r in rs]
+    _assert_launches("resilient", launches, max(horizons))
+    for b, r in enumerate(rs):
+        s = r.state
+        lanes = {
+            "stat_completion": r.stat_completion,
+            "stat_src_completion": r.stat_src_completion,
+            "delivered": s.delivered.cpu().numpy(),
+            "next_psn": s.next_psn.cpu().numpy(),
+            "src_base": s.src_track.base.cpu().numpy().view(np.uint32),
+            "dst_base": s.dst_track.base.cpu().numpy().view(np.uint32),
+            "cwnd": s.cc.cwnd.cpu().numpy(),
+            "rto": s.rto.cpu().numpy(),
+            "rto_strikes": s.rto_strikes.cpu().numpy(),
+            "quarantined": s.quarantined.cpu().numpy(),
+            "inflight": s.inflight.cpu().numpy(),
+            "bad_n": s.lb.bad_n.cpu().numpy(),
+            "last_ev": s.lb.last_ev.cpu().numpy(),
+            "bad_ev": s.lb.bad_ev.cpu().numpy(),
+            "ev_set": s.lb.ev_set.cpu().numpy(),
+        }
+        scalars = {"horizon": r.horizon, "trims": r.trims,
+                   "drops": r.drops, "dups": r.dups,
+                   "retransmits": r.rtx_packets, "timeouts": r.timeouts,
+                   "qlen_peak": r.qlen_peak,
+                   "ticks_degraded": r.ticks_degraded,
+                   "ev_evictions": r.ev_evictions,
+                   "flows_abandoned": r.flows_abandoned,
+                   "ticks_unreachable": r.ticks_unreachable,
+                   "abandon_tick": r.abandon_tick}
+        for k, v in lanes.items():
+            _assert_bits(v, gold[f"b{b}/{k}"], f"faulted lane {b} {k}")
+        for k, v in scalars.items():
+            assert v == int(gold[f"b{b}/{k}"]), (b, k, v)
+        settled = (r.stat_completion >= 0) | lanes["quarantined"]
+        assert settled.all(), f"faulted lane {b}: a live flow is unfinished"
+    dead = rs[1]
+    assert dead.flows_abandoned > 0 and dead.abandon_tick >= 0
+    assert dead.horizon < budget, "lane 1 must quiesce before the budget"
+    assert all(r.flows_abandoned == 0 for r in rs[::2]), "lanes 0 and 2"
+    assert sum(r.ev_evictions for r in rs) > 0, "no EV was evicted"
+    sticks = sum(horizons)
+    res = {"b": B_MAIN, "seconds": secs, "horizons": horizons,
+           "ticks_run": max(horizons), "scenario_ticks": sticks,
+           "scenario_ticks_per_s": sticks / secs,
+           "lane_ticks_per_s": B_MAIN * max(horizons) / secs,
+           "healthy_scenario_ticks_per_s": batch["scenario_ticks_per_s"],
+           "healthy_lane_ticks_per_s": batch["lane_ticks_per_s"],
+           "peak_bytes": peak, "healthy_peak_bytes": batch["peak_bytes"],
+           "launches": launches,
+           **{k: [getattr(r, k) for r in rs] for k in (
+               "drops", "timeouts", "rtx_packets", "ev_evictions",
+               "flows_abandoned", "ticks_unreachable", "abandon_tick")}}
+    say("5 faults", f"B={B_MAIN} scenario-ticks/s "
+        f"{res['scenario_ticks_per_s']:.1f} ({sticks} scenario-ticks in "
+        f"{secs:.2f} s; all lanes stepped {max(horizons)} ticks, "
+        f"{res['lane_ticks_per_s']:.1f} lane-ticks/s) against the healthy "
+        f"batch's {batch['scenario_ticks_per_s']:.1f} scenario-ticks/s "
+        f"({batch['lane_ticks_per_s']:.1f} lane-ticks/s)")
+    say("5 faults", f"peak {peak / 2 ** 30:.2f} GiB against the healthy "
+        f"batch's {batch['peak_bytes'] / 2 ** 30:.2f} GiB")
+    say("5 faults", f"{g.name} F={wl.src.shape[0]} x B={B_MAIN} under "
+        f"{prof.describe()}: horizons {horizons}, drops {res['drops']}, "
+        f"timeouts {res['timeouts']}, evictions {res['ev_evictions']}, "
+        f"abandoned {res['flows_abandoned']} at {res['abandon_tick']}; "
+        f"every lane bitwise equal to the JAX simulate_batch golden; "
+        f"launches {launches}")
+    return res
+
+
 def _assert_launches(tag: str, launches: dict, ticks: int) -> None:
     """Each tick kernel launched ``PER_TICK[tag]`` times a tick, and no
     entry-point form on the tick."""
@@ -1066,10 +1205,15 @@ def phase_profiles() -> "tuple[dict, dict]":
                      ref[f"{tag}/stat_src_completion"],
                      f"{tag} stat_src_completion")
         state = _flat(state_to_numpy(r.state))
-        lanes = [k for k in state if k not in ("q_pkt", "ev_buf")]
+        lanes = [k for k in state
+                 if k not in ("q_pkt", "ev_buf") + RECOVERY_LANES]
         assert sorted(lanes) == sorted(
             k[len(f"{tag}/state."):] for k in ref.files
             if k.startswith(f"{tag}/state.")), tag
+        # the reference leaves the recovery lanes out of these goldens:
+        # none of the three profiles runs the recovery loop
+        for k in RECOVERY_LANES:
+            assert not state[k].any(), (tag, k)
         for k in lanes:
             _assert_bits(state[k], ref[f"{tag}/state.{k}"], f"{tag} {k}")
         s = r.state
@@ -1216,6 +1360,7 @@ def main(argv=None) -> int:
               "sites": phase_sites(), "goldens": phase_goldens(),
               "full_width": phase_fullwidth()}
     result["batch"] = phase_batch(result["full_width"])
+    result["faults"] = phase_faults(result["batch"])
     result["profiles"], states = phase_profiles()
     result["entry_points"] = phase_entry_points(states)
     result["cross_device"] = phase_cross_device()
@@ -1230,6 +1375,8 @@ def main(argv=None) -> int:
             row["batch"] = {**{k: v for k, v in row["batch"].items()
                                if k != "bytes"},
                             "launches": result["batch"]["launches"][name]}
+            # and on the faulted batch's
+            row["faults"] = {"launches": result["faults"]["launches"][name]}
         kernels.append(row)
     result["seconds"] = time.perf_counter() - t0
     if args.out is not None:

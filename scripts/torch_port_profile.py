@@ -12,6 +12,14 @@ twice:
 2. from a fresh state: ``--warm`` ticks, then ``--window`` ticks under
    ``torch.profiler``.
 
+With ``--faulted`` the tick is ``chip_smoke.py``'s faulted batch
+instead: ``TransportProfile.resilient()``, ``SimParams(timeout_ticks=64,
+ooo_threshold=24)``, and scenario b takes lane (b + 3) mod 4 of its four
+fault lanes (``chip_smoke.fault_schedule``; 3: everything at once; 0:
+gray links; 1: a dead host and a stalled NIC; 2: PHY corruption), so
+one scenario already builds every fault static and four run the whole
+faulted batch.
+
 It reports the per-window wall times and, for the profiled window, the
 device busy time per tick (the sum of the device time of every kernel,
 memset and copy; one stream, so they do not overlap), the device's idle
@@ -21,7 +29,7 @@ run, and the ten largest device-time consumers. A tick of B scenarios
 is B scenario-ticks.
 
     PYTHONPATH=src python3 scripts/torch_port_profile.py [--batch B] \
-        [--out FILE]
+        [--faulted] [--out FILE]
 
 Needs a CUDA card; imports nothing of JAX.
 """
@@ -46,12 +54,16 @@ from repro_torch.network.faults import FaultSchedule
 from repro_torch.network.profile import TransportProfile
 from repro_torch.network.topology import fat_tree3
 
+sys.path.insert(0, str(ROOT))
+from chip_smoke import fault_schedule  # noqa: E402  (the faulted lanes)
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--warm", type=int, default=64)
     ap.add_argument("--window", type=int, default=64)
     ap.add_argument("--batch", type=int, default=1)
+    ap.add_argument("--faulted", action="store_true")
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -68,10 +80,18 @@ def main() -> int:
         np.concatenate([h, h]),
         np.concatenate([(h + 512) % 1024, (h + 256) % 1024]), 256,
         device=dev)] * B)
-    p = fabric.SimParams()
-    prof_ = TransportProfile.ai_full()
-    fault = FaultSchedule.healthy(g.num_queues, batch=B, device=dev)
-    step = fabric.make_step(g, prof_, p, 2048, device=dev)
+    if args.faulted:
+        p = fabric.SimParams(timeout_ticks=64, ooo_threshold=24)
+        prof_ = TransportProfile.resilient()
+        fault = fault_schedule(g).lanes(
+            torch.as_tensor([(b + 3) % 4 for b in range(B)])).to(dev)
+    else:
+        p = fabric.SimParams()
+        prof_ = TransportProfile.ai_full()
+        fault = FaultSchedule.healthy(g.num_queues, batch=B, device=dev)
+    step = fabric.make_step(g, prof_, p, 2048, lossy=fault.has_loss,
+                            hosty=fault.has_host_faults,
+                            corrupty=fault.has_corruption, device=dev)
     seeds = fabric.DEFAULT_SEED + np.arange(B)
     n = args.window
 
@@ -116,6 +136,7 @@ def main() -> int:
     plain_ms = windows[args.warm // n] if args.warm % n == 0 else None
     res = {
         "nvidia_smi": smi, "config": g.name, "flows": 2048, "batch": B,
+        "profile": prof_.describe(), "faulted": args.faulted,
         "window_ticks": n, "ticks_run": ticks_run, "peak_bytes": peak,
         "scenario_ticks_per_s_by_window": [B * 1e3 / w for w in windows],
         "wall_ms_per_tick_by_window": windows,
@@ -130,7 +151,8 @@ def main() -> int:
         "top_device_us_per_tick": [[k[:160], v / n] for k, v in top],
     }
     print(smi)
-    print(f"{g.name} F=2048 B={B}: {ticks_run} ticks, peak "
+    print(f"{g.name} F=2048 B={B} {prof_.describe()}"
+          f"{' faulted' if args.faulted else ''}: {ticks_run} ticks, peak "
           f"{peak / 2 ** 30:.2f} GiB, wall ms/tick by {n}-tick "
           f"window {[round(w, 2) for w in windows]}")
     print(f"profiled ticks {args.warm}..{args.warm + n - 1}: device busy "

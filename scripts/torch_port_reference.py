@@ -1,8 +1,9 @@
 #!/usr/bin/env python
 """Write the JAX references that the PyTorch port is held against at full
 width: ``tests/golden/torch_port_fullsize.npz``,
-``tests/golden/torch_port_profiles.npz`` and
-``tests/golden/torch_port_batch.npz``.
+``tests/golden/torch_port_profiles.npz``,
+``tests/golden/torch_port_batch.npz`` and
+``tests/golden/torch_port_faults.npz``.
 
 Both use the port's full-width fabric (``chip_smoke.py`` phase 5): a full
 3-tier k=16 fat tree (``fat_tree3(k=16, pods=16)``: 1024 endpoints, 320
@@ -30,13 +31,23 @@ downlink takes a 2:1 incast — under ``SimParams()`` with
   0x5EED+2, the first uplink of edge switch 0 (``up1_table[0, 0]``)
   dead from tick 0; lane 3 seed 0x5EED+3, that uplink flapping over
   [100, 400).
+* ``faults``: ``TransportProfile.resilient()`` (RTO backoff 2x capped
+  at 8x, EV eviction, PDC teardown after 4 dead RTOs) through
+  ``simulate_batch`` as B = 4 scenarios,
+  ``SimParams(timeout_ticks=64, ooo_threshold=24)``, ``max_ticks=2048``,
+  seeds 0x5EED+b, fault-draw seed b, host lanes over
+  the 1024 hosts: lane 0 gray links (``lossy(up1_table[0, :], 0.01)``);
+  lane 1 host 0 dead from tick 100 for good and host 1's NIC stalled
+  over [100, 400); lane 2 PHY corruption
+  (``corrupt(up1_table[1, :], 0.01)``, no link layer); lane 3 all of
+  these at once and ``up1_table[0, 0]`` dead from tick 0.
 
 This script imports the JAX package and is not part of the port. It
 runs on the CPU (about five minutes per one-scenario run on a few
 cores):
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/torch_port_reference.py \
-        [--which fullsize|profiles|batch]
+        [--which fullsize|profiles|batch|faults]
 
 ``fullsize`` holds the workload lanes (``src``, ``dst``, ``size``), the
 per-flow stats and final lanes (``stat_completion``,
@@ -56,6 +67,15 @@ and every final ``SimState`` lane but the packet and event buffers as
 ``batch`` holds ``seeds``, ``fail_queue``, the schedules' ``fail_at`` /
 ``heal_at`` lanes ([4, Q]) and, per lane ``b<i>``, the stats and final
 lanes and the scalars of ``fullsize`` plus ``ticks_degraded``; and the
+wall-clock seconds of the batched run (``cpu_seconds``).
+
+``faults`` holds ``seeds``, ``timeout_ticks``, ``ooo_threshold``,
+``max_ticks``, every
+lane of the [4, Q] / [4, H] schedule as ``sched.<field>`` and, per lane
+``b<i>``, the lanes and scalars of ``batch`` plus the recovery lanes
+(``rto``, ``rto_strikes``, ``quarantined``, ``inflight``, ``bad_n``,
+``last_ev``, ``bad_ev``, ``ev_set``) and counters (``ev_evictions``,
+``flows_abandoned``, ``ticks_unreachable``, ``abandon_tick``); and the
 wall-clock seconds of the batched run (``cpu_seconds``).
 """
 import argparse
@@ -77,6 +97,13 @@ GOLDEN = REPO / "tests" / "golden"
 OUT = GOLDEN / "torch_port_fullsize.npz"
 OUT_PROFILES = GOLDEN / "torch_port_profiles.npz"
 OUT_BATCH = GOLDEN / "torch_port_batch.npz"
+OUT_FAULTS = GOLDEN / "torch_port_faults.npz"
+FAULT_TIMEOUT = 64
+FAULT_OOO = 24                # OOO-gap loss inference (receiver NACKs)
+FAULT_TICKS = 2048
+FAULT_FAIL = 100              # host 0 dies here; host 1's NIC stalls
+FAULT_STALL_HEAL = 400        # until here
+FAULT_P = 0.01                # gray-link loss and BER of the faulted uplinks
 BATCH_SEEDS = (0x5EED, 0x5EED + 1, 0x5EED + 2, 0x5EED + 3)
 FLAP = (100, 400)
 HOSTS = 1024
@@ -235,6 +262,75 @@ def write_batch(path: Path) -> None:
     print(f"{g.name}: B={len(rs)} in {secs:.1f} s -> {path}")
 
 
+def faults_schedule(g) -> FaultSchedule:
+    """The faulted batch's [4, Q] / [4, H] schedule (fault-draw seed b
+    on lane b)."""
+    up0 = [int(q) for q in g.up1_table[0, :]]
+    up1 = [int(q) for q in g.up1_table[1, :]]
+    ok = FaultSchedule.healthy(g.num_queues, num_hosts=g.num_hosts)
+    lanes = [
+        ok.lossy(up0, FAULT_P),
+        ok.host_fail(0, FAULT_FAIL).nic_stall(1, FAULT_FAIL,
+                                              FAULT_STALL_HEAL),
+        ok.corrupt(up1, FAULT_P),
+        ok.lossy(up0, FAULT_P).host_fail(0, FAULT_FAIL)
+        .nic_stall(1, FAULT_FAIL, FAULT_STALL_HEAL).corrupt(up1, FAULT_P)
+        .flap(up0[0], 0),
+    ]
+    return FaultSchedule.stack([s.with_seed(b) for b, s in enumerate(lanes)])
+
+
+def write_faults(path: Path) -> None:
+    g = fat_tree3(k=16, pods=16)
+    src, dst, size = workload_lanes()
+    wl = Workload.of(src, dst, size)
+    faults = faults_schedule(g)
+    t0 = time.perf_counter()
+    rs = simulate_batch(g, Workload.stack([wl] * len(BATCH_SEEDS)),
+                        TransportProfile.resilient(),
+                        SimParams(timeout_ticks=FAULT_TIMEOUT,
+                                  ooo_threshold=FAULT_OOO),
+                        faults=faults,
+                        seeds=np.asarray(BATCH_SEEDS, np.uint32),
+                        trace="stats", max_ticks=FAULT_TICKS)
+    secs = time.perf_counter() - t0
+    out = {"seeds": np.asarray(BATCH_SEEDS, np.uint32),
+           "timeout_ticks": np.int64(FAULT_TIMEOUT),
+           "ooo_threshold": np.int64(FAULT_OOO),
+           "max_ticks": np.int64(FAULT_TICKS),
+           "cpu_seconds": np.float64(secs)}
+    for f in dataclasses.fields(faults):
+        out[f"sched.{f.name}"] = np.asarray(getattr(faults, f.name))
+    for b, r in enumerate(rs):
+        s = r.state
+        lanes = {**_run_lanes(r),
+                 "rto": np.asarray(s.rto),
+                 "rto_strikes": np.asarray(s.rto_strikes),
+                 "quarantined": np.asarray(s.quarantined),
+                 "inflight": np.asarray(s.inflight),
+                 "bad_n": np.asarray(s.lb.bad_n),
+                 "last_ev": np.asarray(s.lb.last_ev),
+                 "bad_ev": np.asarray(s.lb.bad_ev),
+                 "ev_set": np.asarray(s.lb.ev_set),
+                 "ev_evictions": np.int64(r.ev_evictions),
+                 "flows_abandoned": np.int64(r.flows_abandoned),
+                 "ticks_unreachable": np.int64(r.ticks_unreachable),
+                 "abandon_tick": np.int64(r.abandon_tick)}
+        out.update({f"b{b}/{k}": v for k, v in lanes.items()})
+        ct = np.asarray(r.stat_completion)
+        print(f"lane {b}: horizon={r.horizon} unfinished="
+              f"{int((ct < 0).sum())} completion max {ct.max()} "
+              f"trims={r.trims} drops={r.drops} rtx={r.rtx_packets} "
+              f"timeouts={r.timeouts} degraded={r.ticks_degraded} "
+              f"evictions={r.ev_evictions} abandoned={r.flows_abandoned} "
+              f"at {r.abandon_tick} unreachable={r.ticks_unreachable} "
+              f"quarantined={np.nonzero(np.asarray(s.quarantined))[0]}",
+              flush=True)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    np.savez_compressed(path, **out)
+    print(f"{g.name}: B={len(rs)} in {secs:.1f} s -> {path}")
+
+
 def write_profiles(path: Path) -> None:
     out = {}
     for tag in ("hpc", "base", "mixed"):
@@ -247,13 +343,15 @@ def write_profiles(path: Path) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--which", default="fullsize",
-                    choices=("fullsize", "profiles", "batch"))
+                    choices=("fullsize", "profiles", "batch", "faults"))
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args()
     if args.which == "fullsize":
         write_fullsize(args.out or OUT)
     elif args.which == "batch":
         write_batch(args.out or OUT_BATCH)
+    elif args.which == "faults":
+        write_faults(args.out or OUT_FAULTS)
     else:
         write_profiles(args.out or OUT_PROFILES)
     return 0

@@ -11,9 +11,11 @@ The CC state takes the form of the profile's policy: NSCC's and RCCC's
 lanes, the hybrid's ``{"nscc": ..., "rccc": ...}`` dict, or the open
 loop's empty [0] int32 placeholder; each is recognised by its keys.
 
-Lanes of features this slice does not port must be inert in the
-incoming dict (zero-size, zero, False or never-failing); otherwise the
-conversion raises ``NotImplementedError`` instead of dropping state.
+Lanes of features not ported yet (INC, the link layer) must be inert in
+the incoming dict (zero-size or zero); otherwise the conversion raises
+``NotImplementedError`` instead of dropping state. A ``FaultSchedule``
+crosses whole: link windows, gray-link and BER lanes, the seed (a
+uint32 lane) and the host / NIC lanes.
 """
 from __future__ import annotations
 
@@ -26,7 +28,6 @@ from repro_torch.core.cms.nscc import NSCCState
 from repro_torch.core.cms.rccc import RCCCState
 from repro_torch.core.lb.schemes import LBState
 from repro_torch.core.pds import PSNTracker
-from repro_torch.core.types import NEVER_TICK
 from repro_torch.network.fabric import SimState, Workload
 from repro_torch.network.faults import FaultSchedule
 
@@ -34,11 +35,10 @@ from repro_torch.network.faults import FaultSchedule
 U32_LANES = frozenset(
     [f"{t}.{k}" for t in ("src_track", "dst_track")
      for k in ("base", "ring", "rx_ok", "dup", "oor")]
-    + ["rtx", "lb.salt"])
+    + ["rtx", "lb.salt", "seed"])
 
 #: reference SimState lanes the port does not carry: each must be inert
-_INERT_STATE = ("inc", "inc_reduced", "inc_emits", "ev_evictions", "rto_strikes", "quarantined",
-                "flows_abandoned", "ticks_unreachable", "llr_busy_until",
+_INERT_STATE = ("inc", "inc_reduced", "inc_emits", "llr_busy_until",
                 "llr_replays", "cbfc_consumed", "cbfc_freed", "cbfc_ret",
                 "credit_stall_ticks")
 _NESTED = {"src_track": PSNTracker, "dst_track": PSNTracker,
@@ -54,12 +54,12 @@ def _leaves(d, prefix=""):
         yield prefix[:-1], np.asarray(d)
 
 
-def _require_inert(d: dict, names, what: str, inert=lambda a: not a.any()):
+def _require_inert(d: dict, names, what: str):
     for name in names:
         if name not in d:
             continue
         for path, a in _leaves(d[name], f"{name}."):
-            if not inert(a):
+            if a.any():
                 raise NotImplementedError(
                     f"{what} lane {path} is live; the port does not carry "
                     f"it yet (see ROADMAP.md, 'Modules to port')")
@@ -138,11 +138,8 @@ def workload_to_numpy(wl: Workload) -> dict:
 
 
 def faults_from_numpy(d: dict, device) -> FaultSchedule:
-    """A link-outage FaultSchedule from a reference FaultSchedule dict;
-    its loss / corruption / host lanes must be inert."""
-    _require_inert(d, ("loss_p", "corrupt_p"), "FaultSchedule")
-    _require_inert(d, ("host_fail_at", "nic_stall_at"), "FaultSchedule",
-                   inert=lambda a: bool((a == NEVER_TICK).all()))
+    """The port's FaultSchedule from a reference FaultSchedule dict,
+    every lane carried (the seed as its int32 pattern)."""
     return _build(FaultSchedule, d, device)
 
 

@@ -2,10 +2,10 @@
 ``repro.core.lb.schemes``.
 
 Every scheme is ported: STATIC, OBLIVIOUS, RR_SLOTS, REPS (with its
-recycle feedback) and EVBITMAP (with its congestion-bit feedback). EV
-eviction (the blacklist ring and ``LBPolicy.evict``) raises
-``NotImplementedError`` (ROADMAP.md, "Modules to port" item 6). All
-uint32 lanes are int32 bit patterns (see ``repro_torch._u32``).
+recycle feedback) and EVBITMAP (with its congestion-bit feedback), and
+the recovery loop's EV eviction (the blacklist ring, the steering of
+draws off it, ``LBPolicy.evict``). All uint32 lanes are int32 bit
+patterns (see ``repro_torch._u32``).
 """
 from __future__ import annotations
 
@@ -16,6 +16,7 @@ import torch
 
 from repro_torch._u32 import c32, shr, umod
 from repro_torch.core.types import EV_SPACE, scenario_rows
+
 
 class LBScheme(enum.IntEnum):
     STATIC = 0
@@ -209,19 +210,21 @@ def on_ack(state: LBState, scheme: LBScheme, flow: torch.Tensor,
     return state
 
 
+def _in_blacklist(st: LBState, ev: torch.Tensor) -> torch.Tensor:
+    """[..., F] bool — is each flow's ``ev`` currently on its blacklist?"""
+    return ((st.bad_ev == ev[..., None]) & (st.bad_ev >= 0)).any(dim=-1)
+
+
 @dataclass(frozen=True)
 class LBPolicy:
     """One LB scheme as the fabric engine's pluggable policy: ``on_ack``
-    (path feedback) and ``select`` (per-flow EV choice)."""
+    (path feedback), ``select`` (per-flow EV choice) and, when the
+    profile enables the recovery loop, ``evict`` (blacklist an EV that a
+    timeout or trim NACK implicates, purge it from the scheme's state
+    and steer later draws off it)."""
 
     scheme: LBScheme
     evict_enabled: bool = False
-
-    def __post_init__(self):
-        if self.evict_enabled:
-            raise NotImplementedError(
-                "EV eviction is not ported yet (ROADMAP.md, 'Modules to "
-                "port' item 6: faults + recovery)")
 
     def on_ack(self, st: LBState, hot_ack, ef, ee, ec, is_ack, is_nack,
                flow_ok=None) -> LBState:
@@ -247,8 +250,48 @@ class LBPolicy:
 
     def select(self, st: LBState, psn: torch.Tensor,
                tick: int) -> "tuple[LBState, torch.Tensor]":
-        return select_ev(st, self.scheme, psn, tick)
+        st2, ev = select_ev(st, self.scheme, psn, tick)
+        if self.evict_enabled:
+            # steer draws off the blacklist: a blacklisted EV is re-mixed
+            # once (a colliding re-mix behaves like the plain draw)
+            bad = _in_blacklist(st, ev)
+            alt = umod(_mix32(ev * c32(0x9E3779B1) ^ st.salt), EV_SPACE)
+            ev = torch.where(bad, alt, ev)
+        return st2, ev
 
     def static_ev(self, st: LBState) -> torch.Tensor:
         """The flow's pinned single-path EV (ROD lanes)."""
         return st.ev_set[..., 0]
+
+    def evict(self, st: LBState, ev: torch.Tensor,
+              valid: torch.Tensor) -> LBState:
+        """Blacklist ``ev`` for flows with ``valid`` set (ev, valid:
+        [..., F]) and purge it: the blacklist ring takes it at
+        ``bad_n % K``; ``ev_set`` slots that carry it are re-rolled to
+        draws salted by the eviction count (re-mixed once if they land
+        on the updated blacklist); REPS recycle-ring entries that carry
+        it become -1 tombstones, which ``select_ev`` replaces by a fresh
+        draw when it pops one."""
+        K = st.ev_set.shape[-1]
+        slots = torch.arange(K, dtype=torch.int32, device=ev.device)
+        pos = st.bad_n % K
+        hot = (slots == pos[..., None]) & valid[..., None]
+        bad_ev = torch.where(hot, ev[..., None], st.bad_ev)
+        bad_n = st.bad_n + valid.to(torch.int32)
+        slot_match = (st.ev_set == ev[..., None]) & valid[..., None]
+        # (bad_n * K + k) as uint32, times the constant: int32 wraps alike
+        fresh = umod(_mix32(st.salt[..., None]
+                            ^ _mix32((bad_n[..., None] * K + slots)
+                                     * c32(0x85EBCA77))), EV_SPACE)
+        fresh_bad = ((bad_ev[..., :, None] == fresh[..., None, :])
+                     & (bad_ev[..., :, None] >= 0)).any(dim=-2)
+        fresh = torch.where(
+            fresh_bad,
+            umod(_mix32(fresh * c32(0x9E3779B1) ^ st.salt[..., None]),
+                 EV_SPACE),
+            fresh)
+        ev_set = torch.where(slot_match, fresh, st.ev_set)
+        ring_match = (st.reps_ring == ev[..., None]) & valid[..., None]
+        reps_ring = torch.where(ring_match, -1, st.reps_ring)
+        return replace(st, bad_ev=bad_ev, bad_n=bad_n, ev_set=ev_set,
+                       reps_ring=reps_ring)

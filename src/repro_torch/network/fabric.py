@@ -36,12 +36,16 @@ hand-written CUDA; on CPU tensors their plain PyTorch versions.
 Every profile of the paper's table runs: each CC composition (NSCC,
 RCCC, their hybrid, open loop), every LB scheme (STATIC, OBLIVIOUS,
 RR_SLOTS with its EV-based loss inference, REPS, EVBITMAP) and per-flow
-RUD / ROD / RUDI delivery (ROD is go-back-N on one static path), with
-link outages. The fault-engine statics (gray loss, host faults,
-corruption, RTO backoff, EV eviction, PDC teardown), INC, the link layer
-and telemetry raise ``NotImplementedError`` naming their ROADMAP.md item.
-uint32 lanes are int32 bit patterns (``_u32``); JAX's clamped gathers
-and dropped scatters are written out as clamps and masks.
+RUD / ROD / RUDI delivery (ROD is go-back-N on one static path). So do
+the faults and the closed recovery loop: link outages, gray links and
+PHY corruption (counter-hash draws), host deaths and NIC stalls, RTO
+backoff, EV eviction and PDC liveness teardown (quarantine). Each fault
+class and recovery knob is a static of ``make_step`` derived from the
+schedule or the profile, so a run without it builds the tick without its
+lanes. INC, the link layer and telemetry raise ``NotImplementedError``
+naming their ROADMAP.md item. uint32 lanes are int32 bit patterns
+(``_u32``); JAX's clamped gathers and dropped scatters are written out
+as clamps and masks.
 
 The dense one-hots of the reference stay ([B, F, E] ACK/NACK lanes,
 [B, H, F] host pick, [B, F, Q] deliveries, [B, n, n] enqueue ranks,
@@ -50,21 +54,23 @@ quadratic and cap the fabric size (ROADMAP.md, "Scale cap").
 """
 from __future__ import annotations
 
-from dataclasses import dataclass, fields
+import warnings
+from dataclasses import dataclass, fields, replace
 
 import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch._u32 import c32, shr
+from repro_torch._u32 import c32, shr, ult
 from repro_torch.core import pds
+from repro_torch.core.pdc import unreachable
 from repro_torch.core.cms.nscc import NSCCParams
 from repro_torch.core.lb.schemes import LBPolicy, LBScheme, LBState, _mix32
 from repro_torch.core.lb.schemes import _pick_lane as _pick
 from repro_torch.kernels import ops as kops
 from repro_torch.network.ecmp import DELIVERED, RoutingTables
 from repro_torch.network.faults import (FaultSchedule, as_schedule,
-                                        failed_to_mask)
+                                        failed_to_mask, loss_threshold)
 from repro_torch.network.profile import (DeliveryMode, TransportProfile,
                                          make_cc_policy)
 from repro_torch.network.topology import QueueGraph
@@ -161,9 +167,9 @@ class SimState:
     state (``SimResult.state``) is one scenario's, without it.
 
     Mirrors the reference ``SimState`` lane for lane, minus the lanes of
-    features this slice does not port (INC contexts, the link-layer LLR /
-    CBFC lanes, PDC quarantine, and the counters only those features
-    move); ``repro_torch.convert`` checks they are inert when carrying a
+    features not ported yet (INC contexts, the link-layer LLR / CBFC
+    lanes, and the counters only those features move);
+    ``repro_torch.convert`` checks they are inert when carrying a
     reference state across.
     """
 
@@ -191,7 +197,12 @@ class SimState:
     retransmits: torch.Tensor  # [] int32
     rto: torch.Tensor        # [F] int32 per-flow retransmission timeout
     timeouts: torch.Tensor   # [] int32
-    ticks_degraded: torch.Tensor  # [] int32
+    ev_evictions: torch.Tensor  # [] int32 EVs blacklisted by the LB policy
+    ticks_degraded: torch.Tensor  # [] int32 ticks with >= 1 link/host dead
+    rto_strikes: torch.Tensor  # [F] int32 consecutive zero-progress RTOs
+    quarantined: torch.Tensor  # [F] bool PDC torn down, flow abandoned
+    flows_abandoned: torch.Tensor  # [] int32 PDCs declared unreachable
+    ticks_unreachable: torch.Tensor  # [] int32 ticks with >= 1 quarantined
 
 
 def _first_set_bit(ring: torch.Tensor) -> torch.Tensor:
@@ -328,7 +339,11 @@ def init_state(g: QueueGraph, wl: Workload, profile: TransportProfile,
         trims=zero, drops=zero.clone(), dups=zero.clone(),
         rod_rejects=zero.clone(), retransmits=zero.clone(),
         rto=torch.full((B, F), p.timeout_ticks, **i32),
-        timeouts=zero.clone(), ticks_degraded=zero.clone(),
+        timeouts=zero.clone(), ev_evictions=zero.clone(),
+        ticks_degraded=zero.clone(),
+        rto_strikes=torch.zeros((B, F), **i32),
+        quarantined=torch.zeros((B, F), dtype=torch.bool, device=dev),
+        flows_abandoned=zero.clone(), ticks_unreachable=zero.clone(),
     )
 
 
@@ -338,15 +353,8 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
         f"port' item {item})")
 
 
-def _check_statics(profile: TransportProfile, lossy, tel, hosty, corrupty,
-                   link) -> None:
-    """Raise for every static this slice does not port."""
-    if lossy:
-        raise _not_ported("gray-link loss (lossy)", "6: faults + recovery")
-    if hosty:
-        raise _not_ported("host / NIC faults (hosty)", "6: faults + recovery")
-    if corrupty:
-        raise _not_ported("PHY corruption (corrupty)", "6: faults + recovery")
+def _check_statics(profile: TransportProfile, tel, link) -> None:
+    """Raise for every static not ported yet."""
     if tel is not None:
         raise _not_ported("telemetry", "9: telemetry")
     if link is not None:
@@ -354,12 +362,6 @@ def _check_statics(profile: TransportProfile, lossy, tel, hosty, corrupty,
     if profile.inc:
         raise _not_ported("in-network reduction (inc)", "7: INC + "
                           "collectives")
-    if profile.rto_backoff != 1.0:
-        raise _not_ported("RTO backoff", "6: faults + recovery")
-    if profile.ev_eviction:
-        raise _not_ported("EV eviction", "6: faults + recovery")
-    if profile.pdc_dead_after > 0:
-        raise _not_ported("PDC liveness teardown", "6: faults + recovery")
 
 
 def make_step(g: QueueGraph, profile: TransportProfile, p: SimParams, F: int,
@@ -377,12 +379,23 @@ def make_step(g: QueueGraph, profile: TransportProfile, p: SimParams, F: int,
     per-flow delivery modes (ROD flows run go-back-N on one static path,
     gate injection on in-order CACK advance, and their receiver accepts
     only the next expected PSN; an all-ROD profile pins LB to STATIC).
-    ``lossy``/``hosty``/``corrupty``, ``tel``, ``link``, INC, RTO
-    backoff, eviction and PDC teardown are not ported and raise
+
+    The fault statics come from the schedule (``simulate_batch`` derives
+    them): ``lossy`` builds the gray-link draw (a nonzero ``loss_p``
+    lane), ``hosty`` the host-death / NIC-stall lanes (a scheduled host
+    fault), ``corrupty`` the per-transmission BER draw (a nonzero
+    ``corrupt_p`` lane; without the link layer a corrupted frame is a
+    silent drop). The recovery statics come from the profile:
+    ``rto_backoff != 1`` (exponential RTO, reset by any ACK, capped at
+    ``rto_max_scale``), ``ev_eviction`` (trim NACKs, and timeouts of
+    pinned paths, blacklist the EV) and ``pdc_dead_after > 0`` (that
+    many consecutive zero-progress RTOs quarantine the flow). Off, each
+    builds no lane of its own: the default tick is the pre-fault one.
+    ``tel``, ``link`` and INC are not ported and raise
     ``NotImplementedError``.
     """
     dev = resolve_device(device)
-    _check_statics(profile, lossy, tel, hosty, corrupty, link)
+    _check_statics(profile, tel, link)
     rt = RoutingTables(g, dev)
     Q = g.num_queues
     C = p.queue_capacity
@@ -412,6 +425,27 @@ def make_step(g: QueueGraph, profile: TransportProfile, p: SimParams, F: int,
     rr_slots = profile.lb == LBScheme.RR_SLOTS and not all_rod
     kslots = torch.arange(K, device=dev)
     ooo_gap = int(p.base_rtt)
+    # recovery-loop statics: off (the defaults) they build no lane
+    backoff_on = profile.rto_backoff != 1.0
+    evict_on = profile.ev_eviction
+    pdc_on = profile.pdc_dead_after > 0
+    rto_cap = int(p.timeout_ticks) * int(profile.rto_max_scale)
+    backoff = torch.tensor(profile.rto_backoff, dtype=torch.float32,
+                           device=dev)
+    # the draws' per-lane hash terms (uint32 lane id times a constant)
+    if lossy:
+        lane_mix = torch.arange(n_cand, **i32) * c32(0x85EBCA77)
+    if corrupty:
+        queue_mix = qidx * c32(0xC2B2AE35)
+    if hosty:
+        # queue -> host map of the dead-host downlink mask: only each
+        # host's final downlink is host-owned; fabric queues never
+        # inherit a host outage
+        qh_np = np.full((Q,), -1, np.int64)
+        qh_np[np.asarray(g.host_queue, np.int64)] = np.arange(H)
+        q_is_host = torch.as_tensor(qh_np >= 0, device=dev)
+        q_host = torch.as_tensor(np.where(qh_np >= 0, qh_np, 0),
+                                 device=dev)
     # per batch size: [B, 1] first flat row of each scenario (queue
     # records, flows) and the [B, ...] zero lanes, made once
     consts: dict = {}
@@ -437,6 +471,18 @@ def make_step(g: QueueGraph, profile: TransportProfile, p: SimParams, F: int,
         flow_dst = wl.dst
         slot = tick % D
         dead = fault.dead_at(tick)                              # [B, Q]
+        if hosty:
+            # endpoint lanes: dead hosts inject nothing, process no ACKs
+            # and absorb nothing (their downlink eats enqueues as silent
+            # drops); stalled NICs only stop injecting. A dead
+            # destination does not freeze its source, which retransmits
+            # into the dead downlink until the PDC teardown.
+            hd = fault.host_dead_at(tick)                       # [B, H]
+            nic = fault.nic_stalled_at(tick)
+            dead = dead | (q_is_host & hd[:, q_host])
+            src_dead = hd.gather(-1, flow_src.long())           # [B, F]
+            dst_dead = hd.gather(-1, flow_dst.long())
+            inj_frozen = src_dead | nic.gather(-1, flow_src.long())
 
         # ------------------------------------------------ 1. control events
         evs = s.ev_buf[:, slot]                               # [B, E, 6]
@@ -444,6 +490,12 @@ def make_step(g: QueueGraph, profile: TransportProfile, p: SimParams, F: int,
                                    for k in range(EVF_FIELDS))
         is_ack = et == EV_ACK
         is_nack = (et == EV_NACK) | (et == EV_OOO)
+        if hosty:
+            # a dead source host loses its returning ACKs and NACKs on
+            # arrival (consumed from the ring: nothing replays at heal)
+            lane_src_dead = src_dead.gather(-1, ef.clamp(0, F - 1).long())
+            is_ack = is_ack & ~lane_src_dead
+            is_nack = is_nack & ~lane_src_dead
         # at most one ACK lane per flow per tick: one [B, F, E] one-hot
         # densifies every ACK-driven update to [B, F] / [B, F, W] work
         own = ef[:, None, :] == flow_ids[:, None]
@@ -453,6 +505,23 @@ def make_step(g: QueueGraph, profile: TransportProfile, p: SimParams, F: int,
         has_ack = hot_ack.any(dim=-1)
         nack_count = hot_nack.sum(dim=-1, dtype=I32)
         ack_psn = _pick(hot_ack, ep)
+        if evict_on:
+            # trim NACKs implicate the path EV they carry (OOO NACKs are
+            # gap reports, not path evidence; ROD lanes evict on timeout
+            # only). Several may hit one flow in a tick: the reference
+            # takes the max EV, here a scatter-max into each scenario's
+            # flow rows (a discard row past them) instead of a [B, F, E]
+            # pass; max is order-free, so the result is exact.
+            tn = is_nack & (et == EV_NACK) & (ef >= 0) & (ef < F)
+            rows = torch.where(tn, bc["flow0"] + ef, B * F).long()
+            nack_ev = torch.full((B * F + 1,), -1, **i32).scatter_reduce_(
+                0, rows.reshape(-1), ee.reshape(-1), "amax")
+            nack_ev = nack_ev[:B * F].view(B, F)
+            hit = torch.zeros((B * F + 1,), dtype=torch.bool, device=dev)
+            hit[rows.reshape(-1)] = True
+            nack_evict = hit[:B * F].view(B, F)
+            if any_rod:
+                nack_evict = nack_evict & ~rod_mask
 
         # ACKs: record at source, advance CACK, shift the rtx ring in
         # lockstep, and clear the ACKed PSN's pending retransmit bit
@@ -482,10 +551,11 @@ def make_step(g: QueueGraph, profile: TransportProfile, p: SimParams, F: int,
         lbs = lb_pol.on_ack(s.lb, hot_ack, ef, ee, ec, is_ack, is_nack,
                             flow_ok=(~rod_mask) if mixed_rod else None)
 
-        # progress clock: any ACK freshens the flow (the RTO lane stays
-        # at its base value: backoff is not ported)
+        # progress clock: any ACK freshens the flow; with backoff on, it
+        # also resets the flow's RTO to its base value
         last_progress = torch.where(has_ack, tick, s.last_progress)
-        rto = s.rto
+        rto = (torch.where(has_ack, p.timeout_ticks, s.rto)
+               if backoff_on else s.rto)
 
         # NACKs (trim / OOO): mark the PSN for selective retransmit (RUD;
         # ROD rewinds instead, section 3). Lanes [Q, E) are the
@@ -541,6 +611,9 @@ def make_step(g: QueueGraph, profile: TransportProfile, p: SimParams, F: int,
         safe_dep = torch.where(wl.dep >= 0, wl.dep, 0).long()
         dep_ok = (wl.dep < 0) | done.gather(-1, safe_dep)
         active = ~done & (tick >= wl.start) & dep_ok
+        if pdc_on:
+            # a torn-down PDC holds no receiver credit claim
+            active = active & ~s.quarantined
         cc_st = cc_pol.on_grant_tick(cc_st, flow_dst, active, H)
 
         # --------------------------------------------------- 3. injection
@@ -558,6 +631,8 @@ def make_step(g: QueueGraph, profile: TransportProfile, p: SimParams, F: int,
         timeout_rod = bc["no_f"]
         if any_rod:
             timeout_rod = (inflight > 0) & overdue
+            if pdc_on:
+                timeout_rod = timeout_rod & ~s.quarantined
             rewind = rod_gbn | timeout_rod
             if mixed_rod:
                 rewind = rewind & rod_mask
@@ -577,6 +652,12 @@ def make_step(g: QueueGraph, profile: TransportProfile, p: SimParams, F: int,
         can_new = (next_psn < wl.size) & mp_ok
         eligible = ((tick >= wl.start) & ~done & dep_ok & win_ok
                     & (has_rtx | can_new))
+        if hosty:
+            # frozen injectors: dead source hosts and stalled NICs
+            eligible = eligible & ~inj_frozen
+        if pdc_on:
+            # a quarantined flow gets no retransmit bandwidth
+            eligible = eligible & ~s.quarantined
 
         # fair per-host pick: per-tick pseudo-random rotation, flow id in
         # the low bits so exactly one winner exists per host
@@ -606,6 +687,11 @@ def make_step(g: QueueGraph, profile: TransportProfile, p: SimParams, F: int,
         next_psn = torch.where(injected & ~use_rtx, next_psn + 1, next_psn)
         lbs = _where_rows(injected & ~rod_mask if mixed_rod else injected,
                           lbs2, lbs)
+        if evict_on:
+            # each flow's most recent EV: the path a later RTO implicates
+            # (ROD lanes included, whose pinned EV skips the commit above)
+            lbs = replace(lbs, last_ev=torch.where(injected, ev_sel,
+                                                   lbs.last_ev))
         inflight = inflight + injected.to(I32)
         cc_st = cc_pol.on_inject(cc_st, injected)
         retransmits = s.retransmits + use_rtx.sum(dim=-1, dtype=I32)
@@ -614,6 +700,15 @@ def make_step(g: QueueGraph, profile: TransportProfile, p: SimParams, F: int,
         nonempty = s.q_len > 0
         # with the link layer off every nonempty queue transmits its head
         txq = leaves = nonempty
+        if corrupty:
+            # per-transmission BER draw hashed from (seed, tick, queue),
+            # a stream independent of the gray-link draw; without the
+            # link layer's replay the corrupted frame leaves its queue
+            # and dies on the wire, a silent drop charged here
+            uc = _mix32(_mix32(c32(tick) ^ fault.seed[:, None]
+                               * c32(0x85EBCA77)) ^ queue_mix)
+            corrupt_lost = txq & ult(uc, loss_threshold(fault.corrupt_p))
+            txq = txq & ~corrupt_lost
         head_pkt = s.q_pkt.gather(
             2, s.q_head.long()[:, :, None, None].expand(B, Q, 1, PKT_FIELDS)
         )[:, :, 0]
@@ -629,6 +724,12 @@ def make_step(g: QueueGraph, profile: TransportProfile, p: SimParams, F: int,
         nq = rt.route_step(qidx, flow_src.gather(-1, safe_pf),
                            flow_dst.gather(-1, safe_pf), pe)
         deliver = txq & (nq == DELIVERED)
+        if hosty:
+            # packets dequeued toward a dead destination vanish at its
+            # NIC (the dead-queue mask only eats enqueues): silent drops,
+            # and no ACK
+            dst_gone = deliver & dst_dead.gather(-1, safe_pf)
+            deliver = deliver & ~dst_gone
         forward = txq & (nq >= 0)
 
         # --------------------------------------------- 5. delivery at FEPs
@@ -701,6 +802,14 @@ def make_step(g: QueueGraph, profile: TransportProfile, p: SimParams, F: int,
         # failed links (outage window): packets routed into them vanish
         is_dead = dead.gather(-1, safe_cq) & cvalid
         cvalid = cvalid & ~is_dead
+        if lossy:
+            # gray links: a counter-hash draw per (seed, tick, enqueue
+            # lane), compared unsigned with the lane's target threshold
+            u = _mix32(_mix32(c32(tick) ^ fault.seed[:, None]
+                              * c32(0x9E3779B1)) ^ lane_mix)
+            is_lost = cvalid & ult(u, loss_threshold(fault.loss_p)
+                                   .gather(-1, safe_cq))
+            cvalid = cvalid & ~is_lost
         pos, _ = _rank_within(cand_q, cvalid, q_len, lower)
         fits = cvalid & (pos < C)
         overflow = cvalid & ~fits
@@ -728,8 +837,14 @@ def make_step(g: QueueGraph, profile: TransportProfile, p: SimParams, F: int,
         else:
             trims, drops = s.trims, s.drops + n_over
             nack_mask = torch.zeros_like(overflow)
-        # failed links drop silently: no trim header, no NACK
+        # failed and gray links drop silently: no trim header, no NACK
         drops = drops + is_dead.sum(dim=-1, dtype=I32)
+        if lossy:
+            drops = drops + is_lost.sum(dim=-1, dtype=I32)
+        if corrupty:
+            drops = drops + corrupt_lost.sum(dim=-1, dtype=I32)
+        if hosty:
+            drops = drops + dst_gone.sum(dim=-1, dtype=I32)
 
         # ------------------------------------------- 8. schedule control TC
         out_slot = (tick + p.ack_return_ticks) % D
@@ -763,6 +878,15 @@ def make_step(g: QueueGraph, profile: TransportProfile, p: SimParams, F: int,
             # RTO (a silent loss can drain inflight to 0 with gaps open)
             unacked = src_track.base < next_psn
             stalled = ((inflight > 0) | unacked) & overdue & ~done
+            if hosty:
+                # a dead endpoint arms the RTO itself (a frozen source
+                # never sends, so `unacked` cannot), so strikes accrue
+                # and the teardown fires; NIC stalls are excluded
+                stalled = stalled | ((src_dead | dst_dead) & overdue
+                                     & ~done)
+            if pdc_on:
+                # a torn-down PDC stops timing out (and striking)
+                stalled = stalled & ~s.quarantined
             if mixed_rod:
                 stalled = stalled & ~rod_mask  # ROD timeouts rewind instead
             # offset 0 == oldest unacked
@@ -776,10 +900,52 @@ def make_step(g: QueueGraph, profile: TransportProfile, p: SimParams, F: int,
         cc_st = cc_pol.end_of_tick(cc_st, tick)
 
         # ---------------------------------------- 10. recovery loop lanes
-        # (backoff, eviction and PDC teardown are not ported: the
-        # counters below are the whole section under the ported statics)
+        if backoff_on:
+            # exponential backoff on expiry: an f32 multiply, truncated
+            # to int32 as XLA's convert does, capped
+            rto = torch.where(
+                timeout_fire,
+                torch.clamp((rto.to(torch.float32) * backoff).to(I32),
+                            max=rto_cap),
+                rto)
+        ev_evictions = s.ev_evictions
+        if evict_on:
+            # a trim NACK implicates the EV it carries (any scheme); an
+            # RTO the flow's last EV, only where selection is pinned
+            # (STATIC, incl. the all-ROD pin, and ROD lanes of mixed
+            # profiles): a sprayed lane's last EV is just its last draw
+            if lb_pol.scheme == LBScheme.STATIC:
+                timeout_evict = timeout_fire
+            elif mixed_rod:
+                timeout_evict = timeout_fire & rod_mask
+            else:
+                timeout_evict = bc["no_f"]
+            evict_ev = torch.where(nack_evict, nack_ev, lbs.last_ev)
+            evict_valid = (nack_evict | timeout_evict) & (evict_ev >= 0)
+            lbs = lb_pol.evict(lbs, evict_ev, evict_valid)
+            ev_evictions = ev_evictions + evict_valid.sum(dim=-1, dtype=I32)
         timeouts = s.timeouts + timeout_fire.sum(dim=-1, dtype=I32)
         ticks_degraded = s.ticks_degraded + dead.any(dim=-1).to(I32)
+        rto_strikes, quarantined = s.rto_strikes, s.quarantined
+        flows_abandoned = s.flows_abandoned
+        ticks_unreachable = s.ticks_unreachable
+        if pdc_on:
+            # PDC liveness teardown: consecutive zero-progress RTOs are
+            # strikes (any ACK resets them); at pdc_dead_after the flow
+            # is quarantined: no retransmit bandwidth, no more expiries,
+            # settled for quiescence. Its dependents can never start, so
+            # the dependency chain collapses one hop per tick.
+            rto_strikes = (torch.where(has_ack, 0, s.rto_strikes)
+                           + timeout_fire.to(I32))
+            live = ~s.quarantined & ~done
+            newly = live & (unreachable(rto_strikes, profile.pdc_dead_after)
+                            | ((wl.dep >= 0)
+                               & s.quarantined.gather(-1, safe_dep)))
+            quarantined = s.quarantined | newly
+            inflight = torch.where(quarantined, 0, inflight)
+            flows_abandoned = flows_abandoned + newly.sum(dim=-1, dtype=I32)
+            ticks_unreachable = (ticks_unreachable
+                                 + quarantined.any(dim=-1).to(I32))
 
         ns = SimState(
             q_pkt=q_pkt, q_head=q_head, q_len=q_len,
@@ -789,7 +955,10 @@ def make_step(g: QueueGraph, profile: TransportProfile, p: SimParams, F: int,
             last_ooo_nack=last_ooo_nack, cc=cc_st, lb=lbs, ev_buf=ev_buf,
             delivered=delivered_ctr, trims=trims, drops=drops, dups=dups,
             rod_rejects=rod_rejects, retransmits=retransmits, rto=rto,
-            timeouts=timeouts, ticks_degraded=ticks_degraded,
+            timeouts=timeouts, ev_evictions=ev_evictions,
+            ticks_degraded=ticks_degraded, rto_strikes=rto_strikes,
+            quarantined=quarantined, flows_abandoned=flows_abandoned,
+            ticks_unreachable=ticks_unreachable,
         )
         out = {
             "delivered": fresh_f.to(I32),
@@ -833,6 +1002,7 @@ class SimResult:
     stat_win_delivered: "np.ndarray | None" = None   # [F] packets in window
     goodput_window: "tuple[int, int] | None" = None
     qlen_peak: "int | None" = None
+    stat_abandon_tick: "int | None" = None  # first teardown tick or -1
 
     def completion_ticks(self) -> np.ndarray:
         """Per-flow first tick by which the full message was delivered
@@ -905,9 +1075,38 @@ class SimResult:
         return int(self.state.retransmits)
 
     @property
+    def ev_evictions(self) -> int:
+        """Path (EV) evictions by the recovery loop (0 unless the profile
+        sets ``ev_eviction``)."""
+        return int(self.state.ev_evictions)
+
+    @property
     def ticks_degraded(self) -> int:
-        """Executed ticks during which at least one link was dead."""
+        """Executed ticks during which at least one link or host was
+        dead."""
         return int(self.state.ticks_degraded)
+
+    @property
+    def flows_abandoned(self) -> int:
+        """Flows whose PDC was declared unreachable and torn down (0
+        unless the profile sets ``pdc_dead_after``)."""
+        return int(self.state.flows_abandoned)
+
+    @property
+    def ticks_unreachable(self) -> int:
+        """Executed ticks during which at least one flow sat
+        quarantined."""
+        return int(self.state.ticks_unreachable)
+
+    @property
+    def abandon_tick(self) -> int:
+        """First tick at which any PDC teardown fired (-1 = none);
+        streamed on the ``trace="stats"`` tier only."""
+        if self.stat_abandon_tick is None:
+            raise ValueError(
+                "abandon_tick is streamed on the trace='stats' tier "
+                "only; rerun with trace='stats'")
+        return int(self.stat_abandon_tick)
 
 
 # --------------------------------------------------------------------------
@@ -915,10 +1114,11 @@ class SimResult:
 # --------------------------------------------------------------------------
 
 def _quiescent(s: SimState, wl: Workload) -> torch.Tensor:
-    """Per-scenario quiescence ([B] bool): every source CACK-complete,
-    nothing inflight, all queues empty and the control-TC ring drained.
-    Once it holds no later tick can make protocol progress."""
-    done = (s.src_track.base >= wl.size).all(dim=-1)
+    """Per-scenario quiescence ([B] bool): every source CACK-complete or
+    quarantined (a torn-down PDC can make no progress), nothing
+    inflight, all queues empty and the control-TC ring drained. Once it
+    holds no later tick can make protocol progress."""
+    done = ((s.src_track.base >= wl.size) | s.quarantined).all(dim=-1)
     idle = (s.inflight == 0).all(dim=-1) & (s.q_len == 0).all(dim=-1)
     drained = (s.ev_buf[..., EVF_TYPE] == EV_NONE).flatten(1).all(dim=-1)
     return done & idle & drained
@@ -929,7 +1129,8 @@ def _stats_init(B: int, F: int, device) -> dict:
     return {"comp": torch.full((B, F), -1, **i32),
             "src_comp": torch.full((B, F), -1, **i32),
             "win_delivered": torch.zeros((B, F), **i32),
-            "qlen_peak": torch.zeros((B,), **i32)}
+            "qlen_peak": torch.zeros((B,), **i32),
+            "abandon_tick": torch.full((B,), -1, **i32)}
 
 
 def _stats_update(st: dict, prev: SimState, s: SimState, wl: Workload,
@@ -947,6 +1148,10 @@ def _stats_update(st: dict, prev: SimState, s: SimState, wl: Workload,
             st["src_comp"]),
         "win_delivered": win,
         "qlen_peak": torch.maximum(st["qlen_peak"], s.q_len.amax(dim=-1)),
+        # first tick any PDC teardown fired (-1: none)
+        "abandon_tick": torch.where(
+            (st["abandon_tick"] < 0) & (s.flows_abandoned > 0), tick,
+            st["abandon_tick"]),
     }
 
 
@@ -1036,7 +1241,9 @@ def _results(s: SimState, st, chunks, horizon, sizes: np.ndarray,
             stat_win_delivered=host["win_delivered"][b],
             goodput_window=(None if goodput_window is None
                             else tuple(int(w) for w in goodput_window)),
-            qlen_peak=int(host["qlen_peak"][b])) for b in range(B)]
+            qlen_peak=int(host["qlen_peak"][b]),
+            stat_abandon_tick=int(host["abandon_tick"][b]))
+            for b in range(B)]
     if chunks:
         full = {k: np.concatenate([c[k] for c in chunks]) for k in _FULL_LANES}
     else:      # a zero budget runs no tick
@@ -1067,7 +1274,10 @@ def _run_batch(g: QueueGraph, wls: Workload, profile: TransportProfile,
     F = int(wls.src.shape[1])
     profile.delivery_modes(F)  # validate per-flow tuples early
     wls = wls.to(dev)
-    step = make_step(g, profile, p, F, device=dev)
+    # the schedule's fault classes are statics of the tick
+    step = make_step(g, profile, p, F, lossy=fault.has_loss,
+                     hosty=fault.has_host_faults,
+                     corrupty=fault.has_corruption, device=dev)
     s0 = init_state(g, wls, profile, p, seeds, device=dev)
     w0, w1 = (0, budget) if goodput_window is None else map(int,
                                                             goodput_window)
@@ -1077,25 +1287,51 @@ def _run_batch(g: QueueGraph, wls: Workload, profile: TransportProfile,
                     trace, goodput_window)
 
 
+def _normalize_call(profile, p):
+    """The public (profile, params) pair as the engine takes it, as the
+    reference's ``_normalize_call`` does: the pre-profile form
+    ``simulate(g, wl, SimParams(...))`` warns and runs ``ai_full()``;
+    ``None`` means ``ai_full()`` / ``SimParams()``."""
+    if isinstance(profile, SimParams):
+        if p is not None:
+            raise TypeError("got SimParams in the profile position AND a "
+                            "params argument — pass (profile, params)")
+        warnings.warn(
+            "simulate(g, wl, SimParams(...)) is deprecated: pass the "
+            "transport composition explicitly — "
+            "simulate(g, wl, TransportProfile.ai_full(), SimParams(...))",
+            DeprecationWarning, stacklevel=3)
+        return TransportProfile.ai_full(), profile
+    return (TransportProfile.ai_full() if profile is None else profile,
+            SimParams() if p is None else p)
+
+
 def simulate(g: QueueGraph, wl: Workload,
-             profile: "TransportProfile | None" = None,
+             profile: "TransportProfile | SimParams | None" = None,
              p: "SimParams | None" = None, *, seed: int = DEFAULT_SEED,
              failed=None, faults: "FaultSchedule | None" = None,
              trace: str = "stats", max_ticks: "int | None" = None,
              goodput_window: "tuple[int, int] | None" = None,
-             device=None) -> SimResult:
+             telemetry=None, link=None, device=None) -> SimResult:
     """Run one scenario for at most ``max_ticks`` (default p.ticks),
     exiting at the first chunk boundary where it is quiescent: the B = 1
     case of :func:`simulate_batch`, through the same tick.
 
-    profile: the transport composition (defaults to ai_full()).
+    profile: the transport composition (defaults to ai_full()); a
+             SimParams here takes the deprecated pre-profile form (warns,
+             runs ai_full()).
     failed:  queue ids or a [Q] bool mask of dead links; ``faults``: a
-             [Q] link-outage :class:`FaultSchedule` (mutually exclusive).
+             [Q] :class:`FaultSchedule` (link flaps, gray links, PHY
+             corruption, host deaths and NIC stalls; mutually exclusive
+             with ``failed``).
     trace:   "stats" (streamed stat lanes) or "full" (dense per-tick
              lanes, copied to the host once per chunk).
+    telemetry / link: not ported (raise ``NotImplementedError`` naming
+             their ROADMAP.md item).
     device:  where the run lives: ``cuda`` unless given (``"cpu"`` runs
              the plain PyTorch path, as the tests do).
     """
+    profile, p = _normalize_call(profile, p)
     if wl.src.dim() != 1:
         raise ValueError(f"simulate runs one [F] workload, got "
                          f"{tuple(wl.src.shape)}; use simulate_batch")
@@ -1108,7 +1344,8 @@ def simulate(g: QueueGraph, wl: Workload,
     return simulate_batch(
         g, Workload.stack([wl]), profile, p, failed=failed, faults=faults,
         seeds=[seed], trace=trace, max_ticks=max_ticks,
-        goodput_window=goodput_window, device=device)[0]
+        goodput_window=goodput_window, telemetry=telemetry, link=link,
+        device=device)[0]
 
 
 def simulate_batch(g, wls, profile=None, p: "SimParams | None" = None, *,
@@ -1129,10 +1366,11 @@ def simulate_batch(g, wls, profile=None, p: "SimParams | None" = None, *,
              groups run one after another on the device and the results
              come back in scenario order.
     failed:  a [B, Q] bool mask, one [Q] mask, or queue ids (broadcast);
-    faults:  a [B, Q] or [Q] (broadcast) link-outage
+    faults:  a [B, Q] / [B, H] or [Q] / [H] (broadcast)
              :class:`FaultSchedule`. Mutually exclusive; with
              per-scenario graphs of different queue counts, neither may
-             be given.
+             be given. The schedule decides the fault statics of each
+             (graph, profile) group's tick.
     seeds:   [B] per-scenario LB/EV seeds (default DEFAULT_SEED each).
     trace / max_ticks / goodput_window: as in :func:`simulate`. Each
              scenario stops at its own chunk boundary; a group runs
@@ -1166,15 +1404,14 @@ def simulate_batch(g, wls, profile=None, p: "SimParams | None" = None, *,
         if not all(isinstance(q, TransportProfile) for q in profiles):
             raise TypeError("per-scenario profiles must all be "
                             "TransportProfile instances")
-    profile = TransportProfile.ai_full() if profile is None else profile
-    p = SimParams() if p is None else p
+    profile, p = _normalize_call(profile, p)
     if trace not in TRACE_MODES:
         raise ValueError(f"unknown trace tier {trace!r}; choose from "
                          f"{TRACE_MODES}")
     if p.chunk_ticks < 1:
         raise ValueError(f"chunk_ticks must be >= 1, got {p.chunk_ticks}")
     for q in profiles or [profile]:
-        _check_statics(q, False, telemetry, False, False, link)
+        _check_statics(q, telemetry, link)
     budget = int(p.ticks if max_ticks is None else max_ticks)
     B, F = (int(d) for d in wls.src.shape)
     if graphs is not None and len(graphs) != B:
@@ -1192,7 +1429,7 @@ def simulate_batch(g, wls, profile=None, p: "SimParams | None" = None, *,
             "failed=/faults= with per-scenario topologies requires all "
             "graphs to share num_queues — run unequal groups separately")
     fault = None if mixed_q else as_schedule(g.num_queues, failed, faults,
-                                             B)
+                                             B, g_num_hosts=g.num_hosts)
     if profiles is None and graphs is None:
         return _run_batch(g, wls, profile, p, fault, seeds, trace, budget,
                           goodput_window, dev)

@@ -17,10 +17,10 @@ expectations encode the paper's quantitative claims:
 * permutation: all-to-all-shifted full-rate traffic — the spraying /
   polarization benchmark (Sec. 2.1).
 
-Not here yet: ``collective_sweep`` (it needs INC and the collective
-builders, ROADMAP.md "Modules to port" item 7) and ``fault_sweep``,
-``host_fault_sweep`` and ``corruption_sweep`` (gray links, host lanes
-and PHY corruption, item 6).
+The fault grids (``fault_sweep``, ``host_fault_sweep``,
+``corruption_sweep``) return [B, Q] / [B, H] fault schedules beside the
+workloads. Not here yet: ``collective_sweep`` (it needs INC and the
+collective builders, ROADMAP.md "Modules to port" item 7).
 """
 from __future__ import annotations
 
@@ -29,7 +29,10 @@ from dataclasses import fields, replace
 import numpy as np
 import torch
 
-from repro_torch.network.fabric import Workload
+from repro_torch.core.lb.schemes import LBScheme
+from repro_torch.core.link import LinkConfig
+from repro_torch.network.fabric import SimParams, Workload
+from repro_torch.network.faults import FaultSchedule
 from repro_torch.network.profile import CCAlgo, TransportProfile, cc_ablation
 from repro_torch.network.topology import fat_tree3, leaf_spine
 
@@ -127,6 +130,100 @@ def failure_sweep(spines: int = 4, hosts_per_leaf: int = 8,
         "healthy_share": min(1.0, spines / f),
         "degraded_share": live * spines / f,  # (S-1) live uplinks over F flows
     }
+
+
+def fault_sweep(spines: int = 4, hosts_per_leaf: int = 8, size: int = 600,
+                flap_at: int = 150, heal_at: int = 1200, gray_p: float = 0.05):
+    """The dynamic-fault grid as one batch, over cross-leaf pairs sharing
+    leaf 0's uplinks: 0 healthy; 1 one uplink flaps over [flap_at,
+    heal_at); 2 two uplinks flap, the second offset by half the window;
+    3 one gray uplink losing ``gray_p``; 4 one losing ``4 * gray_p``; 5
+    one uplink dies at ``flap_at`` for good. Every scenario keeps a
+    healthy uplink, so with a sane transport every flow completes.
+    Returns (g, wls [6, F], faults [6, Q], expectations)."""
+    g = leaf_spine(leaves=2, spines=spines, hosts_per_leaf=hosts_per_leaf)
+    f = hosts_per_leaf
+    wl = Workload.of(list(range(f)), [f + i for i in range(f)], size)
+    ups = [int(g.up1_table[0, i]) for i in range(spines)]
+    mid = flap_at + (heal_at - flap_at) // 2
+    healthy = FaultSchedule.healthy(g.num_queues)
+    scheds = [
+        healthy,
+        healthy.flap(ups[0], flap_at, heal_at),
+        healthy.flap(ups[0], flap_at, heal_at).flap(ups[1], mid,
+                                                    mid + (heal_at - flap_at)),
+        healthy.lossy(ups[0], gray_p),
+        healthy.lossy(ups[0], min(1.0, 4 * gray_p)),
+        healthy.flap(ups[0], flap_at),
+    ]
+    names = ["healthy", "flap_1", "flap_2_staggered", f"gray_{gray_p:g}",
+             f"gray_{min(1.0, 4 * gray_p):g}", "dead_mid"]
+    wls = Workload.stack([wl] * len(scheds))
+    return g, wls, FaultSchedule.stack(scheds), {
+        "names": names,
+        "surviving_uplinks_min": spines - 2,  # scenario 2's worst moment
+    }
+
+
+def host_fault_sweep(spines: int = 4, hosts_per_leaf: int = 4,
+                     size: int = 600, fail_at: int = 100,
+                     stall_heal: int = 800, budget: int = 6000):
+    """The endpoint-failure grid as one batch under the ``resilient``
+    profile's PDC liveness teardown, over cross-leaf pairs (flow i:
+    leaf-0 host i -> leaf-1 host i): 0 ``host_dead`` (flow 1's source
+    and flow 0's destination die at ``fail_at`` for good: both flows
+    must be abandoned and the run quiesce early); 1 the same under a
+    ``pdc_dead_after=0`` twin (burns the budget); 2 ``nic_stall``
+    (flow 0's source NIC frozen over [fail_at, stall_heal), ACK-live:
+    nothing abandoned); 3 ``healthy``. Returns (g, wls [4, F], faults
+    [4, Q] / [4, H], expectations) with ``["profile"]`` the
+    per-scenario profile list, ``["dead_flows"]`` and ``["budget"]``."""
+    g = leaf_spine(leaves=2, spines=spines, hosts_per_leaf=hosts_per_leaf)
+    f = hosts_per_leaf
+    wl = Workload.of(list(range(f)), [f + i for i in range(f)], size)
+    prof = TransportProfile.resilient()
+    prof_off = replace(prof, pdc_dead_after=0, name="resilient-pdc_off")
+    healthy = FaultSchedule.healthy(g.num_queues, num_hosts=g.num_hosts)
+    dead = healthy.host_fail([1, f], fail_at)   # flow 1 src, flow 0 dst
+    stall = healthy.nic_stall(0, fail_at, stall_heal)
+    scheds = [dead, dead, stall, healthy]
+    names = ["host_dead", "host_dead_pdc_off", "nic_stall", "healthy"]
+    wls = Workload.stack([wl] * len(scheds))
+    return g, wls, FaultSchedule.stack(scheds), {
+        "names": names,
+        "profile": [prof, prof_off, prof, prof],
+        "dead_flows": (0, 1),
+        "budget": budget,
+    }
+
+
+def corruption_sweep(bers=(0.0, 0.01, 0.03, 0.08), pairs: int = 4,
+                     uplinks: int = 2, size: int = 400, budget: int = 6000):
+    """The link-corruption grid as one batch: the victim-share pattern
+    (:func:`victim_sweep`) with a per-scenario bit-error rate on leaf
+    0's uplinks, the BER axis of the BER x LLR-on/off grid. LLR is the
+    ``link=`` static (``exp["link"]``), which the port does not run yet
+    (ROADMAP.md item 8): only the LLR-off arm runs here, where
+    corruption leaks into end-to-end recovery. The BER = 0 lane is the
+    inertness anchor. Returns (g, wls [B, F], faults [B, Q],
+    expectations) with ``["link"]`` / ``["cbfc"]`` the two link specs,
+    ``["params"]`` the shared SimParams, ``["profile"]``, ``["bers"]`` /
+    ``["names"]``, ``["uplinks"]`` and ``["budget"]``."""
+    g, wl, exp = victim_sweep(pairs, uplinks, size=size)
+    healthy = FaultSchedule.healthy(g.num_queues)
+    scheds = [healthy.corrupt(exp["uplinks"], ber) if ber else healthy
+              for ber in bers]
+    wls = Workload.stack([wl] * len(scheds))
+    return g, wls, FaultSchedule.stack(scheds), dict(
+        exp,
+        names=[f"ber_{ber:g}" for ber in bers],
+        bers=tuple(float(b) for b in bers),
+        link=LinkConfig.on(llr=True),
+        cbfc=LinkConfig.on(llr=True, cbfc=True),
+        params=SimParams(ticks=budget, timeout_ticks=256, ooo_threshold=24),
+        profile=TransportProfile.ai_full(lb=LBScheme.REPS),
+        budget=budget,
+    )
 
 
 def size_sweep(sizes, fan_in: int = 4):

@@ -46,7 +46,8 @@ SIZES = (16, 100, 64, 100)            # lane 0 quiesces chunks before the rest
 SEEDS = (0x5EED, 0xFFFFFFF0, 0x5EED + 2, 0x80000001)
 PARAMS = dict(ticks=400, chunk_ticks=64, timeout_ticks=64, ooo_threshold=24)
 STATS = ("trims", "drops", "dups", "timeouts", "rtx_packets",
-         "ticks_degraded")
+         "ticks_degraded", "ev_evictions", "flows_abandoned",
+         "ticks_unreachable")
 
 
 def _graphs():
@@ -110,6 +111,7 @@ def assert_same_results(port, jax_):
                                               err_msg=f"lane {b} {k}")
             assert r.qlen_peak == j.qlen_peak and \
                 r.goodput_window == j.goodput_window, b
+            assert r.abandon_tick == j.abandon_tick, b
         _assert_state_matches(r.state, j.state)
         for stat in STATS:
             assert getattr(r, stat) == getattr(j, stat), (b, stat)
@@ -340,10 +342,17 @@ def test_fault_schedule_builders_match_reference():
             np.testing.assert_array_equal(d[k], np.asarray(getattr(want, k)))
         np.testing.assert_array_equal(got.dead_at(6).numpy(),
                                       np.asarray(want.dead_at(6)))
-    with pytest.raises(NotImplementedError, match="item 6"):
-        FaultSchedule.healthy(Q).lossy([q], 0.1)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        FaultSchedule.healthy(Q).corrupt([q], 0.1)
+    # the gray-link and BER lanes and the seed (ROADMAP.md item 6)
+    got = FaultSchedule.healthy(Q, batch=2, seed=7).lossy([q], 0.1) \
+        .corrupt(2, 0.03).with_seed([1, 0xFFFFFFFF])
+    want = jfaults.FaultSchedule.healthy(Q, batch=2, seed=7).lossy(
+        [q], 0.1).corrupt(2, 0.03).with_seed(np.asarray([1, 0xFFFFFFFF],
+                                                        np.uint32))
+    d = convert.faults_to_numpy(got)
+    for f in dataclasses.fields(jfaults.FaultSchedule):
+        w = np.asarray(getattr(want, f.name))
+        assert d[f.name].dtype == w.dtype, f.name
+        np.testing.assert_array_equal(d[f.name], w, err_msg=f.name)
 
 
 def _lane_case(B, F, W, L):

@@ -13,7 +13,8 @@ the CPU (plain kernel versions):
 * a handover: the reference's state after 128 ticks, carried across with
   ``repro_torch.convert`` as a [1, F] batch, stepped one chunk by the
   port;
-* the statics the port does not carry yet raising.
+* the statics the port does not carry yet raising, alone and beside
+  the fault statics it does.
 """
 import dataclasses
 import os
@@ -239,22 +240,44 @@ def _k6_step(profile=None, **statics):
 
 
 @pytest.mark.parametrize("statics", [
-    dict(lossy=True), dict(hosty=True), dict(corrupty=True),
+    dict(lossy=True, tel=object()), dict(hosty=True, link=object()),
+    dict(corrupty=True, tel=object()),
     dict(tel=object()), dict(link=object())])
 def test_unported_statics_raise(statics):
+    """Telemetry and the link layer raise, also beside the fault statics
+    (gray loss, host faults, corruption), which build."""
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         _k6_step(**statics)
 
 
 @pytest.mark.parametrize("profile", [
     TransportProfile.ai_full(inc=True),
-    TransportProfile.ai_full(rto_backoff=2.0),
-    TransportProfile.ai_full(ev_eviction=True),
-    TransportProfile.ai_full(pdc_dead_after=4),
-    TransportProfile.resilient()], ids=lambda q: repr(q))
+    TransportProfile.resilient(inc=True)], ids=lambda q: repr(q))
 def test_unported_profiles_raise(profile):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         _k6_step(profile)
+
+
+@pytest.mark.parametrize("profile", [
+    TransportProfile.ai_full(rto_backoff=2.0),
+    TransportProfile.ai_full(ev_eviction=True),
+    TransportProfile.ai_full(pdc_dead_after=4),
+    TransportProfile.resilient()], ids=lambda q: q.describe())
+@pytest.mark.parametrize("statics", [
+    dict(), dict(lossy=True, hosty=True, corrupty=True)],
+    ids=["healthy", "faulted"])
+def test_recovery_statics_build(profile, statics):
+    """The recovery knobs and the fault statics build a tick (ROADMAP.md
+    item 6) that steps a healthy k=6 state."""
+    step = _k6_step(profile, **statics)
+    g = fat_tree3(k=6, pods=3)
+    wl = tf.Workload.stack([tf.Workload.of(K6_SRC, K6_DST, K6_SIZE)])
+    s = tf.init_state(g, wl, profile, tf.SimParams(), device="cpu")
+    fault = tf.FaultSchedule.healthy(g.num_queues, batch=1,
+                                     num_hosts=g.num_hosts)
+    s2, out = step(s, 0, wl, fault)
+    assert out["delivered"].shape == (1, len(K6_SRC))
+    assert int(s2.flows_abandoned) == 0 and not s2.quarantined.any()
 
 
 def test_convert_refuses_a_live_unported_lane():
@@ -262,13 +285,18 @@ def test_convert_refuses_a_live_unported_lane():
                        jf.Workload.of(K6_SRC, K6_DST, K6_SIZE),
                        JProfile.ai_full(), jf.SimParams())
     d = _jax_dict(js)
+    d["credit_stall_ticks"] = np.int32(3)
+    with pytest.raises(NotImplementedError, match="credit_stall_ticks"):
+        convert.state_from_numpy(d, "cpu")
+    # the recovery lanes and every fault lane cross now (item 6)
+    d = _jax_dict(js)
     d["quarantined"] = d["quarantined"].copy()
     d["quarantined"][3] = True
-    with pytest.raises(NotImplementedError, match="quarantined"):
-        convert.state_from_numpy(d, "cpu")
-    lossy = _jax_dict(JFaults.healthy(135).lossy([4], 0.1))
-    with pytest.raises(NotImplementedError, match="loss_p"):
-        convert.faults_from_numpy(lossy, "cpu")
+    s = convert.state_from_numpy(d, "cpu")
+    assert bool(s.quarantined[3]) and int(s.quarantined.sum()) == 1
+    lossy = _jax_dict(JFaults.healthy(135, seed=0xFFFFFFF0).lossy([4], 0.1))
+    f = convert.faults_from_numpy(lossy, "cpu")
+    _assert_same_tree(convert.faults_to_numpy(f), lossy)
 
 
 def test_entry_points_run_on_cuda_unless_told_otherwise():

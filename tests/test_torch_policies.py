@@ -1,8 +1,9 @@
 """Bitwise parity of the port's transport policies with the reference:
 the NSCC hooks and Quick Adapt (the f32 ``cwnd`` lane included), LB
 selection and feedback for STATIC, OBLIVIOUS and REPS, the named
-profiles, and what stays unported (EV eviction, and the recovery
-statics beside each CC composition) raising. RCCC, the hybrid, the open
+profiles, EV eviction and the recovery statics building beside each CC
+composition, and what stays unported (INC, the lane-wise REPS feedback)
+raising. RCCC, the hybrid, the open
 loop, RR_SLOTS and EVBITMAP are held in ``test_torch_profile_policies.py``.
 """
 from dataclasses import fields, replace
@@ -173,8 +174,9 @@ def test_named_profiles_match(name):
 
 @pytest.mark.parametrize("cc", ["RCCC", "NSCC_AND_RCCC", "NONE"])
 def test_unported_cc_raises(cc):
-    """Every CC composition is built now; what stays unported beside it
-    is the recovery loop (ROADMAP.md item 6), which still raises."""
+    """Every CC composition is built now, with the recovery loop
+    (ROADMAP.md item 6) too; what stays unported beside it is INC
+    (item 7), which still raises."""
     from repro_torch.network import fabric
     from repro_torch.network.topology import leaf_spine
     algo = profile.CCAlgo[cc]
@@ -184,18 +186,23 @@ def test_unported_cc_raises(cc):
     g = leaf_spine(2, 2, 2)
     for prof in (profile.TransportProfile(cc=algo, rto_backoff=2.0),
                  profile.TransportProfile(cc=algo, pdc_dead_after=4)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            fabric.make_step(g, prof, fabric.SimParams(), 2, device="cpu")
+        assert callable(fabric.make_step(g, prof, fabric.SimParams(), 2,
+                                         device="cpu"))
+        with pytest.raises(NotImplementedError, match="item 7"):
+            fabric.make_step(g, replace(prof, inc=True), fabric.SimParams(),
+                             2, device="cpu")
     with pytest.raises(ValueError, match="unknown CC"):
         profile.make_cc_policy(7, nscc.NSCCParams(), 48.0)
 
 
 @pytest.mark.parametrize("scheme", ["RR_SLOTS", "EVBITMAP"])
 def test_unported_lb_raises(scheme):
-    """Every LB scheme is built now; EV eviction (ROADMAP.md item 6)
-    still raises, with any scheme."""
+    """Every LB scheme is built now, with EV eviction (ROADMAP.md item
+    6) too; the lane-wise REPS feedback, which the tick does not use,
+    still raises."""
     assert lb.LBPolicy(lb.LBScheme[scheme]).scheme == lb.LBScheme[scheme]
+    assert lb.LBPolicy(lb.LBScheme[scheme], evict_enabled=True).evict_enabled
+    st = lb.LBState.create(4, 8, 0x5EED, torch.device("cpu"))
+    z = torch.zeros(4, dtype=torch.int32)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        lb.LBPolicy(lb.LBScheme[scheme], evict_enabled=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        lb.LBPolicy(lb.LBScheme.OBLIVIOUS, evict_enabled=True)
+        lb.on_ack(st, lb.LBScheme.REPS, z, z, z.bool(), z.bool())

@@ -4,15 +4,21 @@ tables, workload lanes and expectation dicts, at the builders' defaults
 and at small sizes; and three sweeps end to end through both packages'
 ``simulate_batch`` (the profile ablation's seven profiles, the failure
 sweep's [B, Q] masks, the size sweep), bitwise, plus the padding lanes
-staying inert."""
+staying inert. And the three fault grids (``fault_sweep``,
+``host_fault_sweep``, ``corruption_sweep``: schedules, profiles and
+expectations, the copied ``LinkConfig`` included) against the
+reference's, each run end to end through both packages, bitwise — the
+corruption grid's LLR-off arm (the link layer is ROADMAP.md item 8)."""
 import dataclasses
 
 import numpy as np
 import pytest
 
+from repro.core import link as jlink
 from repro.network import fabric as jf
 from repro.network import workloads as jw
 from repro_torch import convert
+from repro_torch.core import link
 from repro_torch.network import fabric as tf
 from repro_torch.network import workloads as tw
 from test_torch_batch import assert_same_results
@@ -140,3 +146,129 @@ def test_size_sweep_with_padding_runs_bitwise():
     assert pad == 1 and len(port) == 4
     assert_same_results(port[:3], ref)
     assert port[3].horizon == 32 and not port[3].state.delivered.any()
+
+
+# ------------------------------------------------------------ fault grids --
+
+def _same_schedule(f, jf_):
+    d = convert.faults_to_numpy(f)
+    for fl in dataclasses.fields(type(jf_)):
+        want = np.asarray(getattr(jf_, fl.name))
+        assert d[fl.name].dtype == want.dtype, fl.name
+        np.testing.assert_array_equal(d[fl.name], want, err_msg=fl.name)
+
+
+def _same_dataclass(a, b):
+    for fl in dataclasses.fields(b):
+        va, vb = getattr(a, fl.name), getattr(b, fl.name)
+        assert (int(va) if hasattr(va, "value") else va) == \
+            (int(vb) if hasattr(vb, "value") else vb), fl.name
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(llr=True, cbfc=True,
+                                           llr_rtt=3,
+                                           credit_return_ticks=9)])
+def test_link_config_copy_builds_the_same_spec(kw):
+    """``core/link.py`` is a copy: the same fields, defaults, validation
+    and derived values as the reference's."""
+    a, b = link.LinkConfig(**kw), jlink.LinkConfig(**kw)
+    _same_dataclass(a, b)
+    assert a.enabled == b.enabled
+    _same_dataclass(link.LinkConfig.on(), jlink.LinkConfig.on())
+    _same_dataclass(link.LinkConfig.off(), jlink.LinkConfig.off())
+    for bad in (dict(llr_rtt=0), dict(credit_return_ticks=0)):
+        with pytest.raises(ValueError):
+            link.LinkConfig(**bad)
+    assert link.fabric_buffer_pricing(135) == jlink.fabric_buffer_pricing(135)
+    st, jst = link.CBFCState(1000).send(700).drain(300), \
+        jlink.CBFCState(1000).send(700).drain(300)
+    assert (st.available(), st.can_send(600)) == \
+        (jst.available(), jst.can_send(600))
+    assert link.LINK_STATE_LANES == jlink.LINK_STATE_LANES
+
+
+@pytest.mark.parametrize("args", [(), (2, 4, 60, 50, 300, 0.1)])
+def test_fault_sweep_matches_reference(args):
+    g, wls, faults, exp = tw.fault_sweep(*args)
+    jg, jwls, jfaults, jexp = jw.fault_sweep(*args)
+    _same_graph(g, jg)
+    _same_workload(wls, jwls)
+    _same_schedule(faults, jfaults)
+    assert exp == jexp
+
+
+@pytest.mark.parametrize("args", [(), (2, 3, 40, 20, 200, 900)])
+def test_host_fault_sweep_matches_reference(args):
+    g, wls, faults, exp = tw.host_fault_sweep(*args)
+    jg, jwls, jfaults, jexp = jw.host_fault_sweep(*args)
+    _same_graph(g, jg)
+    _same_workload(wls, jwls)
+    _same_schedule(faults, jfaults)
+    _same_profiles(exp.pop("profile"), jexp.pop("profile"))
+    assert exp == jexp
+
+
+@pytest.mark.parametrize("args", [(), ((0.0, 0.05), 4, 2, 40, 900)])
+def test_corruption_sweep_matches_reference(args):
+    g, wls, faults, exp = tw.corruption_sweep(*args)
+    jg, jwls, jfaults, jexp = jw.corruption_sweep(*args)
+    _same_graph(g, jg)
+    _same_workload(wls, jwls)
+    _same_schedule(faults, jfaults)
+    for k in ("link", "cbfc", "params"):
+        _same_dataclass(exp.pop(k), jexp.pop(k))
+    _same_profiles([exp.pop("profile")], [jexp.pop("profile")])
+    assert exp == jexp
+
+
+def test_fault_sweep_runs_bitwise():
+    """Flaps, staggered flaps, two gray levels and a permanent death as
+    one call in both packages; every lane completes."""
+    g, wls, faults, _ = tw.fault_sweep(2, 4, 60, 50, 300, 0.1)
+    jg, jwls, jfaults, _ = jw.fault_sweep(2, 4, 60, 50, 300, 0.1)
+    p = dict(ticks=2048, chunk_ticks=64, timeout_ticks=64, ooo_threshold=24)
+    port = tf.simulate_batch(g, wls, None, tf.SimParams(**p), faults=faults,
+                             device="cpu")
+    ref = jf.simulate_batch(jg, jwls, None, jf.SimParams(**p),
+                            faults=jfaults)
+    assert_same_results(port, ref)
+    assert all(r.completion_tick() != -1 for r in port)
+    assert port[0].drops == 0 and all(r.drops for r in port[1:])
+
+
+def test_host_fault_sweep_runs_bitwise():
+    """The endpoint grid with its per-scenario profiles (two groups):
+    the dead-host lane quarantines both flows and quiesces early, its
+    pdc-off twin burns the budget, the NIC stall abandons nothing."""
+    args = (2, 3, 40, 20, 200, 900)
+    g, wls, faults, exp = tw.host_fault_sweep(*args)
+    jg, jwls, jfaults, jexp = jw.host_fault_sweep(*args)
+    p = dict(ticks=exp["budget"], chunk_ticks=64, timeout_ticks=16)
+    port = tf.simulate_batch(g, wls, exp["profile"], tf.SimParams(**p),
+                             faults=faults, device="cpu")
+    ref = jf.simulate_batch(jg, jwls, jexp["profile"], jf.SimParams(**p),
+                            faults=jfaults)
+    assert_same_results(port, ref)
+    dead, off, stall, healthy = port
+    assert dead.flows_abandoned == 2 and dead.horizon < exp["budget"]
+    assert off.horizon == exp["budget"] and off.flows_abandoned == 0
+    assert stall.flows_abandoned == 0 and stall.completion_tick() > 0
+    assert healthy.flows_abandoned == 0 and healthy.ticks_unreachable == 0
+
+
+def test_corruption_sweep_llr_off_arm_runs_bitwise():
+    """The BER grid without the link layer: corruption leaks into
+    end-to-end recovery as silent drops; the BER = 0 lane drops
+    nothing."""
+    g, wls, faults, exp = tw.corruption_sweep((0.0, 0.05), 4, 2, 40)
+    jg, jwls, jfaults, jexp = jw.corruption_sweep((0.0, 0.05), 4, 2, 40)
+    port = tf.simulate_batch(g, wls, exp["profile"], exp["params"],
+                             faults=faults, device="cpu")
+    ref = jf.simulate_batch(jg, jwls, jexp["profile"], jexp["params"],
+                            faults=jfaults)
+    assert_same_results(port, ref)
+    assert port[0].drops == 0 and port[1].drops > 0
+    assert all(r.completion_tick() > 0 for r in port)
+    with pytest.raises(NotImplementedError, match="item 8"):
+        tf.simulate_batch(g, wls, exp["profile"], exp["params"],
+                          faults=faults, link=exp["link"], device="cpu")
