@@ -90,6 +90,30 @@ Phases, one line each:
    other flow of every lane completes, some EV is evicted; each tick
    kernel is launched once per tick; scenario-ticks per second and peak
    memory beside the healthy batch's of the same call.
+   Then the collectives: 32 concurrent tree all-reduces on the same
+   fabric (group j = hosts {j + 32 i : i = 0..31}, root j, all 31
+   children on other edge switches; 32 packets a rank; F = 1984 flows)
+   as B = 2 lanes of one ``simulate_batch`` call under ``ai_full()`` with
+   ``inc=True``, budget 4096: lane 0 with the groups' ``red`` ids, lane 1
+   the same flows with ``red = -1`` (INC off as a data axis, the incast
+   baseline). Each lane's horizon, stats lanes, ``inc_reduced`` /
+   ``inc_emits``, counters and every final state lane but the packet and
+   event buffers are bitwise equal to ``tests/golden/torch_port_inc.npz``
+   (the JAX ``simulate_batch``); on lane 0 every non-root host receives
+   what the schedule expects and the roots receive it less exactly the
+   absorbed packets; each tick kernel is launched once per tick. Then
+   the default ``collective_sweep()`` (15 scenarios, two profiles, a
+   small leaf-spine, 1600 ticks) against the same golden.
+   Then the link layer: the full-width ``ai_full`` traffic as B = 2
+   lanes (1 % BER on edge 1's uplinks in lane 0, lane 1 healthy, seeds
+   0x5EED and 0x5EED+1), ``SimParams(ticks=4096)``, once with
+   ``link=LinkConfig.on(llr=True)`` and once with LLR + CBFC: each lane
+   bitwise equal to ``tests/golden/torch_port_link.npz`` (horizon, stats
+   lanes, ``llr_replays``, ``credit_stall_ticks``, trims, drops, every
+   final state lane but the buffers), no drop on any lane, no trim under
+   CBFC, each tick kernel once per tick. Both phases print
+   scenario-ticks per second and peak memory beside the healthy
+   batch's of the same call.
 6. cross-device — the first 128-tick chunk of the ai_full run with
    ``trace="full"`` on the card and on the CPU (plain versions), bitwise.
 
@@ -115,6 +139,8 @@ FULLSIZE = ROOT / "tests" / "golden" / "torch_port_fullsize.npz"
 PROFILES = ROOT / "tests" / "golden" / "torch_port_profiles.npz"
 BATCH = ROOT / "tests" / "golden" / "torch_port_batch.npz"
 FAULTS = ROOT / "tests" / "golden" / "torch_port_faults.npz"
+INC = ROOT / "tests" / "golden" / "torch_port_inc.npz"
+LINK = ROOT / "tests" / "golden" / "torch_port_link.npz"
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 INT_OPS_PER_S = 67e12       # H100 SXM non-tensor 32-bit rate
 F32_OPS_PER_S = 67e12       # H100 SXM non-tensor f32 rate
@@ -162,11 +188,16 @@ TICK_KERNELS = ("sack_fused_own", "sack_advance_own", "nack_mark_lanes",
 #: adds two sets
 PER_TICK = {"ai_full": (1, 1, 1, 1, 1), "hpc": (1, 1, 0, 0, 1),
             "base": (1, 1, 1, 1, 1), "mixed": (1, 1, 1, 3, 1),
-            "resilient": (1, 1, 1, 1, 1)}
-#: SimState lanes of the recovery loop (RTO strikes, quarantine, their
-#: counters); the profile goldens leave them out
-RECOVERY_LANES = ("ev_evictions", "rto_strikes", "quarantined",
-                  "flows_abandoned", "ticks_unreachable")
+            "resilient": (1, 1, 1, 1, 1), "inc": (1, 1, 1, 1, 1),
+            "llr": (1, 1, 1, 1, 1), "cbfc": (1, 1, 1, 1, 1)}
+#: SimState lanes the profile goldens leave out: those of the recovery
+#: loop (RTO strikes, quarantine, their counters), of INC and of the link
+#: layer, none of which the three profile runs turn on
+UNRECORDED_LANES = ("ev_evictions", "rto_strikes", "quarantined",
+                    "flows_abandoned", "ticks_unreachable", "inc.slot_psn",
+                    "inc.slot_bits", "inc_reduced", "inc_emits",
+                    "llr_busy_until", "llr_replays", "cbfc_consumed",
+                    "cbfc_freed", "cbfc_ret", "credit_stall_ticks")
 ENTRY_KERNELS = ("sack_fused", "sack_advance", "nack_mark", "nscc_update",
                  "ecmp_select")
 OWN_WIDTHS = (1, 3, 8, 16, 17, 32)
@@ -1140,6 +1171,222 @@ def phase_faults(batch: dict) -> dict:
     return res
 
 
+def inc_workloads(device="cpu"):
+    """The collectives phase's lanes, as ``scripts/torch_port_reference.py
+    --which inc`` builds them: (INC lane, the same flows with ``red =
+    -1``, per-host rx the schedules expect with INC off, the roots)."""
+    from repro_torch.network import collectives as coll
+    from repro_torch.network.fabric import Workload
+    lanes: dict = {k: [] for k in ("src", "dst", "size", "dep", "red")}
+    rx = np.zeros((1024,), np.int64)
+    for j in range(32):
+        hosts = np.asarray([j + 32 * i for i in range(32)], np.int32)
+        spec = coll.CollectiveSpec("all_reduce", tuple(hosts), 32)
+        t = coll.flow_table(spec, "tree")
+        off = 62 * j
+        for k, v in (("src", hosts[t.src]), ("dst", hosts[t.dst]),
+                     ("size", t.size),
+                     ("dep", np.where(t.dep >= 0, t.dep + off, -1)),
+                     ("red", np.where(t.red >= 0, j, -1))):
+            lanes[k].append(v)
+        rx[hosts] += coll.expected_host_rx(spec, "tree")
+    a = {k: np.concatenate(v).astype(np.int32) for k, v in lanes.items()}
+    on = Workload.of(a["src"], a["dst"], a["size"], dep=a["dep"],
+                     red=a["red"], device=device)
+    off = Workload.of(a["src"], a["dst"], a["size"], dep=a["dep"],
+                      device=device)
+    return on, off, rx, np.arange(32)
+
+
+def link_schedule(g):
+    """The link phase's [2, Q] schedule: 1 % BER on edge 1's uplinks in
+    lane 0, lane 1 healthy."""
+    from repro_torch.network.faults import FaultSchedule
+    ok = FaultSchedule.healthy(g.num_queues)
+    return FaultSchedule.stack(
+        [ok.corrupt([int(q) for q in g.up1_table[1, :]], 0.01), ok])
+
+
+def _state_vs_golden(s, gold, prefix: str) -> int:
+    """Every state lane but the packet and event buffers bitwise against
+    ``gold[prefix + 'state.' + path]``; the lane sets must agree."""
+    from repro_torch.convert import state_to_numpy
+    state = _flat(state_to_numpy(s))
+    lanes = sorted(k for k in state if k not in ("q_pkt", "ev_buf"))
+    want = sorted(k[len(prefix) + 6:] for k in gold.files
+                  if k.startswith(prefix + "state."))
+    assert lanes == want, (prefix, set(lanes) ^ set(want))
+    for k in lanes:
+        _assert_bits(state[k], gold[f"{prefix}state.{k}"], f"{prefix}{k}")
+    return len(lanes)
+
+
+def _batch_vs_golden(r, gold, prefix: str, extra=()) -> dict:
+    """A batch lane's stats lanes, scalars and state against the
+    golden's ``prefix`` entries; returns the scalars."""
+    s = r.state
+    for k in ("stat_completion", "stat_src_completion"):
+        _assert_bits(getattr(r, k), gold[prefix + k], prefix + k)
+    for k in ("delivered", "next_psn"):
+        _assert_bits(getattr(s, k).cpu().numpy(), gold[prefix + k],
+                     prefix + k)
+    scalars = {"horizon": r.horizon, "trims": r.trims, "drops": r.drops,
+               "dups": r.dups, "retransmits": r.rtx_packets,
+               "timeouts": r.timeouts, "qlen_peak": r.qlen_peak,
+               "ticks_degraded": r.ticks_degraded,
+               **{k: int(getattr(r, k) if hasattr(r, k)
+                         else getattr(s, k)) for k in extra}}
+    for k, v in scalars.items():
+        assert v == int(gold[prefix + k]), (prefix, k, v, int(gold[prefix + k]))
+    scalars["state_lanes"] = _state_vs_golden(s, gold, prefix)
+    return scalars
+
+
+def _timed_batch(run) -> "tuple[list, float, int, dict]":
+    """``run()`` on the card from zeroed launch counts and peak memory:
+    (results, seconds, peak bytes, launches)."""
+    from repro_torch.kernels import ops
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    rs = run()
+    torch.cuda.synchronize()
+    return (rs, time.perf_counter() - t0, torch.cuda.max_memory_allocated(),
+            dict(ops.LAUNCHES))
+
+
+def _rate(tag: str, rs, secs: float, peak: int, batch: dict) -> dict:
+    horizons = [r.horizon for r in rs]
+    sticks = sum(horizons)
+    res = {"b": len(rs), "seconds": secs, "horizons": horizons,
+           "scenario_ticks": sticks, "scenario_ticks_per_s": sticks / secs,
+           "lane_ticks_per_s": len(rs) * max(horizons) / secs,
+           "peak_bytes": peak,
+           "healthy_scenario_ticks_per_s": batch["scenario_ticks_per_s"],
+           "healthy_peak_bytes": batch["peak_bytes"]}
+    say(tag, f"B={len(rs)} scenario-ticks/s {res['scenario_ticks_per_s']:.1f}"
+        f" ({sticks} scenario-ticks in {secs:.2f} s; all lanes stepped "
+        f"{max(horizons)} ticks, {res['lane_ticks_per_s']:.1f} lane-ticks/s)"
+        f" against the healthy B={batch['b']} batch's "
+        f"{batch['scenario_ticks_per_s']:.1f} scenario-ticks/s")
+    say(tag, f"peak {peak / 2 ** 30:.2f} GiB against the healthy batch's "
+        f"{batch['peak_bytes'] / 2 ** 30:.2f} GiB")
+    return res
+
+
+def phase_collectives(batch: dict) -> dict:
+    """INC at full width: the 32 concurrent tree all-reduces as B = 2
+    lanes (INC on / off) of one ``simulate_batch`` call, then the default
+    ``collective_sweep()``, against ``tests/golden/torch_port_inc.npz``."""
+    from dataclasses import replace
+    from repro_torch.network import collectives as coll
+    from repro_torch.network.fabric import SimParams, simulate_batch
+    from repro_torch.network.profile import TransportProfile
+    from repro_torch.network.topology import fat_tree3
+    from repro_torch.network.workloads import collective_sweep
+    gold = np.load(INC)
+    g = fat_tree3(k=16, pods=16)
+    on, off, rx, roots = inc_workloads()
+    for k in ("src", "dst", "size", "dep", "red"):
+        _assert_bits(getattr(on, k).numpy(), gold[k], f"workload {k}")
+    _assert_bits(rx, gold["expected_rx"], "expected_rx")
+    prof = replace(TransportProfile.ai_full(), inc=True, name="ai_full+inc")
+    rs, secs, peak, launches = _timed_batch(lambda: simulate_batch(
+        g, [on, off], prof, SimParams(), trace="stats",
+        max_ticks=int(gold["max_ticks"]), device="cuda"))
+    _assert_launches("inc", launches, max(r.horizon for r in rs))
+    scalars = [_batch_vs_golden(r, gold, f"b{b}/",
+                                ("inc_reduced", "inc_emits"))
+               for b, r in enumerate(rs)]
+    assert all((r.stat_src_completion >= 0).all() for r in rs)
+    got = [np.bincount(on.dst.numpy(), r.state.delivered.cpu().numpy(),
+                       1024).astype(np.int64) for r in rs]
+    np.testing.assert_array_equal(got[1], rx)    # INC off: every packet
+    absorbed = int(rs[0].state.inc_reduced)
+    assert absorbed > 0 and int(rs[1].state.inc_reduced) == 0
+    others = np.setdiff1d(np.arange(1024), roots)
+    np.testing.assert_array_equal(got[0][others], rx[others])
+    assert int((rx - got[0])[roots].sum()) == absorbed, "payload lost"
+    ct = [coll.collective_completion_ticks(r) for r in rs]
+    assert 0 < ct[0] < ct[1], ct
+    res = {**_rate("5 collectives", rs, secs, peak, batch),
+           "launches": launches, "lanes": scalars, "completion": ct}
+    say("5 collectives", f"{g.name} 32 tree all-reduces F={on.src.shape[0]}"
+        f" x B=2 (INC on / off): horizons {res['horizons']}, collective "
+        f"done at {ct}, absorbed {absorbed}, emitted "
+        f"{int(rs[0].state.inc_emits)}; both lanes bitwise equal to the JAX "
+        f"golden ({scalars[0]['state_lanes']} state lanes); delivered + "
+        f"absorbed = the schedule's rx; launches {launches}")
+    # the collective ablation grid: two profile groups, one after the
+    # other, each running to its slowest scenario
+    g2, wls, profs, names = collective_sweep()
+    rs, secs, _, launches = _timed_batch(lambda: simulate_batch(
+        g2, wls, profs, SimParams(ticks=1600), device="cuda"))
+    for i, (nm, r) in enumerate(zip(names, rs)):
+        assert nm == str(gold[f"s{i}/name"]), (i, nm)
+        assert r.horizon == int(gold[f"s{i}/horizon"]), (nm, r.horizon)
+        _assert_bits(r.stat_src_completion, gold[f"s{i}/stat_src_completion"],
+                     f"{nm} stat_src_completion")
+        _assert_bits(r.state.delivered.cpu().numpy(),
+                     gold[f"s{i}/delivered"], f"{nm} delivered")
+        for k in ("inc_reduced", "inc_emits"):
+            assert int(getattr(r.state, k)) == int(gold[f"s{i}/{k}"]), (nm, k)
+    group_ticks = sum(max(r.horizon for r, q in zip(rs, profs)
+                          if q == p) for p in dict.fromkeys(profs))
+    _assert_launches("inc", launches, group_ticks)
+    cts = {nm: coll.collective_completion_ticks(r)
+           for nm, r in zip(names, rs)}
+    assert all(c > 0 for c in cts.values()), cts
+    assert cts["ai_full/all_reduce/tree/inc"] < cts["ai_full/all_reduce/tree"]
+    res["sweep"] = {"seconds": secs, "scenarios": len(rs),
+                    "group_ticks": group_ticks, "launches": launches,
+                    "completion": cts}
+    say("5 collectives", f"collective_sweep(): {len(rs)} scenarios in two "
+        f"profile groups ({group_ticks} ticks, {secs:.2f} s), bitwise equal "
+        f"to the JAX golden; tree all-reduce done at "
+        f"{cts['ai_full/all_reduce/tree/inc']} with INC against "
+        f"{cts['ai_full/all_reduce/tree']} without")
+    return res
+
+
+def phase_link(batch: dict) -> dict:
+    """The link layer at full width: B = 2 lanes (BER on edge 1's uplinks
+    / healthy) under LLR and under LLR + CBFC, against
+    ``tests/golden/torch_port_link.npz``."""
+    from repro_torch.core.link import LinkConfig
+    from repro_torch.network.fabric import SimParams, simulate_batch
+    gold = np.load(LINK)
+    _, g, wl, prof, _ = _fullsize()
+    sched = link_schedule(g)
+    budget = int(gold["max_ticks"])
+    out = {}
+    for tag, spec in (("llr", LinkConfig.on(llr=True)),
+                      ("cbfc", LinkConfig.on(llr=True, cbfc=True))):
+        rs, secs, peak, launches = _timed_batch(lambda: simulate_batch(
+            g, [wl, wl], prof, SimParams(ticks=budget), faults=sched,
+            seeds=gold["seeds"], trace="stats", link=spec, device="cuda"))
+        _assert_launches(tag, launches, max(r.horizon for r in rs))
+        scalars = [_batch_vs_golden(r, gold, f"{tag}/b{b}/",
+                                    ("llr_replays", "credit_stall_ticks"))
+                   for b, r in enumerate(rs)]
+        assert all((r.stat_completion >= 0).all() for r in rs)
+        assert all(r.drops == 0 for r in rs), "LLR lets no corruption out"
+        assert rs[0].llr_replays > 0 and rs[1].llr_replays == 0
+        if tag == "cbfc":
+            assert all(r.trims == 0 for r in rs), "CBFC never trims"
+        res = out[tag] = {**_rate(f"5 link {tag}", rs, secs, peak, batch),
+                          "launches": launches, "lanes": scalars}
+        say(f"5 link {tag}", f"{g.name} F={wl.src.shape[0]} x B=2 ({spec}):"
+            f" horizons {res['horizons']}, llr_replays "
+            f"{[r.llr_replays for r in rs]}, credit_stall_ticks "
+            f"{[r.credit_stall_ticks for r in rs]}, trims "
+            f"{[r.trims for r in rs]}, drops {[r.drops for r in rs]}; both "
+            f"lanes bitwise equal to the JAX golden "
+            f"({scalars[0]['state_lanes']} state lanes); launches {launches}")
+    return out
+
+
 def _assert_launches(tag: str, launches: dict, ticks: int) -> None:
     """Each tick kernel launched ``PER_TICK[tag]`` times a tick, and no
     entry-point form on the tick."""
@@ -1206,13 +1453,13 @@ def phase_profiles() -> "tuple[dict, dict]":
                      f"{tag} stat_src_completion")
         state = _flat(state_to_numpy(r.state))
         lanes = [k for k in state
-                 if k not in ("q_pkt", "ev_buf") + RECOVERY_LANES]
+                 if k not in ("q_pkt", "ev_buf") + UNRECORDED_LANES]
         assert sorted(lanes) == sorted(
             k[len(f"{tag}/state."):] for k in ref.files
             if k.startswith(f"{tag}/state.")), tag
-        # the reference leaves the recovery lanes out of these goldens:
-        # none of the three profiles runs the recovery loop
-        for k in RECOVERY_LANES:
+        # the reference leaves these lanes out of its profile goldens:
+        # inert here (zero, or zero-size where INC / the link is off)
+        for k in UNRECORDED_LANES:
             assert not state[k].any(), (tag, k)
         for k in lanes:
             _assert_bits(state[k], ref[f"{tag}/state.{k}"], f"{tag} {k}")
@@ -1361,6 +1608,8 @@ def main(argv=None) -> int:
               "full_width": phase_fullwidth()}
     result["batch"] = phase_batch(result["full_width"])
     result["faults"] = phase_faults(result["batch"])
+    result["collectives"] = phase_collectives(result["batch"])
+    result["link"] = phase_link(result["batch"])
     result["profiles"], states = phase_profiles()
     result["entry_points"] = phase_entry_points(states)
     result["cross_device"] = phase_cross_device()
@@ -1375,8 +1624,13 @@ def main(argv=None) -> int:
             row["batch"] = {**{k: v for k, v in row["batch"].items()
                                if k != "bytes"},
                             "launches": result["batch"]["launches"][name]}
-            # and on the faulted batch's
+            # and on the faulted batch's, the collectives' and the link
+            # layer's
             row["faults"] = {"launches": result["faults"]["launches"][name]}
+            row["collectives"] = {
+                "launches": result["collectives"]["launches"][name]}
+            row["link"] = {k: {"launches": v["launches"][name]}
+                           for k, v in result["link"].items()}
         kernels.append(row)
     result["seconds"] = time.perf_counter() - t0
     if args.out is not None:

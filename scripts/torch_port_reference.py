@@ -2,8 +2,10 @@
 """Write the JAX references that the PyTorch port is held against at full
 width: ``tests/golden/torch_port_fullsize.npz``,
 ``tests/golden/torch_port_profiles.npz``,
-``tests/golden/torch_port_batch.npz`` and
-``tests/golden/torch_port_faults.npz``.
+``tests/golden/torch_port_batch.npz``,
+``tests/golden/torch_port_faults.npz``,
+``tests/golden/torch_port_inc.npz`` and
+``tests/golden/torch_port_link.npz``.
 
 Both use the port's full-width fabric (``chip_smoke.py`` phase 5): a full
 3-tier k=16 fat tree (``fat_tree3(k=16, pods=16)``: 1024 endpoints, 320
@@ -41,13 +43,28 @@ downlink takes a 2:1 incast — under ``SimParams()`` with
   over [100, 400); lane 2 PHY corruption
   (``corrupt(up1_table[1, :], 0.01)``, no link layer); lane 3 all of
   these at once and ``up1_table[0, 0]`` dead from tick 0.
+* ``inc``: 32 concurrent tree all-reduces on the same fabric. Group j
+  (j = 0..31) is hosts {j + 32 i : i = 0..31} with root j, so all 31
+  children sit on other edge switches than their root; each rank sends
+  32 packets (F = 32 x 62 = 1984 flows, group j's reduce flows carry
+  ``red = j``). One ``simulate_batch`` under ``ai_full()`` with
+  ``inc=True``, ``max_ticks=4096``, B = 2: lane 0 with the groups'
+  ``red`` ids, lane 1 the same flows with ``red = -1`` (INC off as a
+  data axis). Then the default ``collective_sweep()`` (15 scenarios on
+  a small leaf-spine) under ``SimParams(ticks=1600)``.
+* ``link``: the ``fullsize`` traffic under ``ai_full()`` as B = 2,
+  seeds 0x5EED and 0x5EED+1: lane 0 with 1 % BER on edge 1's uplinks
+  (``corrupt(up1_table[1, :], 0.01)``), lane 1 healthy, run twice under
+  ``SimParams(ticks=4096)``: with ``link=LinkConfig.on(llr=True)``
+  (tag ``llr``) and with ``LinkConfig.on(llr=True, cbfc=True)`` (tag
+  ``cbfc``).
 
 This script imports the JAX package and is not part of the port. It
 runs on the CPU (about five minutes per one-scenario run on a few
 cores):
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/torch_port_reference.py \
-        [--which fullsize|profiles|batch|faults]
+        [--which fullsize|profiles|batch|faults|inc|link]
 
 ``fullsize`` holds the workload lanes (``src``, ``dst``, ``size``), the
 per-flow stats and final lanes (``stat_completion``,
@@ -77,15 +94,34 @@ lane of the [4, Q] / [4, H] schedule as ``sched.<field>`` and, per lane
 ``last_ev``, ``bad_ev``, ``ev_set``) and counters (``ev_evictions``,
 ``flows_abandoned``, ``ticks_unreachable``, ``abandon_tick``); and the
 wall-clock seconds of the batched run (``cpu_seconds``).
+
+``inc`` holds the workload lanes of lane 0 (``src``, ``dst``, ``size``,
+``dep``, ``red``), ``expected_rx`` (per host, INC off),
+``max_ticks``, per lane ``b<i>``: ``horizon``, ``stat_completion``,
+``stat_src_completion``, ``inc_reduced``, ``inc_emits``, the scalars of
+``fullsize`` and every final state lane but the packet and event
+buffers as ``b<i>/state.<dotted path>``; per sweep scenario ``s<i>``:
+``name``, ``horizon``, ``stat_src_completion``, ``delivered``,
+``inc_reduced``, ``inc_emits``; and ``cpu_seconds``.
+
+``link`` holds ``seeds``, ``ber``, ``max_ticks`` and, per tag ``t`` and
+lane ``b<i>``: ``t/b<i>/horizon``, the stats lanes, ``llr_replays``,
+``credit_stall_ticks``, ``trims``, ``drops`` and the other scalars of
+``fullsize``, and every final state lane but the packet and event
+buffers as ``t/b<i>/state.<dotted path>``; and ``t/cpu_seconds``.
 """
 import argparse
 import dataclasses
 import time
+from dataclasses import replace
 from pathlib import Path
 
 import numpy as np
 
 from repro.core.lb.schemes import LBScheme
+from repro.core.link import LinkConfig
+from repro.network import collectives as coll
+from repro.network.workloads import collective_sweep
 from repro.network.fabric import (SimParams, Workload, simulate,
                                   simulate_batch)
 from repro.network.faults import FaultSchedule
@@ -98,6 +134,13 @@ OUT = GOLDEN / "torch_port_fullsize.npz"
 OUT_PROFILES = GOLDEN / "torch_port_profiles.npz"
 OUT_BATCH = GOLDEN / "torch_port_batch.npz"
 OUT_FAULTS = GOLDEN / "torch_port_faults.npz"
+OUT_INC = GOLDEN / "torch_port_inc.npz"
+OUT_LINK = GOLDEN / "torch_port_link.npz"
+INC_GROUPS = 32               # concurrent tree all-reduces
+INC_RANKS = 32                # hosts per group
+INC_SIZE = 32                 # packets per rank
+SWEEP_TICKS = 1600
+LINK_BER = 0.01
 FAULT_TIMEOUT = 64
 FAULT_OOO = 24                # OOO-gap loss inference (receiver NACKs)
 FAULT_TICKS = 2048
@@ -118,6 +161,8 @@ SKIP_STATE = ("q_pkt", "ev_buf", "inc", "inc_reduced", "inc_emits",
               "ticks_unreachable", "llr_busy_until", "llr_replays",
               "cbfc_consumed", "cbfc_freed", "cbfc_ret",
               "credit_stall_ticks")
+#: the lanes the INC and link references leave out: only the buffers
+SKIP_BUFFERS = ("q_pkt", "ev_buf")
 
 
 def workload_lanes() -> "tuple[np.ndarray, np.ndarray, np.ndarray]":
@@ -141,16 +186,16 @@ def profiles(num_flows: int) -> "dict[str, TransportProfile]":
     }
 
 
-def _flatten(obj, prefix: str, out: dict) -> None:
+def _flatten(obj, prefix: str, out: dict, skip=SKIP_STATE) -> None:
     """Dataclass / dict pytree -> {dotted path: numpy array}."""
     if dataclasses.is_dataclass(obj):
         for f in dataclasses.fields(obj):
-            if not prefix and f.name in SKIP_STATE:
+            if not prefix and f.name in skip:
                 continue
-            _flatten(getattr(obj, f.name), f"{prefix}{f.name}.", out)
+            _flatten(getattr(obj, f.name), f"{prefix}{f.name}.", out, skip)
     elif isinstance(obj, dict):
         for k, v in obj.items():
-            _flatten(v, f"{prefix}{k}.", out)
+            _flatten(v, f"{prefix}{k}.", out, skip)
     else:
         out[prefix[:-1]] = np.asarray(obj)
 
@@ -331,6 +376,123 @@ def write_faults(path: Path) -> None:
     print(f"{g.name}: B={len(rs)} in {secs:.1f} s -> {path}")
 
 
+def inc_workload_lanes() -> "dict[str, np.ndarray]":
+    """The 32 concurrent tree all-reduces as one flow table (lane 0's
+    ``red``: group j's reduce flows carry j) and the per-host rx each
+    group's schedule expects with INC off."""
+    parts: "dict[str, list]" = {k: [] for k in ("src", "dst", "size",
+                                                "dep", "red")}
+    rx = np.zeros((HOSTS,), np.int64)
+    off = 0
+    for j in range(INC_GROUPS):
+        hosts = np.asarray([j + INC_GROUPS * i for i in range(INC_RANKS)],
+                           np.int32)
+        spec = coll.CollectiveSpec("all_reduce", tuple(hosts), INC_SIZE)
+        t = coll.flow_table(spec, "tree")
+        parts["src"].append(hosts[t.src])
+        parts["dst"].append(hosts[t.dst])
+        parts["size"].append(t.size)
+        parts["dep"].append(np.where(t.dep >= 0, t.dep + off, -1))
+        parts["red"].append(np.where(t.red >= 0, j, -1))
+        rx[hosts] += coll.expected_host_rx(spec, "tree")
+        off += len(t.src)
+    out = {k: np.concatenate(v).astype(np.int32) for k, v in parts.items()}
+    out["expected_rx"] = rx
+    return out
+
+
+def _state_lanes(s) -> dict:
+    lanes: dict = {}
+    _flatten(s, "", lanes, SKIP_BUFFERS)
+    return {f"state.{k}": v for k, v in lanes.items()}
+
+
+def write_inc(path: Path) -> None:
+    g = fat_tree3(k=16, pods=16)
+    lanes = inc_workload_lanes()
+    wl_on = Workload.of(lanes["src"], lanes["dst"], lanes["size"],
+                        dep=lanes["dep"], red=lanes["red"])
+    wl_off = Workload.of(lanes["src"], lanes["dst"], lanes["size"],
+                         dep=lanes["dep"])
+    prof = replace(TransportProfile.ai_full(), inc=True, name="ai_full+inc")
+    t0 = time.perf_counter()
+    rs = simulate_batch(g, Workload.stack([wl_on, wl_off]), prof,
+                        SimParams(), trace="stats", max_ticks=MAX_TICKS)
+    secs = time.perf_counter() - t0
+    out = {**lanes, "max_ticks": np.int64(MAX_TICKS),
+           "cpu_seconds": np.float64(secs)}
+    for b, r in enumerate(rs):
+        s = r.state
+        per = {**_run_lanes(r), **_state_lanes(s),
+               "inc_reduced": np.int64(s.inc_reduced),
+               "inc_emits": np.int64(s.inc_emits)}
+        out.update({f"b{b}/{k}": v for k, v in per.items()})
+        print(f"lane {b}: horizon={r.horizon} source completion "
+              f"{r.source_completion_tick()} inc_reduced={int(s.inc_reduced)}"
+              f" inc_emits={int(s.inc_emits)} delivered="
+              f"{int(np.asarray(s.delivered).sum())} trims={r.trims}",
+              flush=True)
+    g2, wls, profs, names = collective_sweep()
+    t0 = time.perf_counter()
+    rs = simulate_batch(g2, wls, profs, SimParams(ticks=SWEEP_TICKS))
+    out["sweep_cpu_seconds"] = np.float64(time.perf_counter() - t0)
+    for i, (nm, r) in enumerate(zip(names, rs)):
+        out.update({f"s{i}/name": np.asarray(nm),
+                    f"s{i}/horizon": np.int64(r.horizon),
+                    f"s{i}/stat_src_completion":
+                        np.asarray(r.stat_src_completion),
+                    f"s{i}/delivered": np.asarray(r.state.delivered),
+                    f"s{i}/inc_reduced": np.int64(r.state.inc_reduced),
+                    f"s{i}/inc_emits": np.int64(r.state.inc_emits)})
+        print(f"sweep {nm}: horizon={r.horizon} completion="
+              f"{coll.collective_completion_ticks(r)}", flush=True)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    np.savez_compressed(path, **out)
+    print(f"{g.name}: F={lanes['src'].size} B=2 in {secs:.1f} s -> {path}")
+
+
+def link_arms() -> "dict[str, LinkConfig]":
+    return {"llr": LinkConfig.on(llr=True),
+            "cbfc": LinkConfig.on(llr=True, cbfc=True)}
+
+
+def link_schedule(g) -> FaultSchedule:
+    """Lane 0: LINK_BER on edge 1's uplinks; lane 1 healthy."""
+    ok = FaultSchedule.healthy(g.num_queues)
+    up1 = [int(q) for q in g.up1_table[1, :]]
+    return FaultSchedule.stack([ok.corrupt(up1, LINK_BER), ok])
+
+
+def write_link(path: Path) -> None:
+    g = fat_tree3(k=16, pods=16)
+    src, dst, size = workload_lanes()
+    wl = Workload.of(src, dst, size)
+    seeds = np.asarray(BATCH_SEEDS[:2], np.uint32)
+    out = {"seeds": seeds, "ber": np.float64(LINK_BER),
+           "max_ticks": np.int64(MAX_TICKS)}
+    for tag, link in link_arms().items():
+        t0 = time.perf_counter()
+        rs = simulate_batch(g, Workload.stack([wl, wl]),
+                            TransportProfile.ai_full(),
+                            SimParams(ticks=MAX_TICKS),
+                            faults=link_schedule(g), seeds=seeds,
+                            trace="stats", link=link)
+        out[f"{tag}/cpu_seconds"] = np.float64(time.perf_counter() - t0)
+        for b, r in enumerate(rs):
+            per = {**_run_lanes(r), **_state_lanes(r.state),
+                   "llr_replays": np.int64(r.llr_replays),
+                   "credit_stall_ticks": np.int64(r.credit_stall_ticks)}
+            out.update({f"{tag}/b{b}/{k}": v for k, v in per.items()})
+            print(f"{tag} lane {b}: horizon={r.horizon} completion="
+                  f"{r.completion_tick()} llr_replays={r.llr_replays} "
+                  f"credit_stall_ticks={r.credit_stall_ticks} "
+                  f"trims={r.trims} drops={r.drops} rtx={r.rtx_packets} "
+                  f"timeouts={r.timeouts}", flush=True)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    np.savez_compressed(path, **out)
+    print(f"{g.name}: link arms {tuple(link_arms())} -> {path}")
+
+
 def write_profiles(path: Path) -> None:
     out = {}
     for tag in ("hpc", "base", "mixed"):
@@ -343,7 +505,8 @@ def write_profiles(path: Path) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--which", default="fullsize",
-                    choices=("fullsize", "profiles", "batch", "faults"))
+                    choices=("fullsize", "profiles", "batch", "faults",
+                             "inc", "link"))
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args()
     if args.which == "fullsize":
@@ -352,6 +515,10 @@ def main() -> int:
         write_batch(args.out or OUT_BATCH)
     elif args.which == "faults":
         write_faults(args.out or OUT_FAULTS)
+    elif args.which == "inc":
+        write_inc(args.out or OUT_INC)
+    elif args.which == "link":
+        write_link(args.out or OUT_LINK)
     else:
         write_profiles(args.out or OUT_PROFILES)
     return 0

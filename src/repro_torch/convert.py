@@ -11,11 +11,12 @@ The CC state takes the form of the profile's policy: NSCC's and RCCC's
 lanes, the hybrid's ``{"nscc": ..., "rccc": ...}`` dict, or the open
 loop's empty [0] int32 placeholder; each is recognised by its keys.
 
-Lanes of features not ported yet (INC, the link layer) must be inert in
-the incoming dict (zero-size or zero); otherwise the conversion raises
-``NotImplementedError`` instead of dropping state. A ``FaultSchedule``
-crosses whole: link windows, gray-link and BER lanes, the seed (a
-uint32 lane) and the host / NIC lanes.
+Every lane of the reference's ``SimState`` crosses, the INC contexts
+and the link-layer lanes (LLR replay windows, the 20-bit CBFC counters
+and their credit-return ring) included; a lane the port does not know
+raises ``NotImplementedError`` instead of being dropped. A
+``FaultSchedule`` crosses whole: link windows, gray-link and BER lanes,
+the seed (a uint32 lane) and the host / NIC lanes.
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ import torch
 
 from repro_torch.core.cms.nscc import NSCCState
 from repro_torch.core.cms.rccc import RCCCState
+from repro_torch.core.inc import INCState
 from repro_torch.core.lb.schemes import LBState
 from repro_torch.core.pds import PSNTracker
 from repro_torch.network.fabric import SimState, Workload
@@ -35,34 +37,20 @@ from repro_torch.network.faults import FaultSchedule
 U32_LANES = frozenset(
     [f"{t}.{k}" for t in ("src_track", "dst_track")
      for k in ("base", "ring", "rx_ok", "dup", "oor")]
-    + ["rtx", "lb.salt", "seed"])
+    + ["rtx", "lb.salt", "seed", "inc.slot_bits", "cbfc_consumed",
+       "cbfc_freed"])
 
-#: reference SimState lanes the port does not carry: each must be inert
-_INERT_STATE = ("inc", "inc_reduced", "inc_emits", "llr_busy_until",
-                "llr_replays", "cbfc_consumed", "cbfc_freed", "cbfc_ret",
-                "credit_stall_ticks")
 _NESTED = {"src_track": PSNTracker, "dst_track": PSNTracker,
-           "lb": LBState}
+           "lb": LBState, "inc": INCState}
 _CC_STATES = (NSCCState, RCCCState)
 
 
-def _leaves(d, prefix=""):
-    if isinstance(d, dict):
-        for k, v in d.items():
-            yield from _leaves(v, f"{prefix}{k}.")
-    else:
-        yield prefix[:-1], np.asarray(d)
-
-
-def _require_inert(d: dict, names, what: str):
-    for name in names:
-        if name not in d:
-            continue
-        for path, a in _leaves(d[name], f"{name}."):
-            if a.any():
-                raise NotImplementedError(
-                    f"{what} lane {path} is live; the port does not carry "
-                    f"it yet (see ROADMAP.md, 'Modules to port')")
+def _require_known(d: dict, cls, what: str):
+    unknown = sorted(set(d) - {f.name for f in fields(cls)})
+    if unknown:
+        raise NotImplementedError(
+            f"{what} lane(s) {unknown} are not carried by the port (see "
+            f"ROADMAP.md, 'Modules to port')")
 
 
 def _to_tensor(a, path: str, device) -> torch.Tensor:
@@ -119,7 +107,7 @@ def _to_numpy(obj, prefix="") -> dict:
 def state_from_numpy(d: dict, device) -> SimState:
     """The port's SimState from a reference SimState given as a nested
     dict of numpy arrays."""
-    _require_inert(d, _INERT_STATE, "SimState")
+    _require_known(d, SimState, "SimState")
     return _build(SimState, d, device)
 
 

@@ -1,8 +1,8 @@
 """Link-layer options: Link-Level Retry and Credit-Based Flow Control
 (Sec. 3.5) — a copy of ``repro.core.link`` (the port imports nothing of
-the reference package). The fabric tick does not run the link layer yet:
-``link=`` raises (ROADMAP.md, 'Modules to port' item 8); ``LinkConfig``
-is here for the expectations of ``workloads.corruption_sweep``.
+the reference package). ``LinkConfig`` is the ``link=`` static of the
+fabric tick (``repro_torch.network.fabric``): LLR replay at the hop and
+the CBFC credit gate.
 
 LLR: go-back-N retransmission confined to one link. Justified at this
 layer (unlike end-to-end, which UET redesigned away from go-back-N)
@@ -233,3 +233,29 @@ LINK_STATE_LANES = frozenset({
 SHAPES differ between a ``link=``-armed executable and the pre-feature
 program. Bitwise on-vs-off comparisons (canary, bench, tests) skip
 exactly this set."""
+
+
+def state_bitwise_equal(a, b, skip=LINK_STATE_LANES) -> "str | None":
+    """Field-by-field bitwise compare of two SimStates, skipping `skip`.
+    Returns the first drifted field name, or None when bitwise equal."""
+    import torch
+    from dataclasses import fields, is_dataclass
+
+    def leaves(x):
+        if isinstance(x, torch.Tensor):
+            yield x
+        elif isinstance(x, dict):
+            for v in x.values():
+                yield from leaves(v)
+        elif is_dataclass(x):
+            for f in fields(x):
+                yield from leaves(getattr(x, f.name))
+
+    for f in fields(a):
+        if f.name in skip:
+            continue
+        pairs = zip(leaves(getattr(a, f.name)), leaves(getattr(b, f.name)))
+        if not all(x.shape == y.shape and torch.equal(x, y)
+                   for x, y in pairs):
+            return f.name
+    return None

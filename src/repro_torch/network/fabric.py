@@ -42,10 +42,14 @@ PHY corruption (counter-hash draws), host deaths and NIC stalls, RTO
 backoff, EV eviction and PDC liveness teardown (quarantine). Each fault
 class and recovery knob is a static of ``make_step`` derived from the
 schedule or the profile, so a run without it builds the tick without its
-lanes. INC, the link layer and telemetry raise ``NotImplementedError``
-naming their ROADMAP.md item. uint32 lanes are int32 bit patterns
-(``_u32``); JAX's clamped gathers and dropped scatters are written out
-as clamps and masks.
+lanes. So do in-network reduction (``inc=True`` profiles: the ToR's
+accumulator contexts of ``repro_torch.core.inc``, section 6b) and the
+link layer (``link=LinkConfig(...)``: LLR replay at the hop in section
+4, the CBFC credit gate in section 7). Telemetry and sharding raise
+``NotImplementedError`` naming their ROADMAP.md item. uint32 lanes are
+int32 bit patterns (``_u32``; the 20-bit CBFC counters are masked to
+``CTR_MOD``); JAX's clamped gathers and dropped scatters are written
+out as clamps and masks.
 
 The dense one-hots of the reference stay ([B, F, E] ACK/NACK lanes,
 [B, H, F] host pick, [B, F, Q] deliveries, [B, n, n] enqueue ranks,
@@ -62,7 +66,8 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch._u32 import c32, shr, ult
-from repro_torch.core import pds
+from repro_torch.core import inc, pds
+from repro_torch.core.link import CTR_MOD, LinkConfig
 from repro_torch.core.pdc import unreachable
 from repro_torch.core.cms.nscc import NSCCParams
 from repro_torch.core.lb.schemes import LBPolicy, LBScheme, LBState, _mix32
@@ -73,7 +78,7 @@ from repro_torch.network.faults import (FaultSchedule, as_schedule,
                                         failed_to_mask, loss_threshold)
 from repro_torch.network.profile import (DeliveryMode, TransportProfile,
                                          make_cc_policy)
-from repro_torch.network.topology import QueueGraph
+from repro_torch.network.topology import QueueGraph, Stage
 
 # packet meta bits
 META_TRIMMED = 1
@@ -118,8 +123,8 @@ class Workload:
     """Flow set: src/dst host ids, message size (packets), start tick, the
     dependency lane (flow f waits until flow dep[f] source-completes;
     -1 = none) and the INC reduction-group lane (-1 = none; read only by
-    INC profiles, which are not ported yet). All [F] int32, or [B, F]
-    for a scenario batch (``Workload.stack``)."""
+    ``inc=True`` profiles). All [F] int32, or [B, F] for a scenario
+    batch (``Workload.stack``)."""
 
     src: torch.Tensor
     dst: torch.Tensor
@@ -166,11 +171,10 @@ class SimState:
     has a leading [B] axis (shapes are given per scenario). A result's
     state (``SimResult.state``) is one scenario's, without it.
 
-    Mirrors the reference ``SimState`` lane for lane, minus the lanes of
-    features not ported yet (INC contexts, the link-layer LLR / CBFC
-    lanes, and the counters only those features move);
-    ``repro_torch.convert`` checks they are inert when carrying a
-    reference state across.
+    Mirrors the reference ``SimState`` lane for lane. The INC contexts
+    and the link-layer lanes are zero-size ([0, 1] slots, [0] and
+    [0, 0] lanes) unless the profile has ``inc`` and the run ``link``
+    armed, as the reference's are.
     """
 
     q_pkt: torch.Tensor      # [Q, C, PKT_FIELDS] int32 (flow = -1 => empty)
@@ -189,10 +193,13 @@ class SimState:
                              # loop's empty [0] int32 tensor ([B, 0])
     lb: LBState
     ev_buf: torch.Tensor     # [D, E, EVF_FIELDS] int32 control-TC delay ring
+    inc: inc.INCState        # [F, inc_slots] reduction contexts ([0, 1] off)
     delivered: torch.Tensor  # [F] int32 packets delivered (first copies)
     trims: torch.Tensor      # [] int32
     drops: torch.Tensor      # [] int32
     dups: torch.Tensor       # [] int32
+    inc_reduced: torch.Tensor  # [] int32 packets absorbed at a switch
+    inc_emits: torch.Tensor  # [] int32 aggregates forwarded
     rod_rejects: torch.Tensor  # [] int32 out-of-order arrivals ROD discarded
     retransmits: torch.Tensor  # [] int32
     rto: torch.Tensor        # [F] int32 per-flow retransmission timeout
@@ -203,6 +210,12 @@ class SimState:
     quarantined: torch.Tensor  # [F] bool PDC torn down, flow abandoned
     flows_abandoned: torch.Tensor  # [] int32 PDCs declared unreachable
     ticks_unreachable: torch.Tensor  # [] int32 ticks with >= 1 quarantined
+    llr_busy_until: torch.Tensor  # [Q] int32 LLR replay window end ([0] off)
+    llr_replays: torch.Tensor  # [] int32 frames corrupted and replayed
+    cbfc_consumed: torch.Tensor  # [Q] uint32, 20-bit cyclic ([0] off)
+    cbfc_freed: torch.Tensor  # [Q] uint32, 20-bit cyclic ([0] off)
+    cbfc_ret: torch.Tensor   # [Rd, Q] int32 credit-return delay ring
+    credit_stall_ticks: torch.Tensor  # [] int32 ticks with >= 1 stall
 
 
 def _first_set_bit(ring: torch.Tensor) -> torch.Tensor:
@@ -304,9 +317,11 @@ def _seed_lane(seeds, B: int, device) -> torch.Tensor:
 
 
 def init_state(g: QueueGraph, wl: Workload, profile: TransportProfile,
-               p: SimParams, seed=DEFAULT_SEED, device=None) -> SimState:
+               p: SimParams, seed=DEFAULT_SEED, device=None,
+               link: "LinkConfig | None" = None) -> SimState:
     """The initial state of a [B, F] scenario batch (``Workload.stack``),
-    with one seed for every scenario or a [B] seed lane."""
+    with one seed for every scenario or a [B] seed lane; ``link`` sizes
+    the link-layer lanes."""
     dev = resolve_device(device)
     if wl.src.dim() != 2:
         raise ValueError(f"init_state takes a [B, F] workload (build one "
@@ -321,6 +336,8 @@ def init_state(g: QueueGraph, wl: Workload, profile: TransportProfile,
     q_pkt = torch.zeros((B, Q, C, PKT_FIELDS), **i32)
     q_pkt[..., PKT_FLOW] = -1
     zero = torch.zeros((B,), **i32)
+    llr = link is not None and link.llr
+    cbfc = link is not None and link.cbfc
     return SimState(
         q_pkt=q_pkt,
         q_head=torch.zeros((B, Q), **i32), q_len=torch.zeros((B, Q), **i32),
@@ -335,8 +352,11 @@ def init_state(g: QueueGraph, wl: Workload, profile: TransportProfile,
         cc=cc_pol.create((B, F), dev),
         lb=LBState.create(F, p.ev_slots, _seed_lane(seed, B, dev), dev),
         ev_buf=torch.zeros((B, D, E, EVF_FIELDS), **i32),
+        inc=(inc.INCState.create(F, p.inc_slots, B, dev) if profile.inc
+             else inc.INCState.empty(B, dev)),
         delivered=torch.zeros((B, F), **i32),
         trims=zero, drops=zero.clone(), dups=zero.clone(),
+        inc_reduced=zero.clone(), inc_emits=zero.clone(),
         rod_rejects=zero.clone(), retransmits=zero.clone(),
         rto=torch.full((B, F), p.timeout_ticks, **i32),
         timeouts=zero.clone(), ev_evictions=zero.clone(),
@@ -344,6 +364,13 @@ def init_state(g: QueueGraph, wl: Workload, profile: TransportProfile,
         rto_strikes=torch.zeros((B, F), **i32),
         quarantined=torch.zeros((B, F), dtype=torch.bool, device=dev),
         flows_abandoned=zero.clone(), ticks_unreachable=zero.clone(),
+        llr_busy_until=torch.zeros((B, Q if llr else 0), **i32),
+        llr_replays=zero.clone(),
+        cbfc_consumed=torch.zeros((B, Q if cbfc else 0), **i32),
+        cbfc_freed=torch.zeros((B, Q if cbfc else 0), **i32),
+        cbfc_ret=torch.zeros((B,) + ((link.credit_return_ticks, Q) if cbfc
+                                     else (0, 0)), **i32),
+        credit_stall_ticks=zero.clone(),
     )
 
 
@@ -353,15 +380,22 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
         f"port' item {item})")
 
 
-def _check_statics(profile: TransportProfile, tel, link) -> None:
+def _check_statics(tel) -> None:
     """Raise for every static not ported yet."""
     if tel is not None:
         raise _not_ported("telemetry", "9: telemetry")
-    if link is not None:
-        raise _not_ported("the link layer (LLR / CBFC)", "8: link layer")
-    if profile.inc:
-        raise _not_ported("in-network reduction (inc)", "7: INC + "
-                          "collectives")
+
+
+def _check_link(link) -> "LinkConfig | None":
+    """The ``link=`` argument as the tick takes it, as the reference's
+    ``_check_link``: None or an off spec is the pre-link-layer tick; any
+    other type is a ``TypeError``."""
+    if link is None:
+        return None
+    if not isinstance(link, LinkConfig):
+        raise TypeError(f"link= takes a LinkConfig, got "
+                        f"{type(link).__name__}")
+    return link if link.enabled else None
 
 
 def make_step(g: QueueGraph, profile: TransportProfile, p: SimParams, F: int,
@@ -391,11 +425,29 @@ def make_step(g: QueueGraph, profile: TransportProfile, p: SimParams, F: int,
     pinned paths, blacklist the EV) and ``pdc_dead_after > 0`` (that
     many consecutive zero-progress RTOs quarantine the flow). Off, each
     builds no lane of its own: the default tick is the pre-fault one.
-    ``tel``, ``link`` and INC are not ported and raise
+
+    ``profile.inc`` builds section 6b: forwarded packets about to enter
+    their destination host downlink and belonging to a reduction group
+    (``wl.red``) are offered to the ToR's accumulator contexts; absorbed
+    ones leave the enqueue set and are ACKed like deliveries. On
+    ``red = -1`` lanes it changes nothing, bitwise. ``link`` (a
+    :class:`LinkConfig`) arms the link layer: ``llr`` holds a corrupted
+    head frame in its queue for ``llr_rtt`` ticks and resends it (no
+    drop); ``cbfc`` back-pressures an enqueue without credited space in
+    place (the upstream hop keeps its frame, an injection waits with no
+    sender-state trace), with credits returning after
+    ``credit_return_ticks``. ``tel`` is not ported and raises
     ``NotImplementedError``.
     """
     dev = resolve_device(device)
-    _check_statics(profile, tel, link)
+    _check_statics(tel)
+    link = _check_link(link)
+    llr = link is not None and link.llr
+    cbfc = link is not None and link.cbfc
+    llr_rtt = int(link.llr_rtt) if llr else 0
+    Rd = int(link.credit_return_ticks) if cbfc else 1
+    mask20 = CTR_MOD - 1
+    inc_on = profile.inc
     rt = RoutingTables(g, dev)
     Q = g.num_queues
     C = p.queue_capacity
@@ -449,6 +501,17 @@ def make_step(g: QueueGraph, profile: TransportProfile, p: SimParams, F: int,
     # per batch size: [B, 1] first flat row of each scenario (queue
     # records, flows) and the [B, ...] zero lanes, made once
     consts: dict = {}
+    # INC membership of the workload last stepped: its red lane is fixed
+    # for a run, so the sort runs once per call, not per tick
+    members: dict = {}
+
+    def inc_members(wl: Workload):
+        if members.get("wl") is not wl:
+            cross = rt.host_leaf[wl.src.long()] != rt.host_leaf[wl.dst.long()]
+            members["wl"] = wl
+            members["ranks"] = inc.member_ranks(
+                wl.red, cross, (~rod_mask) if any_rod else None)
+        return members["ranks"]
 
     def batch_consts(B: int) -> dict:
         c = consts.get(B)
@@ -460,6 +523,7 @@ def make_step(g: QueueGraph, profile: TransportProfile, p: SimParams, F: int,
                 "zeros_f": torch.zeros((B, F), **i32),
                 "zeros_qf": torch.zeros((B, Q + F), **i32),
                 "no_f": torch.zeros((B, F), dtype=torch.bool, device=dev),
+                "zeros_q": torch.zeros((B, Q), **i32),
             }
         return c
 
@@ -682,33 +746,62 @@ def make_step(g: QueueGraph, profile: TransportProfile, p: SimParams, F: int,
             ev_sel = torch.where(rod_mask, lb_pol.static_ev(lbs), ev_sel)
         inj_q = rt.injection_queue(flow_src, flow_dst, ev_sel)
 
-        # sender-state commit for this tick's injections
-        rtx = kops.clear_own_bit_(rtx, rtx_off, use_rtx)
-        next_psn = torch.where(injected & ~use_rtx, next_psn + 1, next_psn)
-        lbs = _where_rows(injected & ~rod_mask if mixed_rod else injected,
-                          lbs2, lbs)
-        if evict_on:
-            # each flow's most recent EV: the path a later RTO implicates
-            # (ROD lanes included, whose pinned EV skips the commit above)
-            lbs = replace(lbs, last_ev=torch.where(injected, ev_sel,
-                                                   lbs.last_ev))
-        inflight = inflight + injected.to(I32)
-        cc_st = cc_pol.on_inject(cc_st, injected)
-        retransmits = s.retransmits + use_rtx.sum(dim=-1, dtype=I32)
+        def commit_injection(injected, use_rtx, rtx, next_psn, lbs,
+                             inflight, cc_st):
+            """Sender-state commit for this tick's injections: here with
+            CBFC off; with CBFC on after the section-7 credit gate,
+            which may cancel an injection, and a cancelled one leaves no
+            sender-state trace."""
+            rtx = kops.clear_own_bit_(rtx, rtx_off, use_rtx)
+            next_psn = torch.where(injected & ~use_rtx, next_psn + 1,
+                                   next_psn)
+            lbs = _where_rows(injected & ~rod_mask if mixed_rod
+                              else injected, lbs2, lbs)
+            if evict_on:
+                # each flow's most recent EV: the path a later RTO
+                # implicates (ROD lanes included, whose pinned EV skips
+                # the commit above)
+                lbs = replace(lbs, last_ev=torch.where(injected, ev_sel,
+                                                       lbs.last_ev))
+            inflight = inflight + injected.to(I32)
+            cc_st = cc_pol.on_inject(cc_st, injected)
+            retransmits = s.retransmits + use_rtx.sum(dim=-1, dtype=I32)
+            return rtx, next_psn, lbs, inflight, cc_st, retransmits
+
+        if not cbfc:
+            rtx, next_psn, lbs, inflight, cc_st, retransmits = \
+                commit_injection(injected, use_rtx, rtx, next_psn, lbs,
+                                 inflight, cc_st)
 
         # ------------------------------------------------- 4. forwarding
         nonempty = s.q_len > 0
-        # with the link layer off every nonempty queue transmits its head
-        txq = leaves = nonempty
+        # `txq`: the queues whose head frame reaches the next hop this
+        # tick; `leaves`: those whose head frame leaves its queue. With
+        # the link layer off both are the nonempty queues.
+        txq = nonempty
+        if llr:
+            # a queue mid-replay is re-sending its corrupted window at
+            # the link layer: nothing reaches the next hop until then
+            txq = txq & (tick >= s.llr_busy_until)
+        leaves = txq
+        llr_busy_until, llr_replays = s.llr_busy_until, s.llr_replays
         if corrupty:
             # per-transmission BER draw hashed from (seed, tick, queue),
-            # a stream independent of the gray-link draw; without the
-            # link layer's replay the corrupted frame leaves its queue
-            # and dies on the wire, a silent drop charged here
+            # a stream independent of the gray-link draw. Without LLR the
+            # corrupted frame leaves its queue and dies on the wire (a
+            # silent drop charged here); with LLR it stays at the head of
+            # its queue for a replay window and is resent, delayed,
+            # never dropped.
             uc = _mix32(_mix32(c32(tick) ^ fault.seed[:, None]
                                * c32(0x85EBCA77)) ^ queue_mix)
-            corrupt_lost = txq & ult(uc, loss_threshold(fault.corrupt_p))
-            txq = txq & ~corrupt_lost
+            corrupt_hit = txq & ult(uc, loss_threshold(fault.corrupt_p))
+            txq = txq & ~corrupt_hit
+            if llr:
+                leaves = txq
+                llr_busy_until = torch.where(corrupt_hit, tick + llr_rtt,
+                                             s.llr_busy_until)
+                llr_replays = llr_replays + corrupt_hit.sum(dim=-1,
+                                                            dtype=I32)
         head_pkt = s.q_pkt.gather(
             2, s.q_head.long()[:, :, None, None].expand(B, Q, 1, PKT_FIELDS)
         )[:, :, 0]
@@ -717,8 +810,11 @@ def make_step(g: QueueGraph, profile: TransportProfile, p: SimParams, F: int,
         # egress ECN marking: queue length at departure above threshold
         mark = txq & (s.q_len > p.ecn_threshold)
         pm = torch.where(mark, pm | META_ECN, pm)
-        q_head = torch.where(leaves, (s.q_head + 1) % C, s.q_head)
-        q_len = torch.where(leaves, s.q_len - 1, s.q_len)
+        if not cbfc:
+            # with CBFC the dequeue commit waits for the section-7 credit
+            # gate, which can hold a head frame in place
+            q_head = torch.where(leaves, (s.q_head + 1) % C, s.q_head)
+            q_len = torch.where(leaves, s.q_len - 1, s.q_len)
 
         safe_pf = torch.where(nonempty, pf, 0).long()
         nq = rt.route_step(qidx, flow_src.gather(-1, safe_pf),
@@ -786,10 +882,29 @@ def make_step(g: QueueGraph, profile: TransportProfile, p: SimParams, F: int,
         last_ooo_nack = torch.where(ooo_fire, tick, s.last_ooo_nack)
 
         # ---------------------------------- 6b. in-network reduction (INC)
-        # not ported: INC profiles raise in _check_statics
+        # forwarded packets about to enter their destination host
+        # downlink that belong to a reduction group meet the ToR's
+        # accumulator: all but the bitmap-completing child are absorbed
+        # (ACKed at the switch, out of the enqueue set); the completing
+        # child forwards as the aggregate
+        inc_st = s.inc
+        inc_reduced, inc_emits = s.inc_reduced, s.inc_emits
+        if inc_on:
+            member, grank, gsz = inc_members(wl)
+            into_host = (forward & (rt.stage[nq.clamp(0, Q - 1).long()]
+                                    == int(Stage.HOST))
+                         & ((pm & META_TRIMMED) == 0))
+            inc_st, inc_absorb, inc_emit = inc.process(
+                inc_st, lane_flow=safe_pf, lane_psn=pp, lane_cand=into_host,
+                member=member, rank=grank, gsz=gsz, red=wl.red,
+                has_delivery=has_d)
+            inc_reduced = inc_reduced + inc_absorb.sum(dim=-1, dtype=I32)
+            inc_emits = inc_emits + inc_emit.sum(dim=-1, dtype=I32)
+            forward = forward & ~inc_absorb
 
         # ------------------------------------------------- 7. enqueue phase
-        # candidates: forwarded packets (Q lanes) + injections (F lanes)
+        # candidates: forwarded packets (Q lanes, minus INC absorptions)
+        # + injections (F lanes)
         cand_q = torch.cat([torch.where(forward, nq, -1),
                             torch.where(injected, inj_q, -1)], dim=-1)
         cand_flow = torch.cat([pf, bc["flow_ids"]], dim=-1)
@@ -810,6 +925,33 @@ def make_step(g: QueueGraph, profile: TransportProfile, p: SimParams, F: int,
             is_lost = cvalid & ult(u, loss_threshold(fault.loss_p)
                                    .gather(-1, safe_cq))
             cvalid = cvalid & ~is_lost
+        credit_stall_ticks = s.credit_stall_ticks
+        if cbfc:
+            # CBFC credit gate: available = capacity - (consumed - freed)
+            # over 20-bit cyclic counters, `freed` lagging the dequeues
+            # by the credit-return delay. A candidate past its target's
+            # credited space is back-pressured in place: a forwarded
+            # frame stays in its upstream queue (its dequeue is
+            # cancelled) and an injection waits at the NIC (the deferred
+            # commit). Deliveries, absorptions and dead / gray-eaten
+            # candidates are no enqueues and bypass the gate. The stalled
+            # lanes are each target's rank suffix, so the survivors'
+            # ranks, and hence their positions, are unchanged.
+            arriving = s.cbfc_ret[:, tick % Rd]
+            freed_now = (s.cbfc_freed + arriving) & mask20
+            avail = C - ((s.cbfc_consumed - freed_now) & mask20)
+            _, crank = _rank_within(cand_q, cvalid, bc["zeros_q"], lower)
+            stall = cvalid & (crank >= avail.gather(-1, safe_cq))
+            cvalid = cvalid & ~stall
+            dequeued = leaves & ~stall[:, :Q]
+            q_head = torch.where(dequeued, (s.q_head + 1) % C, s.q_head)
+            q_len = torch.where(dequeued, s.q_len - 1, s.q_len)
+            injected = injected & ~stall[:, Q:]
+            use_rtx = use_rtx & ~stall[:, Q:]
+            rtx, next_psn, lbs, inflight, cc_st, retransmits = \
+                commit_injection(injected, use_rtx, rtx, next_psn, lbs,
+                                 inflight, cc_st)
+            credit_stall_ticks = credit_stall_ticks + stall.any(dim=-1).to(I32)
         pos, _ = _rank_within(cand_q, cvalid, q_len, lower)
         fits = cvalid & (pos < C)
         overflow = cvalid & ~fits
@@ -828,7 +970,19 @@ def make_step(g: QueueGraph, profile: TransportProfile, p: SimParams, F: int,
         q_pkt = q_flat[:B * Q * C].view(B, Q, C, PKT_FIELDS)
         hot_enq = ((cand_q[:, None, :] == qidx[:, None])
                    & fits[:, None, :])                         # [B, Q, n]
-        q_len = q_len + hot_enq.sum(dim=-1, dtype=I32)
+        added = hot_enq.sum(dim=-1, dtype=I32)
+        q_len = q_len + added
+        cbfc_consumed, cbfc_freed, cbfc_ret = \
+            s.cbfc_consumed, s.cbfc_freed, s.cbfc_ret
+        if cbfc:
+            # commit the cyclic counters: enqueues consume; this tick's
+            # dequeues become the credit update that reaches the senders
+            # `credit_return_ticks` later (the slot just read as
+            # `arriving` is exactly Rd ticks old: overwrite it)
+            cbfc_consumed = (s.cbfc_consumed + added) & mask20
+            cbfc_freed = freed_now
+            cbfc_ret = s.cbfc_ret.clone()
+            cbfc_ret[:, tick % Rd] = dequeued.to(I32)
 
         # overflow: trim (fast NACK via control TC) or drop
         n_over = overflow.sum(dim=-1, dtype=I32)
@@ -841,18 +995,22 @@ def make_step(g: QueueGraph, profile: TransportProfile, p: SimParams, F: int,
         drops = drops + is_dead.sum(dim=-1, dtype=I32)
         if lossy:
             drops = drops + is_lost.sum(dim=-1, dtype=I32)
-        if corrupty:
-            drops = drops + corrupt_lost.sum(dim=-1, dtype=I32)
+        if corrupty and not llr:
+            # corruption without link-layer replay: a silent drop
+            # charged at the transmitting hop
+            drops = drops + corrupt_hit.sum(dim=-1, dtype=I32)
         if hosty:
             drops = drops + dst_gone.sum(dim=-1, dtype=I32)
 
         # ------------------------------------------- 8. schedule control TC
         out_slot = (tick + p.ack_return_ticks) % D
-        # lanes [0, Q): ACKs from deliveries (a ROD reject becomes an OOO
-        # NACK carrying the receiver's first-gap PSN); [Q, 2Q+F): trim
-        # NACKs from enqueue overflow; [2Q+F, 2Q+2F): OOO NACKs (psn =
-        # first gap)
-        ack_lane_t = ddata.to(I32) * EV_ACK
+        # lanes [0, Q): ACKs from deliveries and from INC absorptions
+        # (the switch ACKs an absorbed child as a delivery would; a ROD
+        # reject becomes an OOO NACK carrying the receiver's first-gap
+        # PSN); [Q, 2Q+F): trim NACKs from enqueue overflow; [2Q+F,
+        # 2Q+2F): OOO NACKs (psn = first gap)
+        ack_like = (ddata | inc_absorb) if inc_on else ddata
+        ack_lane_t = ack_like.to(I32) * EV_ACK
         ack_lane_psn = pp
         if any_rod:
             rod_rej_lane = ddata & rod_rej_f.gather(-1, safe_pf)
@@ -953,12 +1111,16 @@ def make_step(g: QueueGraph, profile: TransportProfile, p: SimParams, F: int,
             rtx=rtx, last_progress=last_progress,
             slot_last_ack=slot_last_ack, dst_track=dst_track,
             last_ooo_nack=last_ooo_nack, cc=cc_st, lb=lbs, ev_buf=ev_buf,
-            delivered=delivered_ctr, trims=trims, drops=drops, dups=dups,
+            inc=inc_st, delivered=delivered_ctr, trims=trims, drops=drops,
+            dups=dups, inc_reduced=inc_reduced, inc_emits=inc_emits,
             rod_rejects=rod_rejects, retransmits=retransmits, rto=rto,
             timeouts=timeouts, ev_evictions=ev_evictions,
             ticks_degraded=ticks_degraded, rto_strikes=rto_strikes,
             quarantined=quarantined, flows_abandoned=flows_abandoned,
             ticks_unreachable=ticks_unreachable,
+            llr_busy_until=llr_busy_until, llr_replays=llr_replays,
+            cbfc_consumed=cbfc_consumed, cbfc_freed=cbfc_freed,
+            cbfc_ret=cbfc_ret, credit_stall_ticks=credit_stall_ticks,
         )
         out = {
             "delivered": fresh_f.to(I32),
@@ -1027,6 +1189,11 @@ class SimResult:
                    >= self.msg_size[None, :].astype(np.int64))
         return np.where(reached.any(0), reached.argmax(axis=0), -1)
 
+    def source_completion_tick(self) -> int:
+        """Tick by which every flow source-completed; -1 if any did not."""
+        ct = self.source_completion_ticks()
+        return -1 if bool((ct < 0).any()) else int(ct.max())
+
     def goodput(self, window: "tuple[int, int] | None" = None) -> np.ndarray:
         """Per-flow delivered packets / tick over ``[w0, min(w1,
         max_ticks))``; ticks past the horizon count as zero delivery."""
@@ -1056,7 +1223,8 @@ class SimResult:
 
     @property
     def drops(self) -> int:
-        """Silent drops: dead-link and (no-trim profiles) overflow losses."""
+        """Silent drops: dead-link, gray-link, corruption without LLR and
+        (no-trim profiles) overflow losses."""
         return int(self.state.drops)
 
     @property
@@ -1097,6 +1265,20 @@ class SimResult:
         """Executed ticks during which at least one flow sat
         quarantined."""
         return int(self.state.ticks_unreachable)
+
+    @property
+    def llr_replays(self) -> int:
+        """Frames corrupted on a BER lane and replayed at the hop by
+        link-level retry (0 unless the run had ``link=LinkConfig(
+        llr=True)``)."""
+        return int(self.state.llr_replays)
+
+    @property
+    def credit_stall_ticks(self) -> int:
+        """Executed ticks on which at least one enqueue was
+        back-pressured by CBFC credit exhaustion (0 unless
+        ``link=LinkConfig(cbfc=True)``)."""
+        return int(self.state.credit_stall_ticks)
 
     @property
     def abandon_tick(self) -> int:
@@ -1269,7 +1451,7 @@ def _results(s: SimState, st, chunks, horizon, sizes: np.ndarray,
 def _run_batch(g: QueueGraph, wls: Workload, profile: TransportProfile,
                p: SimParams, fault: FaultSchedule, seeds: np.ndarray,
                trace: str, budget: int, goodput_window,
-               dev: torch.device) -> "list[SimResult]":
+               dev: torch.device, link=None) -> "list[SimResult]":
     """One (graph, profile) group: B scenarios through one tick."""
     F = int(wls.src.shape[1])
     profile.delivery_modes(F)  # validate per-flow tuples early
@@ -1277,8 +1459,8 @@ def _run_batch(g: QueueGraph, wls: Workload, profile: TransportProfile,
     # the schedule's fault classes are statics of the tick
     step = make_step(g, profile, p, F, lossy=fault.has_loss,
                      hosty=fault.has_host_faults,
-                     corrupty=fault.has_corruption, device=dev)
-    s0 = init_state(g, wls, profile, p, seeds, device=dev)
+                     corrupty=fault.has_corruption, link=link, device=dev)
+    s0 = init_state(g, wls, profile, p, seeds, device=dev, link=link)
     w0, w1 = (0, budget) if goodput_window is None else map(int,
                                                             goodput_window)
     s, st, chunks, horizon = run_chunks(step, s0, wls, fault.to(dev),
@@ -1326,8 +1508,10 @@ def simulate(g: QueueGraph, wl: Workload,
              with ``failed``).
     trace:   "stats" (streamed stat lanes) or "full" (dense per-tick
              lanes, copied to the host once per chunk).
-    telemetry / link: not ported (raise ``NotImplementedError`` naming
-             their ROADMAP.md item).
+    link:    a :class:`LinkConfig` (LLR replay, CBFC credits); None or
+             ``LinkConfig.off()`` run the pre-link-layer tick.
+    telemetry: not ported (raises ``NotImplementedError`` naming its
+             ROADMAP.md item).
     device:  where the run lives: ``cuda`` unless given (``"cpu"`` runs
              the plain PyTorch path, as the tests do).
     """
@@ -1375,7 +1559,9 @@ def simulate_batch(g, wls, profile=None, p: "SimParams | None" = None, *,
     trace / max_ticks / goodput_window: as in :func:`simulate`. Each
              scenario stops at its own chunk boundary; a group runs
              until its slowest scenario stops.
-    shard / devices / telemetry / link: not ported (raise
+    link:    one :class:`LinkConfig` for the whole batch (a static of
+             the tick); None or ``LinkConfig.off()``: no link layer.
+    shard / devices / telemetry: not ported (raise
              ``NotImplementedError`` naming their ROADMAP.md item).
     device:  ``cuda`` unless given (``"cpu"``: the plain PyTorch path).
     """
@@ -1410,8 +1596,8 @@ def simulate_batch(g, wls, profile=None, p: "SimParams | None" = None, *,
                          f"{TRACE_MODES}")
     if p.chunk_ticks < 1:
         raise ValueError(f"chunk_ticks must be >= 1, got {p.chunk_ticks}")
-    for q in profiles or [profile]:
-        _check_statics(q, telemetry, link)
+    _check_statics(telemetry)
+    link = _check_link(link)
     budget = int(p.ticks if max_ticks is None else max_ticks)
     B, F = (int(d) for d in wls.src.shape)
     if graphs is not None and len(graphs) != B:
@@ -1432,7 +1618,7 @@ def simulate_batch(g, wls, profile=None, p: "SimParams | None" = None, *,
                                              B, g_num_hosts=g.num_hosts)
     if profiles is None and graphs is None:
         return _run_batch(g, wls, profile, p, fault, seeds, trace, budget,
-                          goodput_window, dev)
+                          goodput_window, dev, link)
     per_g = graphs if graphs is not None else [g] * B
     per_q = profiles if profiles is not None else [profile] * B
     groups: "dict[tuple, tuple]" = {}
@@ -1444,7 +1630,7 @@ def simulate_batch(g, wls, profile=None, p: "SimParams | None" = None, *,
         sub_fault = (FaultSchedule.healthy(gr.num_queues, len(idxs))
                      if fault is None else fault.lanes(sel))
         rs = _run_batch(gr, wls.lanes(sel), q, p, sub_fault, seeds[idxs],
-                        trace, budget, goodput_window, dev)
+                        trace, budget, goodput_window, dev, link)
         for i, r in zip(idxs, rs):
             results[i] = r
     return results

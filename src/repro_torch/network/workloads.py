@@ -19,8 +19,8 @@ expectations encode the paper's quantitative claims:
 
 The fault grids (``fault_sweep``, ``host_fault_sweep``,
 ``corruption_sweep``) return [B, Q] / [B, H] fault schedules beside the
-workloads. Not here yet: ``collective_sweep`` (it needs INC and the
-collective builders, ROADMAP.md "Modules to port" item 7).
+workloads; ``collective_sweep`` is the collective ablation grid (kind x
+algorithm x INC on/off x profile) as one batch.
 """
 from __future__ import annotations
 
@@ -109,6 +109,50 @@ def profile_ablation_sweep(pairs: int = 12, uplinks: int = 4,
                         name="open_loop")]
     wls = Workload.stack([wl] * len(profiles))
     return g, wls, profiles, [p.name for p in profiles], exp
+
+
+def collective_sweep(n: int = 8, size: int = 40, hosts_per_leaf: int = 2):
+    """The collective ablation grid — kind x algorithm x INC on/off x
+    transport profile — as ONE ``simulate_batch`` call.
+
+    Scenarios (15 with the defaults): all-reduce x {ring,
+    recursive_doubling, tree} x {INC off, on} under both ai_full (NSCC)
+    and ai_base (RCCC), then reduce-scatter / all-gather / all-to-all
+    (ring schedules, ai_full, INC off). Flow counts differ, so the
+    workloads are padded with inert size-0 flows
+    (``collectives.stack_padded``) into one [B, Fmax] batch. Every
+    scenario runs under an ``inc=True`` profile and the off lanes carry
+    ``red = -1`` (bitwise the ``inc=False`` tick), so INC on/off is a
+    data axis and the grid is one tick per transport profile.
+
+    ``size`` must stay <= SimParams.max_cwnd for the ai_base x INC
+    lanes: RCCC's receiver only grants credits to flows it has seen, and
+    a fully absorbed INC member never surfaces at the receiver.
+
+    Returns (g, wls [B, Fmax], profiles [B], names [B]).
+    """
+    from repro_torch.network import collectives as coll
+
+    leaves = max(2, -(-n // hosts_per_leaf))
+    g = leaf_spine(leaves=leaves, spines=4, hosts_per_leaf=hosts_per_leaf)
+    hosts = tuple(range(n))
+    grid = []
+    for prof in (TransportProfile.ai_full(), TransportProfile.ai_base()):
+        for kind, algo in (("all_reduce", "ring"),
+                           ("all_reduce", "recursive_doubling"),
+                           ("all_reduce", "tree")):
+            for inc in (False, True):
+                grid.append((prof, kind, algo, inc))
+    for kind in ("reduce_scatter", "all_gather", "all_to_all"):
+        grid.append((TransportProfile.ai_full(), kind, "ring", False))
+
+    wls, profiles, names = [], [], []
+    for prof, kind, algo, inc in grid:
+        spec = coll.CollectiveSpec(kind, hosts, size)
+        wls.append(coll.build_workload(spec, algo, inc_groups=inc))
+        profiles.append(replace(prof, inc=True, name=prof.name + "+inc"))
+        names.append(f"{prof.name}/{kind}/{algo}{'/inc' if inc else ''}")
+    return g, coll.stack_padded(wls), profiles, names
 
 
 def failure_sweep(spines: int = 4, hosts_per_leaf: int = 8,
@@ -201,11 +245,12 @@ def corruption_sweep(bers=(0.0, 0.01, 0.03, 0.08), pairs: int = 4,
                      uplinks: int = 2, size: int = 400, budget: int = 6000):
     """The link-corruption grid as one batch: the victim-share pattern
     (:func:`victim_sweep`) with a per-scenario bit-error rate on leaf
-    0's uplinks, the BER axis of the BER x LLR-on/off grid. LLR is the
-    ``link=`` static (``exp["link"]``), which the port does not run yet
-    (ROADMAP.md item 8): only the LLR-off arm runs here, where
-    corruption leaks into end-to-end recovery. The BER = 0 lane is the
-    inertness anchor. Returns (g, wls [B, F], faults [B, Q],
+    0's uplinks, the BER axis of the BER x LLR-on/off grid. The LLR axis
+    is the ``link=`` static, so it cannot ride the scenario axis: run the
+    same batch twice, with ``link=exp["link"]`` (LLR armed: corruption
+    replayed at the hop) and with ``link=None`` (corruption leaks into
+    end-to-end recovery). The BER = 0 lane is the inertness anchor:
+    there the two arms agree bitwise on every pre-link lane. Returns (g, wls [B, F], faults [B, Q],
     expectations) with ``["link"]`` / ``["cbfc"]`` the two link specs,
     ``["params"]`` the shared SimParams, ``["profile"]``, ``["bers"]`` /
     ``["names"]``, ``["uplinks"]`` and ``["budget"]``."""

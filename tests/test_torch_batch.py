@@ -276,7 +276,7 @@ def test_batch_failed_queue_masks_change_outcomes():
     (dict(shard=True), NotImplementedError),
     (dict(devices=2), NotImplementedError),
     (dict(telemetry=object()), NotImplementedError),
-    (dict(link=object()), NotImplementedError),
+    (dict(link=object()), TypeError),
     (dict(failed=np.zeros((3, 2), bool)), ValueError),
     (dict(failed=[0], faults=FaultSchedule.healthy(40)), ValueError)],
     ids=["shard", "devices", "telemetry", "link", "mask_shape", "both"])

@@ -13,8 +13,8 @@ the CPU (plain kernel versions):
 * a handover: the reference's state after 128 ticks, carried across with
   ``repro_torch.convert`` as a [1, F] batch, stepped one chunk by the
   port;
-* the statics the port does not carry yet raising, alone and beside
-  the fault statics it does.
+* the statics the port does not carry yet (telemetry) raising, alone
+  and beside the fault, INC and link-layer statics it does.
 """
 import dataclasses
 import os
@@ -29,6 +29,7 @@ from repro.network.faults import FaultSchedule as JFaults
 from repro.network.profile import TransportProfile as JProfile
 from repro_torch import convert
 from repro_torch.core.lb.schemes import LBScheme
+from repro_torch.core.link import LinkConfig
 from repro_torch.network import fabric as tf
 from repro_torch.network.profile import DeliveryMode, TransportProfile
 from repro_torch.network.topology import fat_tree3, leaf_spine
@@ -240,22 +241,29 @@ def _k6_step(profile=None, **statics):
 
 
 @pytest.mark.parametrize("statics", [
-    dict(lossy=True, tel=object()), dict(hosty=True, link=object()),
+    dict(lossy=True, tel=object()),
+    dict(hosty=True, link=LinkConfig.on(), tel=object()),
     dict(corrupty=True, tel=object()),
-    dict(tel=object()), dict(link=object())])
+    dict(tel=object()),
+    dict(link=LinkConfig.on(llr=True, cbfc=True), tel=object())])
 def test_unported_statics_raise(statics):
-    """Telemetry and the link layer raise, also beside the fault statics
-    (gray loss, host faults, corruption), which build."""
+    """Telemetry raises, also beside the fault statics (gray loss, host
+    faults, corruption) and the link layer, which build."""
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         _k6_step(**statics)
+    statics.pop("tel")
+    assert callable(_k6_step(**statics))
 
 
 @pytest.mark.parametrize("profile", [
     TransportProfile.ai_full(inc=True),
     TransportProfile.resilient(inc=True)], ids=lambda q: repr(q))
 def test_unported_profiles_raise(profile):
+    """INC profiles build a tick (ROADMAP.md item 7); telemetry beside
+    them still raises."""
+    assert callable(_k6_step(profile))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        _k6_step(profile)
+        _k6_step(profile, tel=object())
 
 
 @pytest.mark.parametrize("profile", [
@@ -285,9 +293,13 @@ def test_convert_refuses_a_live_unported_lane():
                        jf.Workload.of(K6_SRC, K6_DST, K6_SIZE),
                        JProfile.ai_full(), jf.SimParams())
     d = _jax_dict(js)
-    d["credit_stall_ticks"] = np.int32(3)
-    with pytest.raises(NotImplementedError, match="credit_stall_ticks"):
+    d["lane_the_port_lacks"] = np.int32(3)
+    with pytest.raises(NotImplementedError, match="lane_the_port_lacks"):
         convert.state_from_numpy(d, "cpu")
+    # the link-layer counters cross now (item 8)
+    del d["lane_the_port_lacks"]
+    d["credit_stall_ticks"] = np.int32(3)
+    assert int(convert.state_from_numpy(d, "cpu").credit_stall_ticks) == 3
     # the recovery lanes and every fault lane cross now (item 6)
     d = _jax_dict(js)
     d["quarantined"] = d["quarantined"].copy()

@@ -175,8 +175,8 @@ def test_named_profiles_match(name):
 @pytest.mark.parametrize("cc", ["RCCC", "NSCC_AND_RCCC", "NONE"])
 def test_unported_cc_raises(cc):
     """Every CC composition is built now, with the recovery loop
-    (ROADMAP.md item 6) too; what stays unported beside it is INC
-    (item 7), which still raises."""
+    (ROADMAP.md item 6) and INC (item 7) too; what stays unported
+    beside them is telemetry (item 9), which still raises."""
     from repro_torch.network import fabric
     from repro_torch.network.topology import leaf_spine
     algo = profile.CCAlgo[cc]
@@ -188,9 +188,12 @@ def test_unported_cc_raises(cc):
                  profile.TransportProfile(cc=algo, pdc_dead_after=4)):
         assert callable(fabric.make_step(g, prof, fabric.SimParams(), 2,
                                          device="cpu"))
-        with pytest.raises(NotImplementedError, match="item 7"):
+        assert callable(fabric.make_step(g, replace(prof, inc=True),
+                                         fabric.SimParams(), 2,
+                                         device="cpu"))
+        with pytest.raises(NotImplementedError, match="item 9"):
             fabric.make_step(g, replace(prof, inc=True), fabric.SimParams(),
-                             2, device="cpu")
+                             2, tel=object(), device="cpu")
     with pytest.raises(ValueError, match="unknown CC"):
         profile.make_cc_policy(7, nscc.NSCCParams(), 48.0)
 

@@ -5,9 +5,9 @@ on the CPU and held bitwise against the reference's run of the same call
 (stats lanes, every state lane, counters), then asserted as the
 reference asserts. The deprecated call form ``simulate(g, wl, SimParams(...))`` (the twin of
 ``tests/test_profiles.py``'s legacy-signature test), through both entry
-points. And the features still unported (telemetry, the link layer, INC)
-raising ``NotImplementedError`` naming their ROADMAP.md items 9, 8 and
-7.
+points. And the feature still unported (telemetry) raising
+``NotImplementedError`` naming its ROADMAP.md item 9, alone and beside
+the link layer and INC (items 8 and 7), which run.
 """
 import warnings
 
@@ -125,9 +125,11 @@ def test_legacy_call_form_completes_as_the_reference():
 
 @pytest.mark.parametrize("kw,item", [
     (dict(telemetry=object()), "item 9"),
-    (dict(link=LinkConfig.on(llr=True)), "item 8"),
-    (dict(profile=TransportProfile.ai_full(inc=True)), "item 7"),
-    (dict(profile=TransportProfile.resilient(inc=True)), "item 7")],
+    (dict(link=LinkConfig.on(llr=True), telemetry=object()), "item 9"),
+    (dict(profile=TransportProfile.ai_full(inc=True),
+          telemetry=object()), "item 9"),
+    (dict(profile=TransportProfile.resilient(inc=True),
+          telemetry=object()), "item 9")],
     ids=["telemetry", "link", "inc", "inc_resilient"])
 @pytest.mark.parametrize("entry", ["simulate", "simulate_batch"])
 def test_unported_features_raise_naming_their_item(entry, kw, item):
@@ -138,3 +140,8 @@ def test_unported_features_raise_naming_their_item(entry, kw, item):
             tf.SimParams(ticks=16))
     with pytest.raises(NotImplementedError, match=item):
         getattr(tf, entry)(*args, device="cpu", **kw)
+    # without telemetry the same call runs (INC and the link layer are
+    # ported)
+    del kw["telemetry"]
+    rs = getattr(tf, entry)(*args, device="cpu", **kw)
+    assert (rs if entry == "simulate" else rs[0]).horizon == 16

@@ -269,6 +269,8 @@ def test_corruption_sweep_llr_off_arm_runs_bitwise():
     assert_same_results(port, ref)
     assert port[0].drops == 0 and port[1].drops > 0
     assert all(r.completion_tick() > 0 for r in port)
-    with pytest.raises(NotImplementedError, match="item 8"):
+    # the LLR-on arm runs too (item 8, tests/test_torch_link.py); a
+    # link= that is no LinkConfig is refused, as the reference's is
+    with pytest.raises(TypeError, match="LinkConfig"):
         tf.simulate_batch(g, wls, exp["profile"], exp["params"],
-                          faults=faults, link=exp["link"], device="cpu")
+                          faults=faults, link=True, device="cpu")
