@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main path on one CUDA card and check it.
 
-    python3 chip_smoke.py [--out results.json]
+    python3 chip_smoke.py [--out results.json] [--trace flap.json]
 
 Phases, one line each:
 
@@ -114,8 +114,32 @@ Phases, one line each:
    CBFC, each tick kernel once per tick. Both phases print
    scenario-ticks per second and peak memory beside the healthy
    batch's of the same call.
-6. cross-device — the first 128-tick chunk of the ai_full run with
-   ``trace="full"`` on the card and on the CPU (plain versions), bitwise.
+   Then telemetry: the faulted batch again with
+   ``TelemetrySpec.on(probe_every=16, slots=16)`` (lane 3's ring
+   decimates three times) and the link phase's LLR + CBFC arm with
+   ``TelemetrySpec.on(probe_every=8, slots=16)`` (the ``llr`` and
+   ``stall`` channels): each lane's final state bitwise the
+   telemetry-off golden (``torch_port_faults.npz``,
+   ``torch_port_link.npz``), its whole probe carry bitwise
+   ``tests/golden/torch_port_telemetry.npz`` (the rings by the sha256 of
+   their bytes); scenario-ticks per second and peak memory beside the
+   same runs without telemetry in this call; each tick kernel once per
+   tick. Then the flap canary (``telemetry.flap_victim_scenario()``)
+   with telemetry on and off: the same final state, the outage visible
+   in the probe lanes (``assert_outage_visible``), its Perfetto JSON
+   written to ``--trace`` (default ``build/telemetry_flap.json``).
+   Then the split scenario axis: lanes 0, 1 and 3 of the faulted batch
+   with telemetry through ``shard.run_sharded`` over (cuda:0, cuda:0)
+   (B = 3, one padding lane): every lane's horizon, stat lanes, state
+   and probe carry bitwise the unsharded telemetry run's and the
+   goldens, each tick kernel once per tick of each shard, the
+   lane-ticks stepped beside the unsharded batch's; with more than one
+   card also ``shard=True`` over all of them (else it says that the
+   multi-card path is unverified).
+6. cross-device — the first ``CROSS_TICKS`` = 64 ticks of the ai_full
+   run with ``trace="full"`` on the card and on the CPU (plain versions),
+   bitwise (half a chunk: the CPU run is the script's slowest step per
+   tick).
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and the script
@@ -141,6 +165,16 @@ BATCH = ROOT / "tests" / "golden" / "torch_port_batch.npz"
 FAULTS = ROOT / "tests" / "golden" / "torch_port_faults.npz"
 INC = ROOT / "tests" / "golden" / "torch_port_inc.npz"
 LINK = ROOT / "tests" / "golden" / "torch_port_link.npz"
+TELEMETRY = ROOT / "tests" / "golden" / "torch_port_telemetry.npz"
+#: the probe rings the telemetry golden holds as sha256 digests
+TEL_RINGS = ("s_occ", "s_ecn", "s_trim", "s_drop", "s_llr", "s_stall",
+             "s_rtt", "s_cwnd")
+#: the faulted batch's lanes the shard phase splits over two shards
+SHARD_LANES = (0, 1, 3)
+#: the device the telemetry and shard phases run on
+DEV = "cuda"
+#: ticks of the cross-device phase (half of ``SimParams().chunk_ticks``)
+CROSS_TICKS = 64
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 INT_OPS_PER_S = 67e12       # H100 SXM non-tensor 32-bit rate
 F32_OPS_PER_S = 67e12       # H100 SXM non-tensor f32 rate
@@ -1103,7 +1137,43 @@ def phase_faults(batch: dict) -> dict:
     peak = torch.cuda.max_memory_allocated()
     horizons = [r.horizon for r in rs]
     _assert_launches("resilient", launches, max(horizons))
-    for b, r in enumerate(rs):
+    _faulted_vs_golden(rs, gold, budget)
+    sticks = sum(horizons)
+    res = {"b": B_MAIN, "seconds": secs, "horizons": horizons,
+           "ticks_run": max(horizons), "scenario_ticks": sticks,
+           "scenario_ticks_per_s": sticks / secs,
+           "lane_ticks_per_s": B_MAIN * max(horizons) / secs,
+           "healthy_scenario_ticks_per_s": batch["scenario_ticks_per_s"],
+           "healthy_lane_ticks_per_s": batch["lane_ticks_per_s"],
+           "peak_bytes": peak, "healthy_peak_bytes": batch["peak_bytes"],
+           "launches": launches,
+           **{k: [getattr(r, k) for r in rs] for k in (
+               "drops", "timeouts", "rtx_packets", "ev_evictions",
+               "flows_abandoned", "ticks_unreachable", "abandon_tick")}}
+    say("5 faults", f"B={B_MAIN} scenario-ticks/s "
+        f"{res['scenario_ticks_per_s']:.1f} ({sticks} scenario-ticks in "
+        f"{secs:.2f} s; all lanes stepped {max(horizons)} ticks, "
+        f"{res['lane_ticks_per_s']:.1f} lane-ticks/s) against the healthy "
+        f"batch's {batch['scenario_ticks_per_s']:.1f} scenario-ticks/s "
+        f"({batch['lane_ticks_per_s']:.1f} lane-ticks/s)")
+    say("5 faults", f"peak {peak / 2 ** 30:.2f} GiB against the healthy "
+        f"batch's {batch['peak_bytes'] / 2 ** 30:.2f} GiB")
+    say("5 faults", f"{g.name} F={wl.src.shape[0]} x B={B_MAIN} under "
+        f"{prof.describe()}: horizons {horizons}, drops {res['drops']}, "
+        f"timeouts {res['timeouts']}, evictions {res['ev_evictions']}, "
+        f"abandoned {res['flows_abandoned']} at {res['abandon_tick']}; "
+        f"every lane bitwise equal to the JAX simulate_batch golden; "
+        f"launches {launches}")
+    return res
+
+
+def _faulted_vs_golden(rs, gold, budget: int, lanes_of=None) -> None:
+    """Faulted batch lanes (golden lanes ``lanes_of``, all by default)
+    against ``tests/golden/torch_port_faults.npz``: stats, final lanes
+    (the recovery lanes included) and counters, bitwise; lane 1
+    quarantines and stops early, every other flow completes."""
+    lanes_of = range(len(rs)) if lanes_of is None else lanes_of
+    for b, r in zip(lanes_of, rs):
         s = r.state
         lanes = {
             "stat_completion": r.stat_completion,
@@ -1137,38 +1207,13 @@ def phase_faults(batch: dict) -> dict:
             assert v == int(gold[f"b{b}/{k}"]), (b, k, v)
         settled = (r.stat_completion >= 0) | lanes["quarantined"]
         assert settled.all(), f"faulted lane {b}: a live flow is unfinished"
-    dead = rs[1]
-    assert dead.flows_abandoned > 0 and dead.abandon_tick >= 0
-    assert dead.horizon < budget, "lane 1 must quiesce before the budget"
-    assert all(r.flows_abandoned == 0 for r in rs[::2]), "lanes 0 and 2"
-    assert sum(r.ev_evictions for r in rs) > 0, "no EV was evicted"
-    sticks = sum(horizons)
-    res = {"b": B_MAIN, "seconds": secs, "horizons": horizons,
-           "ticks_run": max(horizons), "scenario_ticks": sticks,
-           "scenario_ticks_per_s": sticks / secs,
-           "lane_ticks_per_s": B_MAIN * max(horizons) / secs,
-           "healthy_scenario_ticks_per_s": batch["scenario_ticks_per_s"],
-           "healthy_lane_ticks_per_s": batch["lane_ticks_per_s"],
-           "peak_bytes": peak, "healthy_peak_bytes": batch["peak_bytes"],
-           "launches": launches,
-           **{k: [getattr(r, k) for r in rs] for k in (
-               "drops", "timeouts", "rtx_packets", "ev_evictions",
-               "flows_abandoned", "ticks_unreachable", "abandon_tick")}}
-    say("5 faults", f"B={B_MAIN} scenario-ticks/s "
-        f"{res['scenario_ticks_per_s']:.1f} ({sticks} scenario-ticks in "
-        f"{secs:.2f} s; all lanes stepped {max(horizons)} ticks, "
-        f"{res['lane_ticks_per_s']:.1f} lane-ticks/s) against the healthy "
-        f"batch's {batch['scenario_ticks_per_s']:.1f} scenario-ticks/s "
-        f"({batch['lane_ticks_per_s']:.1f} lane-ticks/s)")
-    say("5 faults", f"peak {peak / 2 ** 30:.2f} GiB against the healthy "
-        f"batch's {batch['peak_bytes'] / 2 ** 30:.2f} GiB")
-    say("5 faults", f"{g.name} F={wl.src.shape[0]} x B={B_MAIN} under "
-        f"{prof.describe()}: horizons {horizons}, drops {res['drops']}, "
-        f"timeouts {res['timeouts']}, evictions {res['ev_evictions']}, "
-        f"abandoned {res['flows_abandoned']} at {res['abandon_tick']}; "
-        f"every lane bitwise equal to the JAX simulate_batch golden; "
-        f"launches {launches}")
-    return res
+        if b == 1:
+            assert r.flows_abandoned > 0 and r.abandon_tick >= 0
+            assert r.horizon < budget, "lane 1 must quiesce before the budget"
+        elif b in (0, 2):
+            assert r.flows_abandoned == 0, f"faulted lane {b}"
+    if len(rs) == B_MAIN:
+        assert sum(r.ev_evictions for r in rs) > 0, "no EV was evicted"
 
 
 def inc_workloads(device="cpu"):
@@ -1387,6 +1432,230 @@ def phase_link(batch: dict) -> dict:
     return out
 
 
+def _same_state(a, b, what: str) -> None:
+    """Two final states, every lane, bitwise."""
+    from repro_torch.convert import state_to_numpy
+    x, y = _flat(state_to_numpy(a)), _flat(state_to_numpy(b))
+    assert sorted(x) == sorted(y), what
+    for k in x:
+        _assert_bits(x[k], y[k], f"{what} {k}")
+
+
+def _tel_spec(gold, tag: str):
+    from repro_torch.network.telemetry import TelemetrySpec
+    return TelemetrySpec.on(probe_every=int(gold[f"{tag}/probe_every"]),
+                            slots=int(gold[f"{tag}/slots"]))
+
+
+def _tel_vs_golden(trace, gold, prefix: str) -> None:
+    """A lane's whole probe carry (every ring slot, stale ones included)
+    against ``tests/golden/torch_port_telemetry.npz``: the rings by the
+    sha256 of their bytes, every other lane bitwise."""
+    import hashlib
+    want = sorted(k[len(prefix) + 4:] for k in gold.files
+                  if k.startswith((prefix + "tel.", prefix + "sha.")))
+    assert sorted(trace.lanes) == want, (prefix, set(trace.lanes) ^ set(want))
+    for k, v in trace.lanes.items():
+        v = np.asarray(v)
+        if k in TEL_RINGS:
+            got = hashlib.sha256(v.tobytes()).hexdigest()
+            assert got == str(gold[f"{prefix}sha.{k}"]), (prefix, k)
+        else:
+            _assert_bits(v, gold[f"{prefix}tel.{k}"], prefix + k)
+
+
+def _same_lanes(a: dict, b: dict, what: str) -> None:
+    assert sorted(a) == sorted(b), what
+    for k in a:
+        _assert_bits(np.asarray(a[k]), np.asarray(b[k]), f"{what} {k}")
+
+
+def phase_telemetry(faults: dict, link: dict, trace_path: Path) -> dict:
+    """The probe at full width, against ``tests/golden/
+    torch_port_telemetry.npz``: the faulted batch under
+    ``TelemetrySpec.on(probe_every=16, slots=16)`` and the link phase's
+    LLR + CBFC arm under ``TelemetrySpec.on(probe_every=8, slots=16)``,
+    each lane's state bitwise the telemetry-off golden and its probe
+    carry bitwise the JAX one; then the flap canary on the card."""
+    from repro_torch.core.link import LinkConfig
+    from repro_torch.network import telemetry as telem
+    from repro_torch.network.fabric import SimParams, simulate, simulate_batch
+    from repro_torch.network.profile import TransportProfile
+    gold_t, gold_f, gold_l = (np.load(TELEMETRY), np.load(FAULTS),
+                              np.load(LINK))
+    _, g, wl, ai_full, _ = _fullsize()
+    out = {}
+    # the faulted batch
+    spec = _tel_spec(gold_t, "faults")
+    budget = int(gold_f["max_ticks"])
+    p = SimParams(timeout_ticks=int(gold_f["timeout_ticks"]),
+                  ooo_threshold=int(gold_f["ooo_threshold"]))
+    rs, secs, peak, launches = _timed_batch(lambda: simulate_batch(
+        g, [wl] * B_MAIN, TransportProfile.resilient(), p,
+        faults=fault_schedule(g), seeds=gold_f["seeds"], trace="stats",
+        max_ticks=budget, telemetry=spec, device=DEV))
+    horizons = [r.horizon for r in rs]
+    _assert_launches("resilient", launches, max(horizons))
+    _faulted_vs_golden(rs, gold_f, budget)
+    for b, r in enumerate(rs):
+        _tel_vs_golden(r.telemetry, gold_t, f"faults/b{b}/")
+    assert rs[3].telemetry.stride > 1, "lane 3's ring must decimate"
+    sticks = sum(horizons)
+    res = out["faults"] = {
+        "spec": str(spec), "seconds": secs, "horizons": horizons,
+        "scenario_ticks_per_s": sticks / secs,
+        "off_scenario_ticks_per_s": faults["scenario_ticks_per_s"],
+        "peak_bytes": peak, "off_peak_bytes": faults["peak_bytes"],
+        "launches": launches, "rs": rs,
+        "strides": [r.telemetry.stride for r in rs],
+        "samples": [r.telemetry.num_samples for r in rs]}
+    say("5 telemetry", f"faulted B={B_MAIN} with {spec}: scenario-ticks/s "
+        f"{res['scenario_ticks_per_s']:.1f} against "
+        f"{faults['scenario_ticks_per_s']:.1f} without telemetry in this "
+        f"call; peak {peak / 2 ** 30:.2f} GiB against "
+        f"{faults['peak_bytes'] / 2 ** 30:.2f} GiB; horizons {horizons}, "
+        f"strides {res['strides']}, samples {res['samples']}; every lane's "
+        f"state bitwise the telemetry-off golden and its probe carry "
+        f"bitwise the JAX one; launches {launches}")
+    # the link phase's LLR + CBFC arm
+    spec = _tel_spec(gold_t, "link")
+    rs, secs, peak, launches = _timed_batch(lambda: simulate_batch(
+        g, [wl, wl], ai_full, SimParams(ticks=int(gold_l["max_ticks"])),
+        faults=link_schedule(g), seeds=gold_l["seeds"], trace="stats",
+        link=LinkConfig.on(llr=True, cbfc=True), telemetry=spec,
+        device=DEV))
+    _assert_launches("cbfc", launches, max(r.horizon for r in rs))
+    for b, r in enumerate(rs):
+        _batch_vs_golden(r, gold_l, f"cbfc/b{b}/",
+                         ("llr_replays", "credit_stall_ticks"))
+        _tel_vs_golden(r.telemetry, gold_t, f"link/b{b}/")
+        fin = r.telemetry.final
+        assert int(fin["llr_q"].sum()) == r.llr_replays, b
+        # every stall tick stalls at least one enqueue
+        stalls = int(fin["stall_q"].sum())
+        assert stalls >= r.credit_stall_ticks and (
+            stalls > 0) == (r.credit_stall_ticks > 0), (b, stalls)
+    assert rs[0].llr_replays > 0, "the llr channel must count"
+    sticks = sum(r.horizon for r in rs)
+    res = out["link"] = {
+        "spec": str(spec), "seconds": secs,
+        "horizons": [r.horizon for r in rs],
+        "scenario_ticks_per_s": sticks / secs,
+        "off_scenario_ticks_per_s": link["cbfc"]["scenario_ticks_per_s"],
+        "peak_bytes": peak, "off_peak_bytes": link["cbfc"]["peak_bytes"],
+        "launches": launches,
+        "llr_q": [int(r.telemetry.final["llr_q"].sum()) for r in rs],
+        "stall_q": [int(r.telemetry.final["stall_q"].sum()) for r in rs]}
+    say("5 telemetry", f"LLR + CBFC B=2 with {spec}: scenario-ticks/s "
+        f"{res['scenario_ticks_per_s']:.1f} against "
+        f"{res['off_scenario_ticks_per_s']:.1f} without telemetry; peak "
+        f"{peak / 2 ** 30:.2f} GiB; llr channel {res['llr_q']}, stall "
+        f"channel {res['stall_q']}; both lanes bitwise the telemetry-off "
+        f"golden and the JAX probe carry; launches {launches}")
+    # the flap canary: visible in the probe lanes, and no perturbation
+    g2, wl2, prof, p2, sched, spec, (fail_at, heal_at) = \
+        telem.flap_victim_scenario()
+    runs = {}
+    for tag, tel in (("on", spec), ("off", None)):
+        t0 = time.perf_counter()
+        runs[tag] = simulate(g2, wl2, prof, p2, faults=sched, telemetry=tel,
+                             device=DEV)
+        torch.cuda.synchronize()
+        runs[tag + "_s"] = time.perf_counter() - t0
+    on, off = runs["on"], runs["off"]
+    assert on.horizon == off.horizon and off.telemetry is None
+    _same_state(on.state, off.state, "canary on vs off")
+    vis = telem.outage_visibility(on.telemetry, fail_at, heal_at, p2.ticks)
+    telem.assert_outage_visible(vis)
+    trace_path.parent.mkdir(parents=True, exist_ok=True)
+    on.telemetry.save_chrome_trace(str(trace_path), label="flap")
+    out["canary"] = {"seconds_on": runs["on_s"], "seconds_off": runs["off_s"],
+                     "ticks": on.horizon, "trace": str(trace_path),
+                     **{k: v for k, v in vis.items()
+                        if not isinstance(v, dict)}}
+    say("5 telemetry", f"flap canary ({g2.name}, uplinks down over "
+        f"[{fail_at}, {heal_at})): drops 0 -> {vis['drop_during']:.2f}/tick"
+        f" -> 0, goodput {vis['goodput_pre']:.2f} -> "
+        f"{vis['goodput_during']:.2f} -> {vis['goodput_post']:.2f}, heal "
+        f"trim burst {vis['trim_burst']:.2f}/tick; state bitwise the "
+        f"telemetry-off run's; {on.horizon} ticks in {runs['on_s']:.2f} s "
+        f"on / {runs['off_s']:.2f} s off; Perfetto JSON {trace_path}")
+    return out
+
+
+def phase_shard(tel: dict) -> dict:
+    """The split scenario axis: lanes 0, 1 and 3 of the faulted batch
+    with telemetry on (B = 3, ragged: one padding lane) through
+    ``shard.run_sharded`` over (cuda:0, cuda:0), bitwise the unsharded
+    telemetry phase's lanes; over every card when there are several."""
+    from repro_torch.network import shard
+    from repro_torch.network.fabric import SimParams, Workload, simulate_batch
+    from repro_torch.network.profile import TransportProfile
+    gold_t, gold_f = np.load(TELEMETRY), np.load(FAULTS)
+    _, g, wl, _, _ = _fullsize()
+    spec = _tel_spec(gold_t, "faults")
+    budget = int(gold_f["max_ticks"])
+    p = SimParams(timeout_ticks=int(gold_f["timeout_ticks"]),
+                  ooo_threshold=int(gold_f["ooo_threshold"]))
+    prof = TransportProfile.resilient()
+    sel = list(SHARD_LANES)
+    sched = fault_schedule(g).lanes(torch.as_tensor(sel))
+    seeds = np.asarray(gold_f["seeds"])[sel]
+    dev = torch.device(DEV)
+    rs, secs, peak, launches = _timed_batch(lambda: shard.run_sharded(
+        g, Workload.stack([wl] * len(sel)), prof, p, sched, seeds, "stats",
+        budget, None, (dev, dev), tel=spec))
+    base = [tel["faults"]["rs"][b] for b in sel]
+    for b, r, u in zip(sel, rs, base):
+        assert r.horizon == u.horizon, (b, r.horizon, u.horizon)
+        for k in ("stat_completion", "stat_src_completion",
+                  "stat_win_delivered"):
+            _assert_bits(getattr(r, k), getattr(u, k), f"shard lane {b} {k}")
+        assert (r.qlen_peak, r.abandon_tick) == (u.qlen_peak, u.abandon_tick)
+        _same_state(r.state, u.state, f"shard lane {b}")
+        _same_lanes(r.telemetry.lanes, u.telemetry.lanes,
+                    f"shard lane {b} probe carry")
+        _tel_vs_golden(r.telemetry, gold_t, f"faults/b{b}/")
+    _faulted_vs_golden(rs, gold_f, budget, lanes_of=sel)
+    # each shard steps its own lanes to its own stop: shard 0 holds lanes
+    # 0 and 1, shard 1 lane 3 and the padding lane, which stops at the
+    # first chunk boundary
+    shard_ticks = [max(rs[0].horizon, rs[1].horizon),
+                   max(rs[2].horizon, min(p.chunk_ticks, budget))]
+    _assert_launches("resilient", launches, sum(shard_ticks))
+    lane_ticks = 2 * sum(shard_ticks)
+    unsharded = B_MAIN * max(r.horizon for r in tel["faults"]["rs"])
+    res = {"lanes": sel, "devices": [str(dev)] * 2, "seconds": secs,
+           "peak_bytes": peak, "launches": launches,
+           "shard_ticks": shard_ticks, "lane_ticks": lane_ticks,
+           "unsharded_lane_ticks": unsharded,
+           "horizons": [r.horizon for r in rs]}
+    say("5 shard", f"faulted lanes {sel} with {spec} over 2 shards on "
+        f"{dev} (one padding lane): every lane's horizon, stat lanes, state "
+        f"and probe carry bitwise the unsharded run's and the goldens; "
+        f"shards stepped {shard_ticks} ticks, {lane_ticks} lane-ticks "
+        f"against the unsharded B={B_MAIN} batch's {unsharded}; "
+        f"{secs:.2f} s; launches {launches}")
+    ncards = torch.cuda.device_count()
+    if ncards > 1:
+        shd = simulate_batch(g, [wl] * len(sel), prof, p, faults=sched,
+                             seeds=seeds, max_ticks=budget, telemetry=spec,
+                             shard=True, device=DEV)
+        for b, r, u in zip(sel, shd, base):
+            assert r.horizon == u.horizon, b
+            _same_state(r.state, u.state, f"multi-card lane {b}")
+            _same_lanes(r.telemetry.lanes, u.telemetry.lanes,
+                        f"multi-card lane {b} probe carry")
+        res["multi_card"] = ncards
+        say("5 shard", f"shard=True over {ncards} cards: bitwise the "
+            f"unsharded lanes")
+    else:
+        res["multi_card"] = None
+        say("5 shard", "one card: shard=True over several cards is "
+            "unverified in this run")
+    return res
+
+
 def _assert_launches(tag: str, launches: dict, ticks: int) -> None:
     """Each tick kernel launched ``PER_TICK[tag]`` times a tick, and no
     entry-point form on the tick."""
@@ -1565,30 +1834,21 @@ def phase_entry_points(states: dict) -> dict:
 
 
 def phase_cross_device() -> dict:
-    from repro_torch.convert import state_to_numpy
     from repro_torch.network.fabric import simulate
     _, g, wl, prof, p = _fullsize()
     secs, runs = {}, {}
     for dev in ("cuda", "cpu"):
         t0 = time.perf_counter()
         runs[dev] = simulate(g, wl, prof, p, trace="full",
-                             max_ticks=p.chunk_ticks, device=dev)
+                             max_ticks=CROSS_TICKS, device=dev)
         secs[dev] = time.perf_counter() - t0
     a, b = runs["cuda"], runs["cpu"]
-    assert a.horizon == b.horizon == p.chunk_ticks
+    assert a.horizon == b.horizon == CROSS_TICKS
     for lane in ("delivered_per_tick", "cwnd_per_tick", "qlen_max",
                  "rx_base_per_tick", "src_base_per_tick"):
         _assert_bits(getattr(a, lane), getattr(b, lane), lane)
-    sa, sb = state_to_numpy(a.state), state_to_numpy(b.state)
-
-    def walk(x, y, path):
-        if isinstance(x, dict):
-            for k in x:
-                walk(x[k], y[k], f"{path}.{k}")
-        else:
-            _assert_bits(x, y, path)
-    walk(sa, sb, "state")
-    say("6 cross-device", f"first {p.chunk_ticks}-tick chunk at full width "
+    _same_state(a.state, b.state, "state")
+    say("6 cross-device", f"first {CROSS_TICKS} ticks at full width "
         f"bitwise equal on cuda and cpu (every out lane and state field; "
         f"cuda {secs['cuda']:.2f} s, cpu {secs['cpu']:.2f} s)")
     return {"seconds": secs}
@@ -1596,6 +1856,9 @@ def phase_cross_device() -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--trace", type=Path,
+                    default=ROOT / "build" / "telemetry_flap.json",
+                    help="where the flap canary's Perfetto JSON goes")
     ap.add_argument("--out", type=Path, default=None,
                     help="also write every phase's numbers to this JSON file")
     args = ap.parse_args(argv)
@@ -1610,6 +1873,11 @@ def main(argv=None) -> int:
     result["faults"] = phase_faults(result["batch"])
     result["collectives"] = phase_collectives(result["batch"])
     result["link"] = phase_link(result["batch"])
+    result["telemetry"] = phase_telemetry(result["faults"], result["link"],
+                                          args.trace)
+    result["shard"] = phase_shard(result["telemetry"])
+    # the results' device states are not kept past the phases that read them
+    del result["telemetry"]["faults"]["rs"]
     result["profiles"], states = phase_profiles()
     result["entry_points"] = phase_entry_points(states)
     result["cross_device"] = phase_cross_device()
@@ -1631,6 +1899,11 @@ def main(argv=None) -> int:
                 "launches": result["collectives"]["launches"][name]}
             row["link"] = {k: {"launches": v["launches"][name]}
                            for k, v in result["link"].items()}
+            # and with telemetry on, and on the split scenario axis
+            row["telemetry"] = {
+                k: {"launches": result["telemetry"][k]["launches"][name]}
+                for k in ("faults", "link")}
+            row["shard"] = {"launches": result["shard"]["launches"][name]}
         kernels.append(row)
     result["seconds"] = time.perf_counter() - t0
     if args.out is not None:

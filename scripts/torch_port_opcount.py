@@ -28,8 +28,13 @@ groups' ``red`` ids when b is even and ``red = -1`` when it is odd, as
 ``cbfc=True``) and even scenarios 1 % BER on edge switch 1's uplinks,
 as its link phase does.
 
+With ``--telemetry`` the same ticks are counted again with
+``TelemetrySpec.on(probe_every=16, slots=16)``: the tick's probe plus
+the probe carry's update (``repro_torch.network.telemetry``), split into
+probe ticks (a multiple of ``probe_every``) and the others.
+
     PYTHONPATH=src python3 scripts/torch_port_opcount.py [--ticks 32] \
-        [--batch 1] [--faulted | --inc | --link llr|cbfc]
+        [--batch 1] [--faulted | --inc | --link llr|cbfc] [--telemetry]
 
 Run with another tree's ``src`` on ``PYTHONPATH`` to count that tree.
 """
@@ -47,10 +52,13 @@ from repro_torch.core.link import LinkConfig
 from repro_torch.kernels import ops
 from repro_torch.network import collectives as coll
 from repro_torch.network import fabric
+from repro_torch.network import telemetry as telem
 from repro_torch.network.faults import FaultSchedule
 from repro_torch.network.profile import TransportProfile
 from repro_torch.network.topology import fat_tree3
 
+#: the probe spec of ``--telemetry`` (chip_smoke.py's faulted telemetry run)
+TEL_SPEC = telem.TelemetrySpec.on(probe_every=16, slots=16)
 KERNEL_ENTRIES = ("sack_fused", "sack_advance", "nack_mark",
                   "sack_fused_own", "sack_advance_own", "nack_mark_lanes_",
                   "set_own_bit_", "clear_own_bit_")
@@ -75,6 +83,7 @@ def main() -> int:
     ap.add_argument("--faulted", action="store_true")
     ap.add_argument("--inc", action="store_true")
     ap.add_argument("--link", choices=("llr", "cbfc"), default=None)
+    ap.add_argument("--telemetry", action="store_true")
     args = ap.parse_args()
     g = fat_tree3(k=6, pods=3)
     h = np.arange(27, dtype=np.int32)
@@ -124,15 +133,6 @@ def main() -> int:
         fault = FaultSchedule.healthy(g.num_queues, batch=B, device="cpu")
     if args.inc:
         prof = replace(prof, inc=True, name=prof.name + "+inc")
-    step = fabric.make_step(g, prof, p, int(wl.src.shape[1]),
-                            lossy=fault.has_loss,
-                            hosty=fault.has_host_faults,
-                            corrupty=fault.has_corruption, link=link,
-                            device="cpu")
-    s = fabric.init_state(g, wl, prof, p, fabric.DEFAULT_SEED + np.arange(B),
-                          device="cpu", link=link)
-    for tick in range(args.ticks):            # past the start-up ticks
-        s, _ = step(s, tick, wl, fault)
     count = _Count()
     for name in KERNEL_ENTRIES:
         fn = getattr(ops, name, None)
@@ -146,15 +146,48 @@ def main() -> int:
             finally:
                 count.paused = False
         setattr(ops, name, paused)
-    with count:
-        for tick in range(args.ticks, 2 * args.ticks):
-            s, _ = step(s, tick, wl, fault)
-    print(f"{g.name} F={int(wl.src.shape[1])} B={args.batch} "
-          f"{prof.name}{' faulted' if args.faulted else ''}"
-          f"{'' if link is None else f' link={args.link}'}: "
-          f"{count.n / args.ticks:.1f} ATen ops per tick outside the kernel "
-          f"entry points (ticks {args.ticks}..{2 * args.ticks - 1}, "
-          f"torch {torch.__version__}, CPU)")
+    F = int(wl.src.shape[1])
+    label = (f"{g.name} F={F} B={args.batch} {prof.name}"
+             f"{' faulted' if args.faulted else ''}"
+             f"{'' if link is None else f' link={args.link}'}")
+    specs = [None] + ([TEL_SPEC] if args.telemetry else [])
+    per_tick = {}
+    for tel in specs:
+        step = fabric.make_step(g, prof, p, F, lossy=fault.has_loss,
+                                hosty=fault.has_host_faults,
+                                corrupty=fault.has_corruption, link=link,
+                                tel=tel, device="cpu")
+        tel_up = (None if tel is None else
+                  telem.make_update(tel, g.num_queues, F, "cpu"))
+        carry = (None if tel is None else
+                 telem.create(tel, B, g.num_queues, F, "cpu"))
+        s = fabric.init_state(g, wl, prof, p,
+                              fabric.DEFAULT_SEED + np.arange(B),
+                              device="cpu", link=link)
+        counts = {}
+        for tick in range(2 * args.ticks):   # count past the start-up ticks
+            count.n = 0
+            with count:
+                s2, out = step(s, tick, wl, fault)
+                if tel_up is not None:
+                    carry = tel_up(carry, s2, out["probe"], tick)
+            s = s2
+            if tick >= args.ticks:
+                counts[tick] = count.n
+        per_tick[tel] = counts
+        n = sum(counts.values()) / len(counts)
+        print(f"{label}{'' if tel is None else ' telemetry'}: {n:.1f} ATen "
+              f"ops per tick outside the kernel entry points (ticks "
+              f"{args.ticks}..{2 * args.ticks - 1}, torch {torch.__version__},"
+              f" CPU)")
+    if args.telemetry:
+        off, on = per_tick[None], per_tick[TEL_SPEC]
+        pe = TEL_SPEC.probe_every
+        for name, ticks in (("probe ticks", [t for t in on if t % pe == 0]),
+                            ("other ticks", [t for t in on if t % pe])):
+            d = [on[t] - off[t] for t in ticks]
+            print(f"{label}: telemetry (probe_every {pe}) adds "
+                  f"{np.mean(d):.1f} ops on {name} ({len(ticks)} ticks)")
     return 0
 
 

@@ -28,6 +28,13 @@ it is its link phase: the two permutations under
 ``LinkConfig.on(llr=True)`` (and ``cbfc=True``), even scenarios with
 1 % BER on edge 1's uplinks (``chip_smoke.link_schedule``).
 
+With ``--telemetry`` the whole measurement runs four times in the same
+call, in turns: without, with, with and without
+``TelemetrySpec.on(probe_every=16, slots=16)`` (the tick's probe plus
+the per-tick ring update of ``repro_torch.network.telemetry``, as
+``chip_smoke.py``'s telemetry phase runs them), and reports each run and
+the difference of the means.
+
 It reports the per-window wall times and, for the profiled window, the
 device busy time per tick (the sum of the device time of every kernel,
 memset and copy; one stream, so they do not overlap), the device's idle
@@ -37,7 +44,7 @@ run, and the ten largest device-time consumers. A tick of B scenarios
 is B scenario-ticks.
 
     PYTHONPATH=src python3 scripts/torch_port_profile.py [--batch B] \
-        [--faulted | --inc | --link llr|cbfc] [--out FILE]
+        [--faulted | --inc | --link llr|cbfc] [--telemetry] [--out FILE]
 
 Needs a CUDA card; imports nothing of JAX.
 """
@@ -62,12 +69,17 @@ from repro_torch.core.link import LinkConfig
 from repro_torch.kernels import ops
 from repro_torch.network import fabric
 from repro_torch.network.faults import FaultSchedule
+from repro_torch.network import telemetry as telem
 from repro_torch.network.profile import TransportProfile
 from repro_torch.network.topology import fat_tree3
 
 sys.path.insert(0, str(ROOT))
 from chip_smoke import (fault_schedule, inc_workloads,  # noqa: E402
                         link_schedule)
+
+
+#: the probe spec of ``--telemetry`` (chip_smoke.py's faulted telemetry run)
+TEL_SPEC = telem.TelemetrySpec.on(probe_every=16, slots=16)
 
 
 def main() -> int:
@@ -78,6 +90,7 @@ def main() -> int:
     ap.add_argument("--faulted", action="store_true")
     ap.add_argument("--inc", action="store_true")
     ap.add_argument("--link", choices=("llr", "cbfc"), default=None)
+    ap.add_argument("--telemetry", action="store_true")
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -86,6 +99,31 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(smi)
+    if not args.telemetry:
+        res = measure(args, smi, None)
+    else:
+        order = (None, TEL_SPEC, TEL_SPEC, None)
+        res = {"runs": [measure(args, smi, tel) for tel in order]}
+        keys = ("device_ops_per_tick", "device_busy_ms_per_tick",
+                "wall_ms_per_tick_mean", "profiled_wall_ms_per_tick",
+                "peak_bytes")
+        mean = {tag: {k: float(np.mean([r[k] for r, tel in zip(
+            res["runs"], order) if (tel is None) == (tag == "off")]))
+            for k in keys} for tag in ("off", "telemetry")}
+        res["telemetry_cost"] = {k: mean["telemetry"][k] - mean["off"][k]
+                                 for k in keys}
+        print(f"telemetry {TEL_SPEC}, runs off / on / on / off: "
+              f"{res['telemetry_cost']}")
+    if args.out is not None:
+        args.out.parent.mkdir(parents=True, exist_ok=True)
+        args.out.write_text(json.dumps(res, indent=1))
+    return 0
+
+
+def measure(args, smi: str, tel) -> dict:
+    """One configuration's unprofiled and profiled runs; ``tel`` an
+    enabled TelemetrySpec or None."""
     dev = torch.device("cuda")
     g = fat_tree3(k=16, pods=16)
     h = np.arange(1024, dtype=np.int32)
@@ -120,12 +158,24 @@ def main() -> int:
     step = fabric.make_step(g, prof_, p, F, lossy=fault.has_loss,
                             hosty=fault.has_host_faults,
                             corrupty=fault.has_corruption, link=link,
-                            device=dev)
+                            tel=tel, device=dev)
+    if tel is not None:
+        # the tick and the probe carry's update, as the driver runs them
+        tel_up = telem.make_update(tel, g.num_queues, F, dev)
+        bare = step
+
+        def step(s, tick, wl, fault):
+            ns, out = bare(s, tick, wl, fault)
+            carry["tel"] = tel_up(carry["tel"], ns, out["probe"], tick)
+            return ns, out
+    carry: dict = {}
     seeds = fabric.DEFAULT_SEED + np.arange(B)
     n = args.window
 
     # 1. unprofiled, windowed wall time over the whole run
     s = fabric.init_state(g, wl, prof_, p, seeds, device=dev, link=link)
+    if tel is not None:
+        carry["tel"] = telem.create(tel, B, g.num_queues, F, dev)
     windows, tick = [], 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -143,6 +193,8 @@ def main() -> int:
 
     # 2. one profiled window from a fresh state
     s = fabric.init_state(g, wl, prof_, p, seeds, device=dev, link=link)
+    if tel is not None:
+        carry["tel"] = telem.create(tel, B, g.num_queues, F, dev)
     for tick in range(args.warm):
         s, _ = step(s, tick, wl, fault)
     torch.cuda.synchronize()
@@ -167,6 +219,7 @@ def main() -> int:
         "nvidia_smi": smi, "config": g.name, "flows": F, "batch": B,
         "profile": prof_.describe(), "faulted": args.faulted,
         "inc": args.inc, "link": args.link,
+        "telemetry": None if tel is None else str(tel),
         "window_ticks": n, "ticks_run": ticks_run, "peak_bytes": peak,
         "scenario_ticks_per_s_by_window": [B * 1e3 / w for w in windows],
         "wall_ms_per_tick_by_window": windows,
@@ -180,10 +233,10 @@ def main() -> int:
         "kernel_launches": dict(ops.LAUNCHES),
         "top_device_us_per_tick": [[k[:160], v / n] for k, v in top],
     }
-    print(smi)
     print(f"{g.name} F={F} B={B} {prof_.describe()}"
           f"{' faulted' if args.faulted else ''}"
-          f"{'' if link is None else f' link={args.link}'}: "
+          f"{'' if link is None else f' link={args.link}'}"
+          f"{'' if tel is None else ' telemetry'}: "
           f"{ticks_run} ticks, peak "
           f"{peak / 2 ** 30:.2f} GiB, wall ms/tick by {n}-tick "
           f"window {[round(w, 2) for w in windows]}")
@@ -193,10 +246,7 @@ def main() -> int:
           f"{res['device_ops_per_tick']:.0f} device ops/tick")
     for name, us in res["top_device_us_per_tick"]:
         print(f"  {us:9.2f} us/tick  {name}")
-    if args.out is not None:
-        args.out.parent.mkdir(parents=True, exist_ok=True)
-        args.out.write_text(json.dumps(res, indent=1))
-    return 0
+    return res
 
 
 if __name__ == "__main__":

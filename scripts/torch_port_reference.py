@@ -4,8 +4,9 @@ width: ``tests/golden/torch_port_fullsize.npz``,
 ``tests/golden/torch_port_profiles.npz``,
 ``tests/golden/torch_port_batch.npz``,
 ``tests/golden/torch_port_faults.npz``,
-``tests/golden/torch_port_inc.npz`` and
-``tests/golden/torch_port_link.npz``.
+``tests/golden/torch_port_inc.npz``,
+``tests/golden/torch_port_link.npz`` and
+``tests/golden/torch_port_telemetry.npz``.
 
 Both use the port's full-width fabric (``chip_smoke.py`` phase 5): a full
 3-tier k=16 fat tree (``fat_tree3(k=16, pods=16)``: 1024 endpoints, 320
@@ -58,13 +59,17 @@ downlink takes a 2:1 incast — under ``SimParams()`` with
   ``SimParams(ticks=4096)``: with ``link=LinkConfig.on(llr=True)``
   (tag ``llr``) and with ``LinkConfig.on(llr=True, cbfc=True)`` (tag
   ``cbfc``).
+* ``telemetry``: the ``faults`` batch with
+  ``telemetry=TelemetrySpec.on(probe_every=16, slots=16)`` (tag
+  ``faults``) and the ``link`` run's LLR + CBFC arm with
+  ``TelemetrySpec.on(probe_every=8, slots=16)`` (tag ``link``).
 
 This script imports the JAX package and is not part of the port. It
 runs on the CPU (about five minutes per one-scenario run on a few
 cores):
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/torch_port_reference.py \
-        [--which fullsize|profiles|batch|faults|inc|link]
+        [--which fullsize|profiles|batch|faults|inc|link|telemetry]
 
 ``fullsize`` holds the workload lanes (``src``, ``dst``, ``size``), the
 per-flow stats and final lanes (``stat_completion``,
@@ -109,9 +114,22 @@ lane ``b<i>``: ``t/b<i>/horizon``, the stats lanes, ``llr_replays``,
 ``credit_stall_ticks``, ``trims``, ``drops`` and the other scalars of
 ``fullsize``, and every final state lane but the packet and event
 buffers as ``t/b<i>/state.<dotted path>``; and ``t/cpu_seconds``.
+
+``telemetry`` holds, per tag ``t`` (``faults``, ``link``): the spec's
+``t/probe_every`` and ``t/slots``, ``t/cpu_seconds``, and per lane
+``b<i>``: ``horizon``; the ring bookkeeping ``tel.n``, ``tel.stride``,
+``tel.stamp``; the gauge rings ``tel.s_inflight``, ``tel.s_degraded``,
+``tel.s_delivered`` and the final accumulators ``tel.ewma_q``,
+``tel.peak_q``, ``tel.ecn_q``, ``tel.trim_q``, ``tel.drop_q``,
+``tel.llr_q``, ``tel.stall_q``, ``tel.rtt_f`` in full; every [S, Q] /
+[S, F] ring (``s_occ``, ``s_ecn``, ``s_trim``, ``s_drop``, ``s_llr``,
+``s_stall``, ``s_rtt``, ``s_cwnd``) as ``sha.<name>``, the hex sha256
+of its C-order bytes; and ``trims``, ``drops``, ``llr_replays``,
+``credit_stall_ticks``.
 """
 import argparse
 import dataclasses
+import hashlib
 import time
 from dataclasses import replace
 from pathlib import Path
@@ -126,6 +144,7 @@ from repro.network.fabric import (SimParams, Workload, simulate,
                                   simulate_batch)
 from repro.network.faults import FaultSchedule
 from repro.network.profile import CCAlgo, DeliveryMode, TransportProfile
+from repro.network.telemetry import TelemetrySpec
 from repro.network.topology import fat_tree3
 
 REPO = Path(__file__).resolve().parent.parent
@@ -136,6 +155,13 @@ OUT_BATCH = GOLDEN / "torch_port_batch.npz"
 OUT_FAULTS = GOLDEN / "torch_port_faults.npz"
 OUT_INC = GOLDEN / "torch_port_inc.npz"
 OUT_LINK = GOLDEN / "torch_port_link.npz"
+OUT_TELEMETRY = GOLDEN / "torch_port_telemetry.npz"
+#: the telemetry runs' specs, by tag
+TEL_SPECS = {"faults": TelemetrySpec.on(probe_every=16, slots=16),
+             "link": TelemetrySpec.on(probe_every=8, slots=16)}
+#: ring lanes the telemetry reference stores as sha256 digests
+TEL_RINGS = ("s_occ", "s_ecn", "s_trim", "s_drop", "s_llr", "s_stall",
+             "s_rtt", "s_cwnd")
 INC_GROUPS = 32               # concurrent tree all-reduces
 INC_RANKS = 32                # hosts per group
 INC_SIZE = 32                 # packets per rank
@@ -493,6 +519,86 @@ def write_link(path: Path) -> None:
     print(f"{g.name}: link arms {tuple(link_arms())} -> {path}")
 
 
+def ring_digest(a) -> str:
+    """The hex sha256 of an array's C-order bytes."""
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def telemetry_lanes(tel: dict) -> dict:
+    """One lane's probe carry as the ``telemetry`` reference stores it:
+    rings as digests, everything else in full."""
+    out = {}
+    for k, v in tel.items():
+        v = np.asarray(v)
+        if k in TEL_RINGS:
+            out[f"sha.{k}"] = np.asarray(ring_digest(v))
+        else:
+            out[f"tel.{k}"] = v
+    return out
+
+
+def write_telemetry(path: Path) -> None:
+    from repro.network import fabric as jfab
+    g = fat_tree3(k=16, pods=16)
+    src, dst, size = workload_lanes()
+    wl = Workload.of(src, dst, size)
+    seeds = np.asarray(BATCH_SEEDS, np.uint32)
+    carries: list = []
+    # the probe carry (all S slots of every ring) as the driver hands it
+    # to FabricTrace.from_lanes, captured per lane
+    orig = jfab.telem.FabricTrace.from_lanes
+
+    def capture(spec, tel, horizon):
+        carries.append({k: np.asarray(v) for k, v in tel.items()})
+        return orig(spec, tel, horizon)
+
+    jfab.telem.FabricTrace.from_lanes = staticmethod(capture)
+    out: dict = {}
+    try:
+        runs = {
+            "faults": lambda spec: simulate_batch(
+                g, Workload.stack([wl] * len(BATCH_SEEDS)),
+                TransportProfile.resilient(),
+                SimParams(timeout_ticks=FAULT_TIMEOUT,
+                          ooo_threshold=FAULT_OOO),
+                faults=faults_schedule(g), seeds=seeds, trace="stats",
+                max_ticks=FAULT_TICKS, telemetry=spec),
+            "link": lambda spec: simulate_batch(
+                g, Workload.stack([wl, wl]), TransportProfile.ai_full(),
+                SimParams(ticks=MAX_TICKS), faults=link_schedule(g),
+                seeds=seeds[:2], trace="stats",
+                link=link_arms()["cbfc"], telemetry=spec),
+        }
+        for tag, run in runs.items():
+            spec = TEL_SPECS[tag]
+            carries.clear()
+            t0 = time.perf_counter()
+            rs = run(spec)
+            out[f"{tag}/cpu_seconds"] = np.float64(time.perf_counter() - t0)
+            out[f"{tag}/probe_every"] = np.int64(spec.probe_every)
+            out[f"{tag}/slots"] = np.int64(spec.slots)
+            for b, (r, tel) in enumerate(zip(rs, carries)):
+                per = {"horizon": np.int64(r.horizon),
+                       "trims": np.int64(r.trims), "drops": np.int64(r.drops),
+                       "llr_replays": np.int64(r.llr_replays),
+                       "credit_stall_ticks": np.int64(r.credit_stall_ticks),
+                       **telemetry_lanes(tel)}
+                out.update({f"{tag}/b{b}/{k}": v for k, v in per.items()})
+                print(f"{tag} lane {b}: horizon={r.horizon} samples="
+                      f"{int(tel['n'])} stride={int(tel['stride'])} "
+                      f"marks={int(tel['ecn_q'].sum())} trims="
+                      f"{int(tel['trim_q'].sum())} drops="
+                      f"{int(tel['drop_q'].sum())} llr="
+                      f"{int(tel['llr_q'].sum())} stalls="
+                      f"{int(tel['stall_q'].sum())}", flush=True)
+            print(f"{tag}: {out[f'{tag}/cpu_seconds']:.1f} s", flush=True)
+    finally:
+        jfab.telem.FabricTrace.from_lanes = staticmethod(orig)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    np.savez_compressed(path, **out)
+    print(f"{g.name}: telemetry runs {tuple(runs)} -> {path}")
+
+
 def write_profiles(path: Path) -> None:
     out = {}
     for tag in ("hpc", "base", "mixed"):
@@ -506,7 +612,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--which", default="fullsize",
                     choices=("fullsize", "profiles", "batch", "faults",
-                             "inc", "link"))
+                             "inc", "link", "telemetry"))
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args()
     if args.which == "fullsize":
@@ -519,6 +625,8 @@ def main() -> int:
         write_inc(args.out or OUT_INC)
     elif args.which == "link":
         write_link(args.out or OUT_LINK)
+    elif args.which == "telemetry":
+        write_telemetry(args.out or OUT_TELEMETRY)
     else:
         write_profiles(args.out or OUT_PROFILES)
     return 0

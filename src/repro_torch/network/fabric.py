@@ -45,8 +45,11 @@ schedule or the profile, so a run without it builds the tick without its
 lanes. So do in-network reduction (``inc=True`` profiles: the ToR's
 accumulator contexts of ``repro_torch.core.inc``, section 6b) and the
 link layer (``link=LinkConfig(...)``: LLR replay at the hop in section
-4, the CBFC credit gate in section 7). Telemetry and sharding raise
-``NotImplementedError`` naming their ROADMAP.md item. uint32 lanes are
+4, the CBFC credit gate in section 7) and the telemetry probe
+(``telemetry=TelemetrySpec.on(...)``: per-queue event counts, per-flow
+RTT and cwnd, riding the stats carry; ``repro_torch.network.telemetry``).
+``simulate_batch(shard=, devices=)`` splits the scenario axis across
+devices (``repro_torch.network.shard``). uint32 lanes are
 int32 bit patterns (``_u32``; the 20-bit CBFC counters are masked to
 ``CTR_MOD``); JAX's clamped gathers and dropped scatters are written
 out as clamps and masks.
@@ -78,6 +81,8 @@ from repro_torch.network.faults import (FaultSchedule, as_schedule,
                                         failed_to_mask, loss_threshold)
 from repro_torch.network.profile import (DeliveryMode, TransportProfile,
                                          make_cc_policy)
+from repro_torch.network import telemetry as telem
+from repro_torch.network.telemetry import TelemetrySpec
 from repro_torch.network.topology import QueueGraph, Stage
 
 # packet meta bits
@@ -374,16 +379,23 @@ def init_state(g: QueueGraph, wl: Workload, profile: TransportProfile,
     )
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP.md, 'Modules to "
-        f"port' item {item})")
-
-
-def _check_statics(tel) -> None:
-    """Raise for every static not ported yet."""
-    if tel is not None:
-        raise _not_ported("telemetry", "9: telemetry")
+def _check_telemetry(telemetry, trace: str) -> "TelemetrySpec | None":
+    """The ``telemetry=`` argument as the driver takes it, as the
+    reference's ``_check_telemetry``: None or an off spec is the
+    pre-telemetry tick; any other type is a ``TypeError``; an enabled
+    spec needs ``trace="stats"``."""
+    if telemetry is None:
+        return None
+    if not isinstance(telemetry, TelemetrySpec):
+        raise TypeError(f"telemetry= takes a TelemetrySpec, got "
+                        f"{type(telemetry).__name__}")
+    if not telemetry.enabled:
+        return None
+    if trace != "stats":
+        raise ValueError(
+            "telemetry lanes ride the streaming stats carry — enabled "
+            "TelemetrySpec requires trace='stats'")
+    return telemetry
 
 
 def _check_link(link) -> "LinkConfig | None":
@@ -436,11 +448,16 @@ def make_step(g: QueueGraph, profile: TransportProfile, p: SimParams, F: int,
     drop); ``cbfc`` back-pressures an enqueue without credited space in
     place (the upstream hop keeps its frame, an injection waits with no
     sender-state trace), with credits returning after
-    ``credit_return_ticks``. ``tel`` is not ported and raises
-    ``NotImplementedError``.
+    ``credit_return_ticks``. ``tel`` (an enabled
+    :class:`TelemetrySpec`) adds the ``probe`` dict to the out lanes:
+    per-queue event counts (``telemetry.queue_events``: egress ECN marks,
+    trims and silent drops on the enqueue lanes split as the profile
+    trims, corruption drops at the transmitting queue without LLR, LLR
+    replays, CBFC stalls at their target), each flow's RTT sample and
+    cwnd. Off, no probe lane is built.
     """
     dev = resolve_device(device)
-    _check_statics(tel)
+    tel_on = tel is not None and tel.enabled
     link = _check_link(link)
     llr = link is not None and link.llr
     cbfc = link is not None and link.cbfc
@@ -525,6 +542,8 @@ def make_step(g: QueueGraph, profile: TransportProfile, p: SimParams, F: int,
                 "no_f": torch.zeros((B, F), dtype=torch.bool, device=dev),
                 "zeros_q": torch.zeros((B, Q), **i32),
             }
+            if tel_on:
+                c["tel_rows"] = telem.event_rows(B, Q, n_cand, dev)
         return c
 
     def step(s: SimState, tick: int, wl: Workload, fault: FaultSchedule):
@@ -1129,6 +1148,28 @@ def make_step(g: QueueGraph, profile: TransportProfile, p: SimParams, F: int,
             "rx_base": dst_track.base,
             "src_base": src_track.base,
         }
+        if tel_on:
+            # telemetry probe off lanes the tick already has. Trim vs
+            # silent drop follows the transport's split (a no-trim
+            # profile drops overflow); dead and gray losses are silent
+            # drops. Each event lane counts at its target queue, found
+            # in safe_cq (the events are subsets of the candidates).
+            if p.trimming:
+                trim_ev, drop_ev = overflow, is_dead
+            else:
+                trim_ev, drop_ev = None, is_dead | overflow
+            if lossy:
+                drop_ev = drop_ev | is_lost
+            probe = {"rtt": rtt, "has_rtt": has_ack, "cwnd": out["cwnd"]}
+            if tel.queues:
+                probe["cnt"] = telem.queue_events(
+                    bc["tel_rows"], Q, mark, safe_cq, drop_ev, trim_ev,
+                    stall=stall if cbfc else None,
+                    # unrecovered corruption is charged at the
+                    # transmitting queue; under LLR it is a replay
+                    tx_drop=corrupt_hit if corrupty and not llr else None,
+                    llr=corrupt_hit if corrupty and llr else None)
+            out["probe"] = probe
         return ns, out
 
     return step
@@ -1165,6 +1206,8 @@ class SimResult:
     goodput_window: "tuple[int, int] | None" = None
     qlen_peak: "int | None" = None
     stat_abandon_tick: "int | None" = None  # first teardown tick or -1
+    #: the probe lanes' time series (``telemetry=TelemetrySpec.on()``)
+    telemetry: "telem.FabricTrace | None" = None
 
     def completion_ticks(self) -> np.ndarray:
         """Per-flow first tick by which the full message was delivered
@@ -1363,58 +1406,128 @@ def _chunk_to_host(outs: "list[dict]", quiet: torch.Tensor):
     return lanes, host[at:].astype(bool)
 
 
-def run_chunks(step, s: SimState, wl: Workload, fault: FaultSchedule,
-               budget: int, chunk: int, trace: str, w0: int = 0,
-               w1: int = 0, tick0: int = 0):
-    """Drive ``step`` over B scenarios from tick ``tick0`` in
-    ``chunk``-tick chunks. Each scenario stops at the first chunk
-    boundary where it is quiescent, or at the budget; the run ends when
-    every scenario has stopped. Ticks at or past the budget do not run.
+class ChunkLoop:
+    """The chunked driver of B scenarios on one device, one chunk at a
+    time: :meth:`issue` queues the next chunk's ticks without waiting
+    for the device, :meth:`collect` reads the chunk's [B] quiescence
+    flags (its one sync with the host) and stops the scenarios that are
+    done. :meth:`run` alternates the two; the sharded driver
+    (``repro_torch.network.shard``) issues a chunk on every shard before
+    it collects any.
 
-    A chunk in which no scenario has stopped runs the tick as it is; a
-    chunk after some scenario stopped runs the masked body, which keeps
-    a stopped scenario's whole state and stat lanes frozen at its own
+    Each scenario stops at the first chunk boundary where it is
+    quiescent, or at the budget. A chunk in which no scenario has
+    stopped runs the tick as it is; a chunk after some scenario stopped
+    runs the masked body, which keeps a stopped scenario's whole state
+    and stat lanes (the probe rings included) frozen at its own
     boundary (a select per lane, bitwise what the unmasked tick gives
-    the others). The host reads the [B] quiescence flags once per chunk.
-    Returns (final state, stats lanes or None, host out lanes per chunk,
-    horizon [B] int64: each scenario's stop boundary, clamped to the
-    budget)."""
-    B, F = (int(d) for d in wl.src.shape)
-    dev = wl.src.device
-    st = _stats_init(B, F, dev) if trace == "stats" else None
-    stop = np.full((B,), budget <= tick0)
-    horizon = np.where(stop, min(tick0, budget), -1).astype(np.int64)
-    chunks: list = []
-    while not stop.all():
-        live = (torch.as_tensor(~stop, device=dev) if stop.any() else None)
+    the others). ``tel`` (an enabled :class:`TelemetrySpec`, stats tier
+    only) adds the probe carry ``st["tel"]``.
+    """
+
+    def __init__(self, step, s: SimState, wl: Workload,
+                 fault: FaultSchedule, budget: int, chunk: int, trace: str,
+                 w0: int = 0, w1: int = 0, tick0: int = 0,
+                 tel: "TelemetrySpec | None" = None):
+        B, F = (int(d) for d in wl.src.shape)
+        dev = wl.src.device
+        self.step, self.s, self.wl, self.fault = step, s, wl, fault
+        self.budget, self.chunk, self.w0, self.w1 = budget, chunk, w0, w1
+        self.tick0 = tick0
+        self.st = _stats_init(B, F, dev) if trace == "stats" else None
+        self.tel_up = None
+        if tel is not None and tel.enabled:
+            if self.st is None:
+                raise ValueError("telemetry lanes ride the streaming stats "
+                                 "carry — enabled TelemetrySpec requires "
+                                 "trace='stats'")
+            Q = int(s.q_len.shape[1])
+            self.st["tel"] = telem.create(tel, B, Q, F, dev)
+            self.tel_up = telem.make_update(tel, Q, F, dev)
+        self.stop = np.full((B,), budget <= tick0)
+        self.horizon = np.where(self.stop, min(tick0, budget),
+                                -1).astype(np.int64)
+        self.chunks: list = []
+        self._quiet = self._outs = None
+
+    @property
+    def done(self) -> bool:
+        return bool(self.stop.all())
+
+    def issue(self) -> None:
+        """Queue the next chunk's ticks on the device."""
+        s, st, wl, fault = self.s, self.st, self.wl, self.fault
+        live = (torch.as_tensor(~self.stop, device=wl.src.device)
+                if self.stop.any() else None)
         outs = []
-        for tick in range(tick0, min(tick0 + chunk, budget)):
-            ns, out = step(s, tick, wl, fault)
+        for tick in range(self.tick0, min(self.tick0 + self.chunk,
+                                          self.budget)):
+            ns, out = self.step(s, tick, wl, fault)
             if st is not None:
-                nst = _stats_update(st, s, ns, wl, tick, w0, w1)
+                nst = _stats_update(st, s, ns, wl, tick, self.w0, self.w1)
+                if self.tel_up is not None:
+                    nst["tel"] = self.tel_up(st["tel"], ns, out["probe"],
+                                             tick)
                 st = nst if live is None else _where_rows(live, nst, st)
             else:
                 outs.append(out)
             s = ns if live is None else _where_rows(live, ns, s)
-        tick0 += chunk
-        if st is not None:
-            quiet = _quiescent(s, wl).cpu().numpy()
+        self.s, self.st = s, st
+        self.tick0 += self.chunk
+        self._quiet, self._outs = _quiescent(s, wl), outs
+
+    def collect(self) -> None:
+        """Read the issued chunk's quiescence flags (and, on the full
+        tier, its out lanes) and stop the scenarios that are done."""
+        if self.st is not None:
+            quiet = self._quiet.cpu().numpy()
         else:
-            lanes, quiet = _chunk_to_host(outs, _quiescent(s, wl))
-            chunks.append(lanes)
-        nstop = stop | quiet | (tick0 >= budget)
-        horizon[nstop & ~stop] = min(tick0, budget)
-        stop = nstop
-    return s, st, chunks, horizon
+            lanes, quiet = _chunk_to_host(self._outs, self._quiet)
+            self.chunks.append(lanes)
+        self._quiet = self._outs = None
+        nstop = self.stop | quiet | (self.tick0 >= self.budget)
+        self.horizon[nstop & ~self.stop] = min(self.tick0, self.budget)
+        self.stop = nstop
+
+    def run(self) -> "ChunkLoop":
+        """Issue and collect chunks until every scenario has stopped."""
+        while not self.done:
+            self.issue()
+            self.collect()
+        return self
 
 
-def _results(s: SimState, st, chunks, horizon, sizes: np.ndarray,
-             budget: int, trace: str, goodput_window) -> "list[SimResult]":
-    """One SimResult per scenario of a batched run: its own state lanes
-    (views of the batch's), horizon and stat or trace lanes."""
+def run_chunks(step, s: SimState, wl: Workload, fault: FaultSchedule,
+               budget: int, chunk: int, trace: str, w0: int = 0,
+               w1: int = 0, tick0: int = 0,
+               tel: "TelemetrySpec | None" = None):
+    """Drive ``step`` over B scenarios from tick ``tick0`` in
+    ``chunk``-tick chunks (:class:`ChunkLoop`) until every scenario has
+    stopped. Ticks at or past the budget do not run. Returns (final
+    state, stats lanes or None, host out lanes per chunk, horizon [B]
+    int64: each scenario's stop boundary, clamped to the budget)."""
+    loop = ChunkLoop(step, s, wl, fault, budget, chunk, trace, w0, w1,
+                     tick0, tel).run()
+    return loop.s, loop.st, loop.chunks, loop.horizon
+
+
+def _results(loop: ChunkLoop, sizes: np.ndarray, budget: int, trace: str,
+             goodput_window,
+             tel: "TelemetrySpec | None" = None) -> "list[SimResult]":
+    """One SimResult per scenario of a finished chunk loop: its own state
+    lanes (views of the batch's), horizon and stat or trace lanes, and
+    its probe lanes' :class:`~repro_torch.network.telemetry.FabricTrace`."""
+    s, st, chunks, horizon = loop.s, loop.st, loop.chunks, loop.horizon
     B, F = sizes.shape
     if trace == "stats":
-        host = {k: v.cpu().numpy() for k, v in st.items()}
+        host = {k: v.cpu().numpy() for k, v in st.items() if k != "tel"}
+        traces = [None] * B
+        if tel is not None:
+            Q = int(s.q_len.shape[1])
+            th = {k: v.cpu().numpy() for k, v in st["tel"].items()}
+            traces = [telem.FabricTrace.from_lanes(
+                tel, telem.lanes(tel, Q, F, {k: v[b] for k, v in th.items()}),
+                int(horizon[b])) for b in range(B)]
         return [SimResult(
             state=take_lane(s, b), msg_size=sizes[b],
             horizon=int(horizon[b]), max_ticks=budget, trace="stats",
@@ -1424,7 +1537,8 @@ def _results(s: SimState, st, chunks, horizon, sizes: np.ndarray,
             goodput_window=(None if goodput_window is None
                             else tuple(int(w) for w in goodput_window)),
             qlen_peak=int(host["qlen_peak"][b]),
-            stat_abandon_tick=int(host["abandon_tick"][b]))
+            stat_abandon_tick=int(host["abandon_tick"][b]),
+            telemetry=traces[b])
             for b in range(B)]
     if chunks:
         full = {k: np.concatenate([c[k] for c in chunks]) for k in _FULL_LANES}
@@ -1448,25 +1562,50 @@ def _results(s: SimState, st, chunks, horizon, sizes: np.ndarray,
     return out
 
 
-def _run_batch(g: QueueGraph, wls: Workload, profile: TransportProfile,
-               p: SimParams, fault: FaultSchedule, seeds: np.ndarray,
-               trace: str, budget: int, goodput_window,
-               dev: torch.device, link=None) -> "list[SimResult]":
-    """One (graph, profile) group: B scenarios through one tick."""
+def _group_loop(g: QueueGraph, wls: Workload, profile: TransportProfile,
+                p: SimParams, fault: FaultSchedule, seeds, trace: str,
+                budget: int, goodput_window, dev: torch.device, link=None,
+                tel=None, statics: "dict | None" = None) -> ChunkLoop:
+    """The chunk loop of B scenarios of one (graph, profile) group on
+    ``dev``, from tick 0. The fault statics of the tick are the
+    schedule's (``statics`` overrides them with a whole batch's, for a
+    shard of it)."""
     F = int(wls.src.shape[1])
-    profile.delivery_modes(F)  # validate per-flow tuples early
     wls = wls.to(dev)
-    # the schedule's fault classes are statics of the tick
-    step = make_step(g, profile, p, F, lossy=fault.has_loss,
-                     hosty=fault.has_host_faults,
-                     corrupty=fault.has_corruption, link=link, device=dev)
+    if statics is None:
+        statics = fault_statics(fault)
+    step = make_step(g, profile, p, F, tel=tel, link=link, device=dev,
+                     **statics)
     s0 = init_state(g, wls, profile, p, seeds, device=dev, link=link)
     w0, w1 = (0, budget) if goodput_window is None else map(int,
                                                             goodput_window)
-    s, st, chunks, horizon = run_chunks(step, s0, wls, fault.to(dev),
-                                        budget, p.chunk_ticks, trace, w0, w1)
-    return _results(s, st, chunks, horizon, wls.size.cpu().numpy(), budget,
-                    trace, goodput_window)
+    return ChunkLoop(step, s0, wls, fault.to(dev), budget, p.chunk_ticks,
+                     trace, w0, w1, tel=tel)
+
+
+def fault_statics(fault: FaultSchedule) -> dict:
+    """The tick's fault statics of a schedule: its fault classes."""
+    return {"lossy": fault.has_loss, "hosty": fault.has_host_faults,
+            "corrupty": fault.has_corruption}
+
+
+def _run_batch(g: QueueGraph, wls: Workload, profile: TransportProfile,
+               p: SimParams, fault: FaultSchedule, seeds: np.ndarray,
+               trace: str, budget: int, goodput_window,
+               dev: torch.device, link=None, tel=None,
+               devs: "tuple | None" = None) -> "list[SimResult]":
+    """One (graph, profile) group: B scenarios through one tick, or
+    split over ``devs`` (``shard.run_sharded``)."""
+    profile.delivery_modes(int(wls.src.shape[1]))  # validate tuples early
+    if devs is not None:
+        from repro_torch.network import shard
+        return shard.run_sharded(g, wls, profile, p, fault, seeds, trace,
+                                 budget, goodput_window, devs, tel=tel,
+                                 link=link)
+    loop = _group_loop(g, wls, profile, p, fault, seeds, trace, budget,
+                       goodput_window, dev, link, tel).run()
+    return _results(loop, wls.size.cpu().numpy(), budget, trace,
+                    goodput_window, tel)
 
 
 def _normalize_call(profile, p):
@@ -1510,8 +1649,11 @@ def simulate(g: QueueGraph, wl: Workload,
              lanes, copied to the host once per chunk).
     link:    a :class:`LinkConfig` (LLR replay, CBFC credits); None or
              ``LinkConfig.off()`` run the pre-link-layer tick.
-    telemetry: not ported (raises ``NotImplementedError`` naming its
-             ROADMAP.md item).
+    telemetry: a :class:`~repro_torch.network.telemetry.TelemetrySpec`
+             (a static of the tick); an enabled spec streams the probe
+             lanes into decimated rings in the stats carry and attaches
+             their :class:`~repro_torch.network.telemetry.FabricTrace` as
+             ``result.telemetry``. None or the off spec: no probe.
     device:  where the run lives: ``cuda`` unless given (``"cpu"`` runs
              the plain PyTorch path, as the tests do).
     """
@@ -1561,15 +1703,23 @@ def simulate_batch(g, wls, profile=None, p: "SimParams | None" = None, *,
              until its slowest scenario stops.
     link:    one :class:`LinkConfig` for the whole batch (a static of
              the tick); None or ``LinkConfig.off()``: no link layer.
-    shard / devices / telemetry: not ported (raise
-             ``NotImplementedError`` naming their ROADMAP.md item).
+    shard / devices: split the scenario axis across devices of the run's
+             kind (``repro_torch.network.shard``): ``shard=True`` takes
+             every one, ``devices=`` an int (the first n) or a sequence
+             of devices. Each (graph, profile) group is split; ragged
+             groups are padded with inert lanes, dropped from the
+             results. One device (a CPU run) is the unsharded path.
+             Per-lane results are bitwise the unsharded ones.
+    telemetry: one :class:`~repro_torch.network.telemetry.TelemetrySpec`
+             for the whole batch, as in :func:`simulate`; each scenario
+             gets its own rings and ``result.telemetry``.
     device:  ``cuda`` unless given (``"cpu"``: the plain PyTorch path).
     """
-    if shard or devices is not None:
-        raise _not_ported("sharding the scenario axis across devices "
-                          "(shard= / devices=)", "10: workloads + "
-                          "multi-GPU")
     dev = resolve_device(device)
+    devs = None
+    if shard or devices is not None:
+        from repro_torch.network.shard import resolve_devices
+        devs = resolve_devices(devices, shard, dev)
     if isinstance(wls, (list, tuple)):
         wls = Workload.stack(wls)
     graphs = None
@@ -1596,7 +1746,7 @@ def simulate_batch(g, wls, profile=None, p: "SimParams | None" = None, *,
                          f"{TRACE_MODES}")
     if p.chunk_ticks < 1:
         raise ValueError(f"chunk_ticks must be >= 1, got {p.chunk_ticks}")
-    _check_statics(telemetry)
+    tel = _check_telemetry(telemetry, trace)
     link = _check_link(link)
     budget = int(p.ticks if max_ticks is None else max_ticks)
     B, F = (int(d) for d in wls.src.shape)
@@ -1618,7 +1768,7 @@ def simulate_batch(g, wls, profile=None, p: "SimParams | None" = None, *,
                                              B, g_num_hosts=g.num_hosts)
     if profiles is None and graphs is None:
         return _run_batch(g, wls, profile, p, fault, seeds, trace, budget,
-                          goodput_window, dev, link)
+                          goodput_window, dev, link, tel, devs)
     per_g = graphs if graphs is not None else [g] * B
     per_q = profiles if profiles is not None else [profile] * B
     groups: "dict[tuple, tuple]" = {}
@@ -1630,7 +1780,7 @@ def simulate_batch(g, wls, profile=None, p: "SimParams | None" = None, *,
         sub_fault = (FaultSchedule.healthy(gr.num_queues, len(idxs))
                      if fault is None else fault.lanes(sel))
         rs = _run_batch(gr, wls.lanes(sel), q, p, sub_fault, seeds[idxs],
-                        trace, budget, goodput_window, dev, link)
+                        trace, budget, goodput_window, dev, link, tel, devs)
         for i, r in zip(idxs, rs):
             results[i] = r
     return results

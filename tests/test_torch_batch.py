@@ -273,15 +273,26 @@ def test_batch_failed_queue_masks_change_outcomes():
 
 
 @pytest.mark.parametrize("kw,err", [
-    (dict(shard=True), NotImplementedError),
-    (dict(devices=2), NotImplementedError),
-    (dict(telemetry=object()), NotImplementedError),
+    (dict(shard=True), None),
+    (dict(devices=2), ValueError),
+    (dict(telemetry=object()), TypeError),
     (dict(link=object()), TypeError),
     (dict(failed=np.zeros((3, 2), bool)), ValueError),
     (dict(failed=[0], faults=FaultSchedule.healthy(40)), ValueError)],
     ids=["shard", "devices", "telemetry", "link", "mask_shape", "both"])
 def test_batch_refusals(kw, err):
+    """The arguments ``simulate_batch`` refuses, as the reference does; a
+    CPU run has one device, so ``shard=True`` runs unsharded there (and
+    equals the plain run) and ``devices=2`` asks for more than there
+    are."""
     g, wl, p = _config_a()
+    if err is None:
+        base = tf.simulate_batch(g, [wl, wl], None, p, device="cpu")
+        rs = tf.simulate_batch(g, [wl, wl], None, p, device="cpu", **kw)
+        for a, b in zip(base, rs):
+            assert a.horizon == b.horizon
+            _same_state(a.state, b.state)
+        return
     with pytest.raises(err):
         tf.simulate_batch(g, [wl, wl], None, p, device="cpu", **kw)
 

@@ -13,8 +13,9 @@ the CPU (plain kernel versions):
 * a handover: the reference's state after 128 ticks, carried across with
   ``repro_torch.convert`` as a [1, F] batch, stepped one chunk by the
   port;
-* the statics the port does not carry yet (telemetry) raising, alone
-  and beside the fault, INC and link-layer statics it does.
+* the telemetry static (``tel``), which raised before it was ported,
+  building its probe alone and beside the fault, INC and link-layer
+  statics, with the out lanes the tick has without it.
 """
 import dataclasses
 import os
@@ -32,6 +33,7 @@ from repro_torch.core.lb.schemes import LBScheme
 from repro_torch.core.link import LinkConfig
 from repro_torch.network import fabric as tf
 from repro_torch.network.profile import DeliveryMode, TransportProfile
+from repro_torch.network.telemetry import TelemetrySpec
 from repro_torch.network.topology import fat_tree3, leaf_spine
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden",
@@ -232,12 +234,28 @@ def test_init_state_and_convert_round_trip():
             convert.state_from_numpy(d, "cpu")), d)
 
 
-# --------------------------------------------------- unported statics --
+# ------------------------------------------- statics beside telemetry --
 
 def _k6_step(profile=None, **statics):
     return tf.make_step(fat_tree3(k=6, pods=3),
                         profile or TransportProfile.ai_full(),
                         tf.SimParams(), len(K6_SRC), device="cpu", **statics)
+
+
+def _k6_outs(step, profile=None, link=None):
+    """One step of a fresh k=6 state through ``step``: its out keys and
+    the probe's lane shapes (None without a probe)."""
+    profile = profile or TransportProfile.ai_full()
+    g = fat_tree3(k=6, pods=3)
+    wl = tf.Workload.stack([tf.Workload.of(K6_SRC, K6_DST, K6_SIZE)])
+    s = tf.init_state(g, wl, profile, tf.SimParams(), device="cpu",
+                      link=link)
+    fault = tf.FaultSchedule.healthy(g.num_queues, batch=1,
+                                     num_hosts=g.num_hosts)
+    _, out = step(s, 0, wl, fault)
+    probe = out.pop("probe", None)
+    return sorted(out), (None if probe is None else
+                         {k: tuple(v.shape) for k, v in probe.items()})
 
 
 @pytest.mark.parametrize("statics", [
@@ -247,23 +265,36 @@ def _k6_step(profile=None, **statics):
     dict(tel=object()),
     dict(link=LinkConfig.on(llr=True, cbfc=True), tel=object())])
 def test_unported_statics_raise(statics):
-    """Telemetry raises, also beside the fault statics (gray loss, host
-    faults, corruption) and the link layer, which build."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        _k6_step(**statics)
+    """Telemetry (ROADMAP.md item 9; ``tel=object()`` marks where it
+    goes) builds its probe beside the fault statics (gray loss, host
+    faults, corruption) and the link layer; without it the same statics
+    build the tick with the same out lanes and no probe."""
     statics.pop("tel")
-    assert callable(_k6_step(**statics))
+    F, Q = len(K6_SRC), fat_tree3(k=6, pods=3).num_queues
+    link = statics.get("link")
+    keys, probe = _k6_outs(_k6_step(tel=TelemetrySpec.on(), **statics),
+                           link=link)
+    assert probe == {"rtt": (1, F), "has_rtt": (1, F), "cwnd": (1, F),
+                     "cnt": (1, 5, Q)}
+    assert (keys, None) == _k6_outs(_k6_step(**statics), link=link)
 
 
 @pytest.mark.parametrize("profile", [
     TransportProfile.ai_full(inc=True),
     TransportProfile.resilient(inc=True)], ids=lambda q: repr(q))
 def test_unported_profiles_raise(profile):
-    """INC profiles build a tick (ROADMAP.md item 7); telemetry beside
-    them still raises."""
-    assert callable(_k6_step(profile))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        _k6_step(profile, tel=object())
+    """INC profiles build a tick (ROADMAP.md item 7), and with telemetry
+    (item 9) a tick with the probe."""
+    keys, probe = _k6_outs(_k6_step(profile), profile)
+    assert probe is None
+    keys_on, probe_on = _k6_outs(_k6_step(profile, tel=TelemetrySpec.on()),
+                                 profile)
+    assert keys_on == keys
+    assert probe_on["cnt"] == (1, 5, fat_tree3(k=6, pods=3).num_queues)
+    # without the queue channels the probe builds no event count
+    _, probe_q = _k6_outs(_k6_step(profile, tel=TelemetrySpec.on(
+        queues=False)), profile)
+    assert sorted(probe_q) == ["cwnd", "has_rtt", "rtt"]
 
 
 @pytest.mark.parametrize("profile", [

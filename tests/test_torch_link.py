@@ -1,7 +1,8 @@
 """The link layer on the port's tick (LLR replay at the hop, the CBFC
 credit gate) against the reference package on the CPU, bitwise — the
-twins of ``tests/test_link_layer.py`` (its sharded test waits for
-ROADMAP.md item 10 and its telemetry test for item 9).
+twins of ``tests/test_link_layer.py`` (its sharded twin is in
+``test_torch_shard.py``, its telemetry twin in
+``test_torch_telemetry.py``).
 
 Each run goes through ``repro.network`` and ``repro_torch.network`` with
 the same ``link=`` spec; horizon, stats lanes, every state lane (the

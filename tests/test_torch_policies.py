@@ -175,9 +175,10 @@ def test_named_profiles_match(name):
 @pytest.mark.parametrize("cc", ["RCCC", "NSCC_AND_RCCC", "NONE"])
 def test_unported_cc_raises(cc):
     """Every CC composition is built now, with the recovery loop
-    (ROADMAP.md item 6) and INC (item 7) too; what stays unported
-    beside them is telemetry (item 9), which still raises."""
+    (ROADMAP.md item 6), INC (item 7) and telemetry (item 9, which
+    raised here before it was ported) too."""
     from repro_torch.network import fabric
+    from repro_torch.network.telemetry import TelemetrySpec
     from repro_torch.network.topology import leaf_spine
     algo = profile.CCAlgo[cc]
     pol = profile.make_cc_policy(algo, nscc.NSCCParams(), 48.0)
@@ -191,9 +192,11 @@ def test_unported_cc_raises(cc):
         assert callable(fabric.make_step(g, replace(prof, inc=True),
                                          fabric.SimParams(), 2,
                                          device="cpu"))
-        with pytest.raises(NotImplementedError, match="item 9"):
-            fabric.make_step(g, replace(prof, inc=True), fabric.SimParams(),
-                             2, tel=object(), device="cpu")
+        # and with telemetry (item 9, which raised before it was ported)
+        assert callable(fabric.make_step(g, replace(prof, inc=True),
+                                         fabric.SimParams(), 2,
+                                         tel=TelemetrySpec.on(),
+                                         device="cpu"))
     with pytest.raises(ValueError, match="unknown CC"):
         profile.make_cc_policy(7, nscc.NSCCParams(), 48.0)
 

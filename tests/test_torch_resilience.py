@@ -8,8 +8,9 @@ through both packages, is held bitwise on every state lane and counter
 (``flows_abandoned``, ``ticks_unreachable``, ``abandon_tick``, the
 quarantine and strike lanes included), then meets the reference test's
 own assertions (the batched host faults are in
-``test_torch_resilience_batch.py``). The PDC state machine (item 12), sharding (item 10) and
-the checkpoint economics (item 11) are not ported and have no twin here.
+``test_torch_resilience_batch.py``, the sharded ones in
+``test_torch_shard.py``). The PDC state machine (item 12) and the
+checkpoint economics (item 11) are not ported and have no twin here.
 Helpers: ``test_torch_faults.py``.
 """
 from dataclasses import replace

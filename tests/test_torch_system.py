@@ -5,9 +5,9 @@ on the CPU and held bitwise against the reference's run of the same call
 (stats lanes, every state lane, counters), then asserted as the
 reference asserts. The deprecated call form ``simulate(g, wl, SimParams(...))`` (the twin of
 ``tests/test_profiles.py``'s legacy-signature test), through both entry
-points. And the feature still unported (telemetry) raising
-``NotImplementedError`` naming its ROADMAP.md item 9, alone and beside
-the link layer and INC (items 8 and 7), which run.
+points. And telemetry (ROADMAP.md item 9), which raised before it was
+ported, alone and beside the link layer, INC and ``resilient()``: each
+run's final state is bitwise the telemetry-off run's.
 """
 import warnings
 
@@ -21,8 +21,9 @@ from repro_torch.core.link import LinkConfig
 from repro_torch.network import fabric as tf
 from repro_torch.network import workloads as tw
 from repro_torch.network.profile import CCAlgo, DeliveryMode, TransportProfile
+from repro_torch.network.telemetry import TelemetrySpec
 from repro_torch.network.topology import leaf_spine
-from test_torch_batch import assert_same_results
+from test_torch_batch import _same_state, assert_same_results
 from test_torch_faults import jprofile
 
 
@@ -120,28 +121,32 @@ def test_legacy_call_form_completes_as_the_reference():
 
 
 # ------------------------------------------------------------------------
-# what is still unported names its ROADMAP.md item
+# telemetry (ROADMAP.md item 9, which raised here before it was ported)
+# beside the statics it composes with
 # ------------------------------------------------------------------------
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(telemetry=object()), "item 9"),
-    (dict(link=LinkConfig.on(llr=True), telemetry=object()), "item 9"),
-    (dict(profile=TransportProfile.ai_full(inc=True),
-          telemetry=object()), "item 9"),
-    (dict(profile=TransportProfile.resilient(inc=True),
-          telemetry=object()), "item 9")],
+    (dict(), "item 9"),
+    (dict(link=LinkConfig.on(llr=True)), "item 8"),
+    (dict(profile=TransportProfile.ai_full(inc=True)), "item 7"),
+    (dict(profile=TransportProfile.resilient(inc=True)), "item 6")],
     ids=["telemetry", "link", "inc", "inc_resilient"])
 @pytest.mark.parametrize("entry", ["simulate", "simulate_batch"])
 def test_unported_features_raise_naming_their_item(entry, kw, item):
+    """Telemetry alone and beside the link layer (``item`` names the
+    ROADMAP.md item each composes with), INC and ``resilient()`` runs,
+    and the final state is bitwise the telemetry-off run's."""
     g, wl, _ = tw.incast(2, 10)
     kw = dict(kw)
     prof = kw.pop("profile", TransportProfile.ai_full())
     args = (g, wl if entry == "simulate" else [wl, wl], prof,
-            tf.SimParams(ticks=16))
-    with pytest.raises(NotImplementedError, match=item):
-        getattr(tf, entry)(*args, device="cpu", **kw)
-    # without telemetry the same call runs (INC and the link layer are
-    # ported)
-    del kw["telemetry"]
-    rs = getattr(tf, entry)(*args, device="cpu", **kw)
-    assert (rs if entry == "simulate" else rs[0]).horizon == 16
+            tf.SimParams(ticks=16, chunk_ticks=8))
+    on = getattr(tf, entry)(*args, device="cpu", telemetry=TelemetrySpec.on(
+        probe_every=2, slots=4), **kw)
+    off = getattr(tf, entry)(*args, device="cpu", **kw)
+    on, off = (on, off) if entry == "simulate_batch" else ([on], [off])
+    for a, b in zip(on, off):
+        assert a.horizon == b.horizon == 16, item
+        _same_state(a.state, b.state)
+        assert b.telemetry is None and a.telemetry.stride == 2
+        assert a.telemetry.num_samples == 4
