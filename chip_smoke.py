@@ -140,6 +140,36 @@ Phases, one line each:
    run with ``trace="full"`` on the card and on the CPU (plain versions),
    bitwise (half a chunk: the CPU run is the script's slowest step per
    tick).
+7. traffic — model-driven traffic and its pricing
+   (``repro_torch.network.traffic``, ``distributed.plan`` /
+   ``netmodel``, ``ckpt.checkpointing``) through its entry points, each
+   simulator run captured as it returns and held against
+   ``tests/golden/torch_port_traffic.npz`` (the JAX package's, written
+   by ``scripts/torch_port_reference.py --which traffic``): integer
+   lanes bitwise, priced floats with ``==``. (a) the reference bench's
+   co-design sweep ``run_model_sweep()``: 2 archs x 2 layouts x 2
+   leaf-spines x 3 profiles at ``decode_32k``, dp = tp = 16, 24
+   scenarios in one ``simulate_batch`` (6 (graph, profile) groups, F <=
+   108 padded): each point's compiled workload, horizon,
+   source-completion ticks, priced ``StepTiming`` and efficiencies, and
+   the bench's separation gates (fsdp_tp slower than tp_only at every
+   point, hpc > 1.05 x ai_full on ``oversub2`` under fsdp_tp, oversub2
+   >= full). (b) the same grid on ``fat_tree3(k=16, pods=16)`` (12
+   scenarios, 3 groups of B = 4, Q = 5120) and ``step_time`` of the
+   deepseek-coder-33b ``train_4k`` plan at dp = tp = 16 on that graph
+   under ``ai_full()`` (F = 136). (c) ``price_recovery`` of the
+   ``train_4k`` plan at dp = tp = 4 (healthy, one dead DP host under
+   ``resilient()``, replanned), every ``RecoveryCosts`` field, then the
+   bench's economics gates on the measured costs (Young/Daly beats fixed
+   intervals at every MTBF; availability monotone in MTBF). (d)
+   netmodel's ``simulated_collective_time`` (all-reduce ring / tree,
+   all-gather ring; 8 chips, 24 packets) and ``simulated_efficiency``.
+   Each tick kernel launches as ``PER_TICK`` says once per tick of every
+   (graph, profile) group. Scenarios per second of (a) and (b), each
+   part's wall seconds and peak device memory, and the host ms per point
+   of ``compile_step`` + ``price_step`` beside the simulator's. Step
+   times are modelled fleet seconds, priced with the reference's
+   modelled accelerator, not a measurement of the card.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and the script
@@ -166,6 +196,7 @@ FAULTS = ROOT / "tests" / "golden" / "torch_port_faults.npz"
 INC = ROOT / "tests" / "golden" / "torch_port_inc.npz"
 LINK = ROOT / "tests" / "golden" / "torch_port_link.npz"
 TELEMETRY = ROOT / "tests" / "golden" / "torch_port_telemetry.npz"
+TRAFFIC = ROOT / "tests" / "golden" / "torch_port_traffic.npz"
 #: the probe rings the telemetry golden holds as sha256 digests
 TEL_RINGS = ("s_occ", "s_ecn", "s_trim", "s_drop", "s_llr", "s_stall",
              "s_rtt", "s_cwnd")
@@ -221,7 +252,8 @@ TICK_KERNELS = ("sack_fused_own", "sack_advance_own", "nack_mark_lanes",
 #: site and the RTO's set are compiled out; RR_SLOTS's loss inference
 #: adds two sets
 PER_TICK = {"ai_full": (1, 1, 1, 1, 1), "hpc": (1, 1, 0, 0, 1),
-            "base": (1, 1, 1, 1, 1), "mixed": (1, 1, 1, 3, 1),
+            "base": (1, 1, 1, 1, 1), "ai_base": (1, 1, 1, 1, 1),
+            "mixed": (1, 1, 1, 3, 1),
             "resilient": (1, 1, 1, 1, 1), "inc": (1, 1, 1, 1, 1),
             "llr": (1, 1, 1, 1, 1), "cbfc": (1, 1, 1, 1, 1)}
 #: SimState lanes the profile goldens leave out: those of the recovery
@@ -1854,6 +1886,280 @@ def phase_cross_device() -> dict:
     return {"seconds": secs}
 
 
+class _Capture:
+    """Record every SimResult that ``module.name`` (the simulator entry
+    point a traffic function calls) returns while it runs, and the
+    seconds spent in it."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name = module, name
+        self.results: list = []
+        self.seconds = 0.0
+
+    def __enter__(self):
+        orig = self.orig = getattr(self.module, self.name)
+
+        def run(*args, **kw):
+            t0 = time.perf_counter()
+            r = orig(*args, **kw)
+            torch.cuda.synchronize()
+            self.seconds += time.perf_counter() - t0
+            self.results += r if isinstance(r, list) else [r]
+            return r
+        setattr(self.module, self.name, run)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+TIMING_FIELDS = ("step_s", "net_s", "analytic_net_s", "compute_s",
+                 "memory_s", "tokens_per_sec")
+
+
+def _timing_vs_golden(compiled, r, t, gold, prefix: str) -> None:
+    """One compiled step, its run and its StepTiming against the golden's
+    point ``prefix``: lanes bitwise, priced floats ``==``."""
+    for k in ("src", "dst", "size", "dep"):
+        _assert_bits(getattr(compiled.workload, k).numpy(),
+                     gold[prefix + k], prefix + k)
+    assert ",".join(ph.name for ph in compiled.phases) \
+        == str(gold[prefix + "phase_names"]), prefix
+    _assert_bits(np.asarray([(ph.lo, ph.hi, ph.ideal_ticks)
+                             for ph in compiled.phases], np.int64),
+                 gold[prefix + "phases"], prefix + "phases")
+    assert r.horizon == int(gold[prefix + "horizon"]), (prefix, r.horizon)
+    _assert_bits(r.stat_src_completion, gold[prefix + "stat_src_completion"],
+                 prefix + "stat_src_completion")
+    assert t.sim_ticks == int(gold[prefix + "sim_ticks"]), prefix
+    for k in TIMING_FIELDS:
+        assert getattr(t, k) == float(gold[prefix + k]), \
+            (prefix, k, getattr(t, k), float(gold[prefix + k]))
+    assert ",".join(t.eff) == str(gold[prefix + "eff_scopes"]), prefix
+    assert [t.eff[k] for k in t.eff] == gold[prefix + "eff"].tolist(), prefix
+    assert [d["ticks"] for d in t.phases] \
+        == gold[prefix + "phase_ticks"].tolist(), prefix
+
+
+def _launches_per_group(tag: str, launches: dict, group_ticks: dict) -> None:
+    """Each tick kernel launched ``PER_TICK[profile]`` times a tick of
+    every (graph, profile) group, and no entry-point form."""
+    for i, k in enumerate(TICK_KERNELS):
+        want = sum(PER_TICK[prof][i] * n
+                   for (_, prof), n in group_ticks.items())
+        assert launches[k] == want, \
+            f"traffic {tag}: {k} launched {launches[k]} times, want {want}"
+    assert all(launches[k] == 0 for k in ENTRY_KERNELS), (tag, launches)
+
+
+def _traffic_sweep(tag: str, gold, topologies) -> dict:
+    """``run_model_sweep(topologies=...)`` on the card against the
+    golden's part ``tag``."""
+    from repro_torch.network import traffic
+    with _Capture(traffic, "simulate_batch") as cap:
+        pts, secs, peak, launches = _timed_batch(
+            lambda: traffic.run_model_sweep(topologies=topologies,
+                                            device="cuda"))
+    rs = cap.results
+    n = int(gold[f"{tag}/n"])
+    assert len(pts) == len(rs) == n, (tag, len(pts), len(rs))
+    t0 = time.perf_counter()
+    _, _, _, points = traffic.model_sweep_scenarios(topologies=topologies)
+    compile_s = time.perf_counter() - t0
+    assert max(pt["compiled"].default_budget() for pt in points) \
+        == int(gold[f"{tag}/budget"])
+    t0 = time.perf_counter()
+    timings = [traffic.price_step(pt["compiled"], r)
+               for pt, r in zip(points, rs)]
+    price_s = time.perf_counter() - t0
+    groups: dict = {}
+    for i, (pt, ref, r, t) in enumerate(zip(pts, points, rs, timings)):
+        pre = f"{tag}/s{i}/"
+        for k in ("arch", "layout", "topology", "profile"):
+            assert pt[k] == str(gold[pre + k]) == ref[k], (pre, k)
+        _timing_vs_golden(ref["compiled"], r, t, gold, pre)
+        # the entry point's own dict: the same prices, eff rounded
+        for k in TIMING_FIELDS + ("sim_ticks",):
+            assert pt[k] == getattr(t, k), (pre, k)
+        assert pt["eff"] == {k: round(v, 4) for k, v in t.eff.items()}, pre
+        key = (pt["topology"], pt["profile"])
+        groups[key] = max(groups.get(key, 0), r.horizon)
+    _launches_per_group(tag, launches, groups)
+    return {"points": pts, "scenarios": n, "groups": len(groups),
+            "group_ticks": sum(groups.values()), "seconds": secs,
+            "scenarios_per_s": n / secs, "peak_bytes": peak,
+            "launches": launches, "sim_seconds": cap.seconds,
+            "compile_ms_per_point": 1e3 * compile_s / n,
+            "price_ms_per_point": 1e3 * price_s / n,
+            "sim_ms_per_point": 1e3 * cap.seconds / n,
+            "horizons": [r.horizon for r in rs]}
+
+
+def _sweep_gates(pts: list) -> dict:
+    """The reference bench's separation gates (``_model_sweep``)."""
+    by = {(p["arch"], p["layout"], p["topology"], p["profile"]): p["step_s"]
+          for p in pts}
+    seps = {}
+    for a in sorted({p["arch"] for p in pts}):
+        for topo in ("full", "oversub2"):
+            for prof in ("ai_base", "ai_full", "hpc"):
+                assert by[(a, "fsdp_tp", topo, prof)] \
+                    > by[(a, "tp_only", topo, prof)], (a, topo, prof)
+        hpc = by[(a, "fsdp_tp", "oversub2", "hpc")]
+        ai = by[(a, "fsdp_tp", "oversub2", "ai_full")]
+        assert hpc > 1.05 * ai, (a, hpc, ai)
+        full = by[(a, "fsdp_tp", "full", "ai_full")]
+        assert ai >= full, (a, ai, full)
+        seps[a] = {"hpc_over_ai_oversub2": hpc / ai,
+                   "oversub2_over_full": ai / full}
+    return seps
+
+
+def _recovery_gates(rc, write_s: float) -> list:
+    """The reference bench's economics gates on the measured costs:
+    Young/Daly beats fixed intervals at every MTBF, availability at the
+    optimum is monotone in MTBF."""
+    from repro_torch.ckpt.checkpointing import (availability, effective_rate,
+                                                young_daly_interval)
+    kw = dict(write_s=write_s, detect_s=rc.detect_s, restore_s=rc.restore_s,
+              replan_s=rc.replan_s)
+    grid, prev = [], 0.0
+    for mtbf in (1800.0, 3600.0, 7200.0, 14400.0):
+        tau = young_daly_interval(mtbf, write_s)
+        av = availability(tau, mtbf, **kw)
+        eff = effective_rate(rc.healthy_tokens_per_sec, tau, mtbf, **kw)
+        for iv in (30.0, 900.0):
+            naive = effective_rate(rc.healthy_tokens_per_sec, iv, mtbf, **kw)
+            assert eff > naive, (mtbf, iv, eff, naive)
+        assert av >= prev, (mtbf, av, prev)
+        prev = av
+        grid.append({"mtbf_s": mtbf, "daly_interval_s": tau,
+                     "availability": av, "effective_tokens_per_sec": eff})
+    return grid
+
+
+def traffic_train_plan(dp: int = 16, tp: int = 16):
+    """The deepseek-coder-33b ``train_4k`` plan (fsdp_tp) of the traffic
+    phase: dp = tp = 16 for part (b), 4 for the recovery loop."""
+    from repro_torch import configs
+    from repro_torch.distributed.plan import derive_plan
+    return derive_plan(configs.get("deepseek-coder-33b"), "train_4k",
+                       dp=dp, tp=tp, layout="fsdp_tp")
+
+
+def phase_traffic() -> dict:
+    """Phase 7: model-driven traffic and its pricing on the card, against
+    ``tests/golden/torch_port_traffic.npz``."""
+    from repro_torch.distributed import netmodel
+    from repro_torch.network import traffic
+    from repro_torch.network.profile import TransportProfile
+    from repro_torch.network.topology import fat_tree3
+    gold = np.load(TRAFFIC)
+    out = {}
+    # (a) the reference bench's co-design sweep
+    res = out["a"] = _traffic_sweep("a", gold, None)
+    res["separations"] = _sweep_gates(res["points"])
+    say("7 traffic", f"(a) run_model_sweep(): {res['scenarios']} scenarios in "
+        f"{res['groups']} (graph, profile) groups ({res['group_ticks']} group "
+        f"ticks), {res['scenarios_per_s']:.3f} scenarios/s ({res['seconds']:.2f}"
+        f" s wall, peak {res['peak_bytes'] / 2 ** 30:.3f} GiB); every point's "
+        f"workload, horizon, source completion and priced step equal to the "
+        f"JAX golden; separation gates hold {res['separations']}; launches "
+        f"{res['launches']}")
+    # (b) the same grid at the port's full width, then a train step
+    g = fat_tree3(k=16, pods=16)
+    res = out["b"] = _traffic_sweep("b", gold, [("ft16", g)])
+    say("7 traffic", f"(b) run_model_sweep(topologies=[ft16]) on {g.name} "
+        f"(Q={g.num_queues}): {res['scenarios']} scenarios in {res['groups']} "
+        f"groups ({res['group_ticks']} group ticks), "
+        f"{res['scenarios_per_s']:.3f} scenarios/s ({res['seconds']:.2f} s "
+        f"wall, peak {res['peak_bytes'] / 2 ** 30:.3f} GiB), equal to the JAX "
+        f"golden; launches {res['launches']}")
+    plan = traffic_train_plan()
+    prof = TransportProfile.ai_full()
+    with _Capture(traffic, "simulate") as cap:
+        t, secs, peak, launches = _timed_batch(
+            lambda: traffic.step_time(plan, g, prof, device="cuda"))
+    compiled = traffic.compile_step(plan, g)
+    (r,) = cap.results
+    _timing_vs_golden(compiled, r, t, gold, "b/train/")
+    _launches_per_group("b train", launches, {("ft16", "ai_full"): r.horizon})
+    res["train"] = {"seconds": secs, "peak_bytes": peak, "launches": launches,
+                    "horizon": r.horizon, "num_flows": compiled.num_flows,
+                    "step_s": t.step_s, "eff": t.eff,
+                    "ticks_per_s": r.horizon / cap.seconds}
+    say("7 traffic", f"(b) step_time of {plan.arch} train_4k dp=16 tp=16 on "
+        f"{g.name} under ai_full: F={compiled.num_flows}, {r.horizon} ticks in "
+        f"{secs:.2f} s ({r.horizon / cap.seconds:.1f} ticks/s), modelled "
+        f"fleet step {t.step_s!r} s (priced with the reference's modelled "
+        f"accelerator), eff {t.eff}; equal to the JAX golden")
+    # (c) the recovery loop and its economics
+    plan = traffic_train_plan(4, 4)
+    with _Capture(traffic, "simulate") as cap:
+        rc, secs, peak, launches = _timed_batch(
+            lambda: traffic.price_recovery(plan, device="cuda"))
+    for k in ("detect_s", "detect_ticks", "restore_s", "replan_s",
+              "healthy_tokens_per_sec", "degraded_tokens_per_sec",
+              "flows_abandoned", "horizon", "budget"):
+        assert getattr(rc, k) == gold[f"c/{k}"].item(), \
+            (k, getattr(rc, k), gold[f"c/{k}"])
+    for run, r in zip(("healthy", "fault", "degraded"), cap.results):
+        for k in ("horizon", "max_ticks", "flows_abandoned", "abandon_tick"):
+            assert getattr(r, k) == int(gold[f"c/{run}/{k}"]), (run, k)
+        _assert_bits(r.stat_src_completion,
+                     gold[f"c/{run}/stat_src_completion"], f"c/{run}")
+    assert len(cap.results) == 3 and rc.horizon < rc.budget
+    _launches_per_group("c", launches, {(i, "resilient"): r.horizon
+                                        for i, r in enumerate(cap.results)})
+    grid = _recovery_gates(rc, traffic.checkpoint_seconds(plan))
+    out["c"] = {"seconds": secs, "peak_bytes": peak, "launches": launches,
+                "costs": {k: getattr(rc, k) for k in (
+                    "detect_s", "detect_ticks", "restore_s", "replan_s",
+                    "healthy_tokens_per_sec", "degraded_tokens_per_sec",
+                    "flows_abandoned", "horizon", "budget")},
+                "horizons": [r.horizon for r in cap.results], "grid": grid}
+    say("7 traffic", f"(c) price_recovery of train_4k dp=4 tp=4: horizons "
+        f"{out['c']['horizons']} ({secs:.2f} s, peak "
+        f"{peak / 2 ** 30:.3f} GiB); detect {rc.detect_ticks} ticks, "
+        f"{rc.flows_abandoned} flows abandoned, modelled fleet tokens/s "
+        f"{rc.healthy_tokens_per_sec!r} healthy / "
+        f"{rc.degraded_tokens_per_sec!r} degraded; every RecoveryCosts field "
+        f"equal to the JAX golden; Young/Daly and availability gates hold")
+    # (d) netmodel
+    with _Capture(netmodel, "simulate") as cap:
+        def run():
+            ts = {f"{kind}/{algo}": netmodel.simulated_collective_time(
+                kind, chips=8, size_pkts=24, algo=algo, device="cuda")
+                for kind, algo in (("all-reduce", "ring"),
+                                   ("all-reduce", "tree"),
+                                   ("all-gather", "ring"))}
+            ts["eff"] = netmodel.simulated_efficiency(
+                "all-reduce", hosts=4, size_pkts=16, device="cuda")
+            return ts
+        ts, secs, peak, launches = _timed_batch(run)
+    for k, v in ts.items():
+        want = gold["d/eff" if k == "eff" else f"d/t/{k}"].item()
+        assert v == want, (k, v, want)
+    _launches_per_group("d", launches, {(i, "ai_full"): r.horizon
+                                        for i, r in enumerate(cap.results)})
+    out["d"] = {"seconds": secs, "peak_bytes": peak, "launches": launches,
+                "values": ts, "horizons": [r.horizon for r in cap.results]}
+    say("7 traffic", f"(d) netmodel: {ts} ({secs:.2f} s), equal to the JAX "
+        f"golden; launches {launches}")
+    for tag in ("a", "b"):
+        res = out[tag]
+        say("7 traffic", f"({tag}) host ms per point: compile_step "
+            f"{res['compile_ms_per_point']:.3f} + price_step "
+            f"{res['price_ms_per_point']:.3f} against the simulator's "
+            f"{res['sim_ms_per_point']:.3f}")
+    runs = [out[p]["launches"] for p in "abcd"] + [
+        out["b"]["train"]["launches"]]
+    out["launches"] = {k: sum(r[k] for r in runs) for k in TICK_KERNELS}
+    for res in (out["a"], out["b"]):
+        del res["points"]
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--trace", type=Path,
@@ -1881,6 +2187,7 @@ def main(argv=None) -> int:
     result["profiles"], states = phase_profiles()
     result["entry_points"] = phase_entry_points(states)
     result["cross_device"] = phase_cross_device()
+    result["traffic"] = phase_traffic()
     kernels = []
     for name, row in result["kernels"].items():
         row = {k: v for k, v in row.items()
@@ -1904,6 +2211,8 @@ def main(argv=None) -> int:
                 k: {"launches": result["telemetry"][k]["launches"][name]}
                 for k in ("faults", "link")}
             row["shard"] = {"launches": result["shard"]["launches"][name]}
+            # and on the model-driven traffic's runs, all four parts
+            row["traffic"] = {"launches": result["traffic"]["launches"][name]}
         kernels.append(row)
     result["seconds"] = time.perf_counter() - t0
     if args.out is not None:

@@ -28,13 +28,20 @@ groups' ``red`` ids when b is even and ``red = -1`` when it is odd, as
 ``cbfc=True``) and even scenarios 1 % BER on edge switch 1's uplinks,
 as its link phase does.
 
+With ``--traffic`` the graph is ``chip_smoke.py``'s full-width
+``fat_tree3(k=16, pods=16)`` and the traffic its traffic phase's train
+step: the deepseek-coder-33b ``train_4k`` plan at dp = tp = 16 compiled
+by ``repro_torch.network.traffic.compile_step`` (F = 136 dep-chained
+flows) under ``ai_full``.
+
 With ``--telemetry`` the same ticks are counted again with
 ``TelemetrySpec.on(probe_every=16, slots=16)``: the tick's probe plus
 the probe carry's update (``repro_torch.network.telemetry``), split into
 probe ticks (a multiple of ``probe_every``) and the others.
 
     PYTHONPATH=src python3 scripts/torch_port_opcount.py [--ticks 32] \
-        [--batch 1] [--faulted | --inc | --link llr|cbfc] [--telemetry]
+        [--batch 1] [--faulted | --inc | --link llr|cbfc | --traffic] \
+        [--telemetry]
 
 Run with another tree's ``src`` on ``PYTHONPATH`` to count that tree.
 """
@@ -83,9 +90,10 @@ def main() -> int:
     ap.add_argument("--faulted", action="store_true")
     ap.add_argument("--inc", action="store_true")
     ap.add_argument("--link", choices=("llr", "cbfc"), default=None)
+    ap.add_argument("--traffic", action="store_true")
     ap.add_argument("--telemetry", action="store_true")
     args = ap.parse_args()
-    g = fat_tree3(k=6, pods=3)
+    g = fat_tree3(k=16, pods=16) if args.traffic else fat_tree3(k=6, pods=3)
     h = np.arange(27, dtype=np.int32)
     B = args.batch
     if args.inc:
@@ -105,6 +113,13 @@ def main() -> int:
         wl = fabric.Workload.stack([fabric.Workload.of(
             a["src"], a["dst"], a["size"], dep=a["dep"],
             red=a["red"] if b % 2 == 0 else None) for b in range(B)])
+    elif args.traffic:
+        from repro_torch import configs
+        from repro_torch.distributed.plan import derive_plan
+        from repro_torch.network.traffic import compile_step
+        plan = derive_plan(configs.get("deepseek-coder-33b"), "train_4k",
+                           dp=16, tp=16, layout="fsdp_tp")
+        wl = fabric.Workload.stack([compile_step(plan, g).workload] * B)
     else:
         wl = fabric.Workload.stack([fabric.Workload.of(
             np.concatenate([h, h]),
@@ -149,6 +164,7 @@ def main() -> int:
     F = int(wl.src.shape[1])
     label = (f"{g.name} F={F} B={args.batch} {prof.name}"
              f"{' faulted' if args.faulted else ''}"
+             f"{' traffic' if args.traffic else ''}"
              f"{'' if link is None else f' link={args.link}'}")
     specs = [None] + ([TEL_SPEC] if args.telemetry else [])
     per_tick = {}

@@ -26,7 +26,12 @@ With ``--inc`` the tick is ``chip_smoke.py``'s collectives phase:
 and ``red = -1`` when it is odd. With ``--link llr`` or ``--link cbfc``
 it is its link phase: the two permutations under
 ``LinkConfig.on(llr=True)`` (and ``cbfc=True``), even scenarios with
-1 % BER on edge 1's uplinks (``chip_smoke.link_schedule``).
+1 % BER on edge 1's uplinks (``chip_smoke.link_schedule``). With
+``--traffic`` it is the full-width train step of its traffic phase: the
+deepseek-coder-33b ``train_4k`` plan at dp = tp = 16 compiled by
+``repro_torch.network.traffic.compile_step`` onto the same graph (F =
+136 dep-chained flows: the param gathers, two TP layers, the gradient
+reduce-scatter, re-gather and all-reduce) under ``ai_full``.
 
 With ``--telemetry`` the whole measurement runs four times in the same
 call, in turns: without, with, with and without
@@ -44,7 +49,8 @@ run, and the ten largest device-time consumers. A tick of B scenarios
 is B scenario-ticks.
 
     PYTHONPATH=src python3 scripts/torch_port_profile.py [--batch B] \
-        [--faulted | --inc | --link llr|cbfc] [--telemetry] [--out FILE]
+        [--faulted | --inc | --link llr|cbfc | --traffic] [--telemetry] \
+        [--out FILE]
 
 Needs a CUDA card; imports nothing of JAX.
 """
@@ -75,7 +81,7 @@ from repro_torch.network.topology import fat_tree3
 
 sys.path.insert(0, str(ROOT))
 from chip_smoke import (fault_schedule, inc_workloads,  # noqa: E402
-                        link_schedule)
+                        link_schedule, traffic_train_plan)
 
 
 #: the probe spec of ``--telemetry`` (chip_smoke.py's faulted telemetry run)
@@ -90,6 +96,7 @@ def main() -> int:
     ap.add_argument("--faulted", action="store_true")
     ap.add_argument("--inc", action="store_true")
     ap.add_argument("--link", choices=("llr", "cbfc"), default=None)
+    ap.add_argument("--traffic", action="store_true")
     ap.add_argument("--telemetry", action="store_true")
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args()
@@ -131,6 +138,10 @@ def measure(args, smi: str, tel) -> dict:
     if args.inc:
         on, off, _, _ = inc_workloads(dev)
         wl = fabric.Workload.stack([off if b % 2 else on for b in range(B)])
+    elif args.traffic:
+        from repro_torch.network.traffic import compile_step
+        wl = fabric.Workload.stack(
+            [compile_step(traffic_train_plan(), g).workload.to(dev)] * B)
     else:
         wl = fabric.Workload.stack([fabric.Workload.of(
             np.concatenate([h, h]),
@@ -218,7 +229,7 @@ def measure(args, smi: str, tel) -> dict:
     res = {
         "nvidia_smi": smi, "config": g.name, "flows": F, "batch": B,
         "profile": prof_.describe(), "faulted": args.faulted,
-        "inc": args.inc, "link": args.link,
+        "inc": args.inc, "link": args.link, "traffic": args.traffic,
         "telemetry": None if tel is None else str(tel),
         "window_ticks": n, "ticks_run": ticks_run, "peak_bytes": peak,
         "scenario_ticks_per_s_by_window": [B * 1e3 / w for w in windows],
@@ -235,6 +246,7 @@ def measure(args, smi: str, tel) -> dict:
     }
     print(f"{g.name} F={F} B={B} {prof_.describe()}"
           f"{' faulted' if args.faulted else ''}"
+          f"{' traffic' if args.traffic else ''}"
           f"{'' if link is None else f' link={args.link}'}"
           f"{'' if tel is None else ' telemetry'}: "
           f"{ticks_run} ticks, peak "

@@ -5,8 +5,9 @@ width: ``tests/golden/torch_port_fullsize.npz``,
 ``tests/golden/torch_port_batch.npz``,
 ``tests/golden/torch_port_faults.npz``,
 ``tests/golden/torch_port_inc.npz``,
-``tests/golden/torch_port_link.npz`` and
-``tests/golden/torch_port_telemetry.npz``.
+``tests/golden/torch_port_link.npz``,
+``tests/golden/torch_port_telemetry.npz`` and
+``tests/golden/torch_port_traffic.npz``.
 
 Both use the port's full-width fabric (``chip_smoke.py`` phase 5): a full
 3-tier k=16 fat tree (``fat_tree3(k=16, pods=16)``: 1024 endpoints, 320
@@ -63,13 +64,24 @@ downlink takes a 2:1 incast — under ``SimParams()`` with
   ``telemetry=TelemetrySpec.on(probe_every=16, slots=16)`` (tag
   ``faults``) and the ``link`` run's LLR + CBFC arm with
   ``TelemetrySpec.on(probe_every=8, slots=16)`` (tag ``link``).
+* ``traffic``: model-driven traffic and its pricing
+  (``repro.network.traffic``), in four parts: ``a``, the reference
+  bench's ``run_model_sweep()`` (2 archs x 2 layouts x 2 leaf-spines x
+  3 profiles at ``decode_32k``, dp = tp = 16: 24 scenarios in one
+  ``simulate_batch``); ``b``, the same grid on ``fat_tree3(k=16,
+  pods=16)`` alone (12 scenarios) and ``step_time`` of the
+  deepseek-coder-33b ``train_4k`` plan at dp = tp = 16 on that graph
+  under ``ai_full()``; ``c``, ``price_recovery`` of the ``train_4k``
+  plan at dp = tp = 4; ``d``, netmodel's ``simulated_collective_time``
+  (all-reduce ring / tree, all-gather ring at 8 chips, 24 packets) and
+  ``simulated_efficiency("all-reduce", hosts=4, size_pkts=16)``.
 
 This script imports the JAX package and is not part of the port. It
 runs on the CPU (about five minutes per one-scenario run on a few
 cores):
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/torch_port_reference.py \
-        [--which fullsize|profiles|batch|faults|inc|link|telemetry]
+        [--which fullsize|profiles|batch|faults|inc|link|telemetry|traffic]
 
 ``fullsize`` holds the workload lanes (``src``, ``dst``, ``size``), the
 per-flow stats and final lanes (``stat_completion``,
@@ -156,6 +168,10 @@ OUT_FAULTS = GOLDEN / "torch_port_faults.npz"
 OUT_INC = GOLDEN / "torch_port_inc.npz"
 OUT_LINK = GOLDEN / "torch_port_link.npz"
 OUT_TELEMETRY = GOLDEN / "torch_port_telemetry.npz"
+OUT_TRAFFIC = GOLDEN / "torch_port_traffic.npz"
+#: netmodel's (kind, algo) pairs of ``tests/test_collectives.py``
+NET_PAIRS = (("all-reduce", "ring"), ("all-reduce", "tree"),
+             ("all-gather", "ring"))
 #: the telemetry runs' specs, by tag
 TEL_SPECS = {"faults": TelemetrySpec.on(probe_every=16, slots=16),
              "link": TelemetrySpec.on(probe_every=8, slots=16)}
@@ -599,6 +615,157 @@ def write_telemetry(path: Path) -> None:
     print(f"{g.name}: telemetry runs {tuple(runs)} -> {path}")
 
 
+class _Capture:
+    """Record the SimResults of every call of ``module.name`` (the
+    simulator entry point a traffic function calls) while it runs."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name = module, name
+        self.results: list = []
+
+    def __enter__(self):
+        orig = self.orig = getattr(self.module, self.name)
+
+        def run(*args, **kw):
+            r = orig(*args, **kw)
+            self.results += r if isinstance(r, list) else [r]
+            return r
+        setattr(self.module, self.name, run)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+def _timing_lanes(compiled, r, t) -> dict:
+    """A compiled step, its run and its StepTiming as golden lanes."""
+    wl = compiled.workload
+    scopes = list(t.eff)
+    return {
+        "src": np.asarray(wl.src), "dst": np.asarray(wl.dst),
+        "size": np.asarray(wl.size), "dep": np.asarray(wl.dep),
+        "phase_names": np.asarray(",".join(ph.name for ph in compiled.phases)),
+        "phases": np.asarray([(ph.lo, ph.hi, ph.ideal_ticks)
+                              for ph in compiled.phases], np.int64),
+        "horizon": np.int64(r.horizon),
+        "stat_src_completion": np.asarray(r.stat_src_completion),
+        "sim_ticks": np.int64(t.sim_ticks),
+        **{k: np.float64(getattr(t, k))
+           for k in ("step_s", "net_s", "analytic_net_s", "compute_s",
+                     "memory_s", "tokens_per_sec")},
+        "eff_scopes": np.asarray(",".join(scopes)),
+        "eff": np.asarray([t.eff[k] for k in scopes], np.float64),
+        "phase_ticks": np.asarray([d["ticks"] for d in t.phases], np.int64),
+    }
+
+
+def _sweep_lanes(prefix: str, topologies) -> dict:
+    """``run_model_sweep(topologies=...)`` with its runs captured."""
+    from repro.network import traffic
+    t0 = time.perf_counter()
+    with _Capture(traffic, "simulate_batch") as cap:
+        pts = traffic.run_model_sweep(topologies=topologies)
+    secs = time.perf_counter() - t0
+    _, _, _, points = traffic.model_sweep_scenarios(topologies=topologies)
+    budget = max(pt["compiled"].default_budget() for pt in points)
+    out = {"n": np.int64(len(pts)), "budget": np.int64(budget),
+           "cpu_seconds": np.float64(secs)}
+    for i, (pt, ref, r) in enumerate(zip(pts, points, cap.results)):
+        t = traffic.price_step(ref["compiled"], r)
+        assert t.step_s == pt["step_s"] and t.sim_ticks == pt["sim_ticks"]
+        lanes = {k: np.asarray(pt[k])
+                 for k in ("arch", "layout", "topology", "profile")}
+        lanes.update(_timing_lanes(ref["compiled"], r, t))
+        out.update({f"s{i}/{k}": v for k, v in lanes.items()})
+        print(f"{prefix} {i}: {pt['arch']} {pt['layout']} {pt['topology']} "
+              f"{pt['profile']}: F={ref['compiled'].num_flows} horizon="
+              f"{r.horizon} sim_ticks={t.sim_ticks} step_s={t.step_s!r} "
+              f"eff={t.eff}", flush=True)
+    print(f"{prefix}: {len(pts)} points in {secs:.1f} s", flush=True)
+    return {f"{prefix}/{k}": v for k, v in out.items()}
+
+
+def traffic_train_plan(dp: int, tp: int):
+    from repro import configs
+    from repro.distributed.plan import derive_plan
+    return derive_plan(configs.get("deepseek-coder-33b"), "train_4k",
+                       dp=dp, tp=tp, layout="fsdp_tp")
+
+
+def traffic_part_a() -> dict:
+    return _sweep_lanes("a", None)
+
+
+def traffic_part_b() -> dict:
+    from repro.network import traffic
+    g = fat_tree3(k=16, pods=16)
+    out = _sweep_lanes("b", [("ft16", g)])
+    plan = traffic_train_plan(16, 16)
+    t0 = time.perf_counter()
+    with _Capture(traffic, "simulate") as cap:
+        t = traffic.step_time(plan, g, TransportProfile.ai_full())
+    secs = time.perf_counter() - t0
+    compiled = traffic.compile_step(plan, g)
+    (r,) = cap.results
+    lanes = {**_timing_lanes(compiled, r, t), "cpu_seconds": np.float64(secs),
+             "budget": np.int64(compiled.default_budget())}
+    print(f"b train: F={compiled.num_flows} phases "
+          f"{[ph.name for ph in compiled.phases]} horizon={r.horizon} "
+          f"sim_ticks={t.sim_ticks} step_s={t.step_s!r} eff={t.eff} in "
+          f"{secs:.1f} s", flush=True)
+    out.update({f"b/train/{k}": v for k, v in lanes.items()})
+    return out
+
+
+def traffic_part_c() -> dict:
+    from repro.network import traffic
+    plan = traffic_train_plan(4, 4)
+    t0 = time.perf_counter()
+    with _Capture(traffic, "simulate") as cap:
+        rc = traffic.price_recovery(plan)
+    secs = time.perf_counter() - t0
+    out = {k: np.asarray(getattr(rc, k))
+           for k in ("detect_s", "detect_ticks", "restore_s", "replan_s",
+                     "healthy_tokens_per_sec", "degraded_tokens_per_sec",
+                     "flows_abandoned", "horizon", "budget")}
+    out["cpu_seconds"] = np.float64(secs)
+    for tag, r in zip(("healthy", "fault", "degraded"), cap.results):
+        out.update({f"{tag}/horizon": np.int64(r.horizon),
+                    f"{tag}/max_ticks": np.int64(r.max_ticks),
+                    f"{tag}/flows_abandoned": np.int64(r.flows_abandoned),
+                    f"{tag}/abandon_tick": np.int64(r.abandon_tick),
+                    f"{tag}/stat_src_completion":
+                        np.asarray(r.stat_src_completion)})
+    print(f"c: {rc} in {secs:.1f} s", flush=True)
+    return {f"c/{k}": v for k, v in out.items()}
+
+
+def traffic_part_d() -> dict:
+    from repro.distributed import netmodel
+    t0 = time.perf_counter()
+    out = {}
+    for kind, algo in NET_PAIRS:
+        out[f"t/{kind}/{algo}"] = np.float64(netmodel.simulated_collective_time(
+            kind, chips=8, size_pkts=24, algo=algo))
+    out["eff"] = np.float64(netmodel.simulated_efficiency(
+        "all-reduce", hosts=4, size_pkts=16))
+    out["cpu_seconds"] = np.float64(time.perf_counter() - t0)
+    print(f"d: {out}", flush=True)
+    return {f"d/{k}": v for k, v in out.items()}
+
+
+def write_traffic(path: Path) -> None:
+    """The four parts, the file rewritten after each (the full-width part
+    ``b`` runs last: it takes the longest)."""
+    out: dict = {}
+    path.parent.mkdir(parents=True, exist_ok=True)
+    for part in (traffic_part_a, traffic_part_c, traffic_part_d,
+                 traffic_part_b):
+        out.update(part())
+        np.savez_compressed(path, **out)
+    print(f"traffic -> {path}")
+
+
 def write_profiles(path: Path) -> None:
     out = {}
     for tag in ("hpc", "base", "mixed"):
@@ -612,7 +779,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--which", default="fullsize",
                     choices=("fullsize", "profiles", "batch", "faults",
-                             "inc", "link", "telemetry"))
+                             "inc", "link", "telemetry", "traffic"))
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args()
     if args.which == "fullsize":
@@ -627,6 +794,8 @@ def main() -> int:
         write_link(args.out or OUT_LINK)
     elif args.which == "telemetry":
         write_telemetry(args.out or OUT_TELEMETRY)
+    elif args.which == "traffic":
+        write_traffic(args.out or OUT_TRAFFIC)
     else:
         write_profiles(args.out or OUT_PROFILES)
     return 0

@@ -1,7 +1,7 @@
 """Dependency-scheduled collectives and in-network reduction on the port,
 against the reference package on the CPU, bitwise — the twins of
-``tests/test_collectives.py`` (its netmodel tests wait for ROADMAP.md
-item 11), of the dependency and INC cases of
+``tests/test_collectives.py`` (its netmodel tests have theirs in
+``test_torch_netmodel.py``), of the dependency and INC cases of
 ``tests/test_fabric_batch.py`` and of the INC cases of
 ``tests/test_adaptive_horizon.py``.
 

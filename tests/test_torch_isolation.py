@@ -36,6 +36,11 @@ def test_importing_the_port_loads_no_jax():
     code = ("import sys\n"
             "import repro_torch.convert, repro_torch.kernels.build\n"
             "import repro_torch.network.fabric\n"
+            "import repro_torch.network.traffic, repro_torch.distributed.plan\n"
+            "import repro_torch.distributed.netmodel\n"
+            "import repro_torch.ckpt.checkpointing\n"
+            "from repro_torch import configs\n"
+            "[configs.get(n) for n in configs.ARCH_NAMES]\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
             "assert not bad, bad\n")

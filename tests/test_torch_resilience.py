@@ -9,8 +9,10 @@ through both packages, is held bitwise on every state lane and counter
 quarantine and strike lanes included), then meets the reference test's
 own assertions (the batched host faults are in
 ``test_torch_resilience_batch.py``, the sharded ones in
-``test_torch_shard.py``). The PDC state machine (item 12) and the
-checkpoint economics (item 11) are not ported and have no twin here.
+``test_torch_shard.py``). The PDC state machine (item 12) is not
+ported and has no twin here; the checkpoint economics, the replan and
+the priced recovery have theirs in ``test_torch_plan.py`` and
+``test_torch_traffic.py``.
 Helpers: ``test_torch_faults.py``.
 """
 from dataclasses import replace
