@@ -170,6 +170,31 @@ Phases, one line each:
    of ``compile_step`` + ``price_step`` beside the simulator's. Step
    times are modelled fleet seconds, priced with the reference's
    modelled accelerator, not a measurement of the card.
+8. control — the UET control plane (``repro_torch.core``: ``pdc``,
+   ``pds``'s batch API, ``addressing``, ``matching``, ``tss``, NSCC's
+   batch API and DFC) on the card: (a) ``tour(device="cuda")`` of
+   ``examples/uet_transport_tour_torch.py``, every value ``==`` the JAX
+   tour's in ``tests/golden/torch_port_control.npz`` (written by
+   ``scripts/torch_port_reference.py --which control``); (b) the seeded
+   batch of ``control_inputs(CONTROL_GOLDEN)`` (``record_rx`` at B =
+   8192 over 2048 PDCs, the pool, addressing, matching, TSS, NSCC),
+   every output lane bitwise the golden's; (c) one endpoint at real
+   scale, ``control_inputs(CONTROL_REAL)``, on the card and on the
+   port's plain CPU path, bitwise, part by part: eight rounds of
+   ``or_mask`` + ``record_rx`` + ``advance_cack`` + ``sack_view`` over
+   262144 lanes and N = 65536 PDCs at W = 32 (duplicates, stale and
+   out-of-window PSNs); 65536 PDCs through every transition of both
+   machines, PEER_DEAD included; ``FEPTables`` of 64 jobs x 1024
+   PIDonFEP x 16 RIs and ``resolve`` of 262144 packets in both modes; a
+   ``RecvQueue`` of 16384 posted entries, ``match`` of 4096 arrivals
+   under each profile and ``consume``; a ``SecureDomain`` of 65536
+   members, 16 rounds of 262144 IVs with a key rotation, a ``PSNGuard``
+   of 65536 peers across 2**31; ``on_acks`` of 262144 ACKs over 65536
+   CCCs (up to 8 a CCC), ``on_loss`` and ``apply_dfc_penalty``. Exactly
+   one ``nack_mark`` launch per ``record_rx`` and per ``or_mask`` call,
+   one ``sack_advance`` per ``advance_cack``, no other kernel; each
+   part's card and CPU seconds and peak memory; then ``nack_mark`` and
+   ``sack_advance`` timed at N = 65536, W = 32 (L = 262144 lanes).
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and the script
@@ -197,6 +222,7 @@ INC = ROOT / "tests" / "golden" / "torch_port_inc.npz"
 LINK = ROOT / "tests" / "golden" / "torch_port_link.npz"
 TELEMETRY = ROOT / "tests" / "golden" / "torch_port_telemetry.npz"
 TRAFFIC = ROOT / "tests" / "golden" / "torch_port_traffic.npz"
+CONTROL = ROOT / "tests" / "golden" / "torch_port_control.npz"
 #: the probe rings the telemetry golden holds as sha256 digests
 TEL_RINGS = ("s_occ", "s_ecn", "s_trim", "s_drop", "s_llr", "s_stall",
              "s_rtt", "s_cwnd")
@@ -2160,6 +2186,521 @@ def phase_traffic() -> dict:
     return out
 
 
+# ------------------------------------------------------- control plane --
+
+#: the control phase's seeded batches: the golden's size (the reference's
+#: ``record_rx`` dedup is [B, B], so B = 8192 there) and one endpoint at
+#: real scale (N = 65536 PDCs at ``DEFAULT_MP_RANGE`` = 1024, W = 32)
+CONTROL_GOLDEN = {"psn_n": 2048, "lanes": 8192, "rounds": 3,
+                  "pdc_n": 4096, "jobs": 8, "pids": 64, "ris": 8,
+                  "entries": 1024, "arrivals": 512, "members": 1024,
+                  "iv_lanes": 4096, "iv_rounds": 4, "peers": 1024,
+                  "cccs": 1024}
+CONTROL_REAL = {"psn_n": 65536, "lanes": 262144, "rounds": 8,
+                "pdc_n": 65536, "jobs": 64, "pids": 1024, "ris": 16,
+                "entries": 16384, "arrivals": 4096, "members": 65536,
+                "iv_lanes": 262144, "iv_rounds": 16, "peers": 65536,
+                "cccs": 65536}
+CONTROL_SEED = 0xC0DE
+CONTROL_PARTS = ("psn", "pdc", "addr", "match", "tss", "nscc")
+#: the NSCC gains of the control batch: a target (base_rtt *
+#: target_factor) that is not exact in f32
+CONTROL_NSCC = {"base_rtt": 7.3, "target_factor": 1.1, "max_cwnd": 48.0}
+
+
+def _u32s(rng, n) -> np.ndarray:
+    return rng.integers(0, 2 ** 32, n, dtype=np.uint64).astype(np.uint32)
+
+
+def _near(rng, centre: int, spread: int, n) -> np.ndarray:
+    """uint32 values within ``spread`` of ``centre``, wrapping."""
+    return ((centre + rng.integers(-spread, spread, n)) % 2 ** 32).astype(
+        np.uint32)
+
+
+def control_inputs(size: dict, seed: int = CONTROL_SEED) -> dict:
+    """The control phase's inputs at ``size`` (``CONTROL_GOLDEN`` or
+    ``CONTROL_REAL``), numpy arrays keyed ``part/name``, uint32 lanes as
+    uint32. The same arrays feed the port here and the reference in
+    ``scripts/torch_port_reference.py --which control``. Every batch
+    holds repeated indices (slots, PDCs, members, peers, CCCs), ties, a
+    few negative indices (which count from the end; none for the PSN
+    rows, see below) and indices past the end (reads clamp, writes
+    drop), and uint32 values >= 2**31."""
+    rng = np.random.default_rng(seed)
+    inp = {}
+    # PSN tracking: R rounds of L lanes over N PDCs
+    n, lanes, rounds = size["psn_n"], size["lanes"], size["rounds"]
+    base0 = _u32s(rng, n)
+    base0[::7] = _near(rng, 2 ** 32 - 40, 30, base0[::7].shape)
+    inp["psn/base"] = base0
+    for r in range(rounds):
+        pdc = rng.integers(0, n, lanes)
+        kind = rng.integers(0, 10, lanes)
+        off = np.where(kind < 6, 4 * r + rng.integers(0, 6, lanes),
+                       np.where(kind < 8, rng.integers(0, 1100, lanes),
+                                4 * r - 1 - rng.integers(0, 8, lanes)))
+        psn = ((base0[pdc].astype(np.int64) + off) % 2 ** 32).astype(
+            np.uint32)
+        dup = rng.random(lanes) < 0.05
+        dup[0] = False
+        src = np.where(dup, np.arange(lanes) - 1, np.arange(lanes))
+        pdc, psn = pdc[src], psn[src]
+        valid = rng.random(lanes) >= 0.05
+        pdc = np.where(valid, pdc, rng.integers(-3 * n, 3 * n, lanes))
+        # a few valid rows past the end (reads clamp, writes drop); no
+        # negative valid row: the reference's dedup keys -1 apart from
+        # N - 1 while its scatter aliases them, so two such lanes at one
+        # bit carry into the next (ROADMAP.md queue 3)
+        pdc = np.where(valid & (rng.random(lanes) < 0.002), pdc + n, pdc)
+        inp[f"psn/pdc{r}"] = pdc.astype(np.int32)
+        inp[f"psn/psn{r}"] = psn
+        inp[f"psn/valid{r}"] = valid
+    # the PDC pool: open, ACK, then every transition of both machines
+    n = size["pdc_n"]
+    k = n // 2
+    slot = rng.integers(-n - 2, n + 2, k)
+    slot[:6] = [n, n + 1, -n - 1, -1, 3, 3]   # past the end, wrapping, twice
+    inp["pdc/open_slot"] = slot.astype(np.int32)
+    inp["pdc/open_peer"] = rng.integers(0, 4096, k).astype(np.int32)
+    inp["pdc/open_psn"] = _u32s(rng, k)
+    inp["pdc/open_mode"] = rng.integers(0, 3, k).astype(np.int32)
+    inp["pdc/ack_slot"] = rng.integers(0, n, n).astype(np.int32)
+    inp["pdc/ack_remote"] = rng.integers(-1, 4096, n).astype(np.int32)
+    inp["pdc/ack_n"] = rng.integers(0, 5, n).astype(np.int32)
+    for r in range(6):
+        for side, num in (("init", 8), ("tgt", 6)):
+            ev = rng.integers(0, num, n)
+            ev[rng.random(n) < 0.01] = -1      # counts from the end
+            ev[rng.random(n) < 0.01] = num + 2  # clamps to the last
+            inp[f"pdc/{side}_ev{r}"] = ev.astype(np.int32)
+    # addressing: J jobs x P PIDonFEP x R RIs, two rows hold one JobID,
+    # one row stays empty, then a slot past the end and slot -1
+    jobs, pids, ris = size["jobs"], size["pids"], size["ris"]
+    ids = rng.choice(1 << 24, jobs, replace=False)
+    ids[jobs - 2] = ids[1]
+    slots = list(rng.permutation(jobs)[:jobs - 1]) + [jobs, -1]
+    inp["addr/slots"] = np.asarray(slots, np.int32)
+    inp["addr/jobids"] = ids[np.asarray(slots) % jobs].astype(np.int32)
+    for i in range(len(slots)):
+        proc = rng.integers(0, jobs * pids, pids)
+        proc[rng.random(pids) < 0.1] = -1
+        ctx = rng.integers(0, 1 << 20, (pids, ris))
+        ctx[rng.random((pids, ris)) < 0.1] = -1
+        inp[f"addr/proc{i}"] = proc.astype(np.int32)
+        inp[f"addr/ris{i}"] = ctx.astype(np.int32)
+    svc = rng.integers(0, 1 << 20, 64)
+    svc[rng.random(64) < 0.3] = -1
+    inp["addr/service"] = svc.astype(np.int32)
+    b = size["lanes"]
+    known = rng.random(b) < 0.8
+    inp["addr/jobid"] = np.where(known, ids[rng.integers(0, jobs, b)],
+                                 rng.integers(0, 1 << 24, b)).astype(np.int32)
+    inp["addr/pid"] = rng.integers(-2, pids + 2, b).astype(np.int32)
+    inp["addr/ri"] = rng.integers(-1, ris + 1, b).astype(np.int32)
+    inp["addr/rel"] = rng.integers(0, 2, b).astype(np.int32)
+    # matching: E posted entries (exact and wildcard, posting-order ties),
+    # B arrivals under each profile, consume, and HPC again
+    e, b = size["entries"], size["arrivals"]
+    post = np.concatenate([rng.permutation(e)[:e - e // 16],
+                           rng.integers(0, e, e // 8)])
+    kp = post.size
+    comm, tag, sq = (rng.integers(0, 4, kp), rng.integers(0, 64, kp),
+                     rng.integers(0, 16, kp))
+    hi = (comm << 16) | (tag >> 8)
+    lo = ((tag & 0xFF) << 24) | sq
+    wild = rng.integers(0, 4, kp)
+    wild[rng.random(kp) < 0.7] = 0
+    mhi = np.select([wild == 1, wild == 2, wild == 3],
+                    [0xFFFF, 0, 0xFFFF0000], 0)
+    mlo = np.select([wild == 1, wild == 2, wild == 3],
+                    [0xFFFFFFFF, 0xFFFFFF, 0], 0)
+    init = np.where(rng.random(kp) < 0.5, 0xFFFFFFFF, rng.integers(0, 8, kp))
+    inp["match/slot"] = post.astype(np.int32)
+    inp["match/hi"] = hi.astype(np.uint32)
+    inp["match/lo"] = lo.astype(np.uint32)
+    inp["match/mhi"] = mhi.astype(np.uint32)
+    inp["match/mlo"] = mlo.astype(np.uint32)
+    inp["match/init"] = init.astype(np.uint32)
+    inp["match/seq"] = rng.integers(0, max(e // 4, 1), kp).astype(np.int32)
+    inp["match/buf"] = np.arange(kp, dtype=np.int32)
+    pick = rng.integers(0, kp, b)
+    kind = rng.integers(0, 4, b)
+    khi = np.where(kind < 2, hi[pick], rng.integers(0, 4, b) << 16)
+    klo = np.where(kind < 2, lo[pick], (rng.integers(0, 64, b) << 24)
+                   | rng.integers(0, 16, b))
+    khi = np.where(kind == 3, _u32s(rng, b), khi)
+    inp["match/khi"] = khi.astype(np.uint32)
+    inp["match/klo"] = klo.astype(np.uint32)
+    inp["match/kinit"] = rng.integers(0, 8, b).astype(np.uint32)
+    # TSS: M members, R rounds of L IVs, a rotation half way, the PSN
+    # ratchet of P peers across 2**31 and 2**32
+    m, lanes, rounds = size["members"], size["iv_lanes"], size["iv_rounds"]
+    inp["tss/pkt_counter"] = np.where(
+        rng.random(m) < 0.1, _near(rng, 2 ** 32 - 8, 8, m), _u32s(rng, m))
+    kp = rng.integers(0, 1 << 20, m)
+    sel = rng.random(m)
+    kp = np.where(sel < 0.1, 2 ** 27 - rng.integers(0, 2 * rounds, m),
+                  np.where(sel > 0.99, 2 ** 31 - 1 - rng.integers(
+                      0, 2 * rounds, m), kp))
+    inp["tss/key_packets"] = kp.astype(np.int32)
+    for r in range(rounds):
+        mem = rng.integers(0, m, lanes)
+        mem[rng.random(lanes) < 0.002] = -1
+        mem[:3] = [-1, 1, 1]
+        inp[f"tss/member{r}"] = mem.astype(np.int32)
+    p = size["peers"]
+    inp["tss/start_psn"] = np.where(rng.random(p) < 0.05,
+                                    _near(rng, 2 ** 32 - 100, 100, p),
+                                    _near(rng, 2 ** 31, 2000, p))
+    inp["tss/expected_psn"] = np.where(rng.random(p) < 0.05,
+                                       _near(rng, 2 ** 32 - 100, 100, p),
+                                       _near(rng, 2 ** 31, 2000, p))
+    for r in range(4):
+        inp[f"tss/close_peer{r}"] = rng.integers(0, p, p).astype(np.int32)
+        last = _near(rng, 2 ** 31, 3000, p)
+        last[rng.random(p) < 0.02] = 0xFFFFFFFF
+        last[:2] = [0xFFFFFFFF, 0x7FFFFFFF]
+        inp[f"tss/close_last{r}"] = last
+        inp[f"tss/open_peer{r}"] = rng.integers(0, p, p).astype(np.int32)
+        inp[f"tss/open_psn{r}"] = _near(rng, 2 ** 31, 3000, p)
+    inp["tss/tx"] = (2_000_000_000 + rng.integers(-50, 50, p)).astype(
+        np.int32)
+    # NSCC: L ACKs over C CCCs, each CCC repeated 1-8 times, then loss
+    # records and DFC penalties over repeated CCCs
+    c, lanes = size["cccs"], size["lanes"]
+    ccc = np.repeat(np.arange(c), rng.integers(1, 9, c))[:lanes]
+    ccc = np.concatenate([ccc, rng.integers(0, c, lanes - ccc.size)])
+    ccc = rng.permutation(ccc)
+    odd = rng.random(lanes)
+    ccc = np.where(odd < 0.001, -1 - rng.integers(0, 3, lanes),
+                   np.where(odd > 0.999, c + rng.integers(0, 3, lanes), ccc))
+    inp["nscc/cwnd"] = rng.uniform(0.5, 52.0, c).astype(np.float32)
+    inp["nscc/epoch_acked"] = rng.integers(0, 100, c).astype(np.int32)
+    inp["nscc/epoch_lost"] = rng.integers(0, 10, c).astype(np.int32)
+    inp["nscc/ccc"] = ccc.astype(np.int32)
+    inp["nscc/ecn"] = rng.random(lanes) < 0.4
+    rtt = rng.uniform(0.0, 30.0, lanes).astype(np.float32)
+    rtt[::97] = np.float32(7.3 * 1.1)
+    inp["nscc/rtt"] = rtt
+    inp["nscc/valid"] = rng.random(lanes) >= 0.05
+    inp["nscc/loss_ccc"] = rng.integers(-2, c + 2, lanes).astype(np.int32)
+    inp["nscc/loss_count"] = rng.integers(0, 4, lanes).astype(np.int32)
+    inp["nscc/dfc_ccc"] = rng.permutation(ccc).astype(np.int32)
+    inp["nscc/penalty"] = rng.uniform(-0.2, 1.2, lanes).astype(np.float32)
+    return inp
+
+
+def control_digest(inp: dict) -> str:
+    """sha256 over the inputs' names, dtypes, shapes and bytes, in name
+    order: the golden records it, so a changed generator shows."""
+    import hashlib
+    h = hashlib.sha256()
+    for k in sorted(inp):
+        a = np.ascontiguousarray(inp[k])
+        h.update(f"{k}:{a.dtype.str}:{a.shape}".encode())
+        h.update(a.tobytes())
+    return h.hexdigest()
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
+def _control_psn(inp: dict, size: dict, dev) -> dict:
+    from repro_torch.core import pds, scatter
+    out = {}
+    n = size["psn_n"]
+    t = pds.PSNTracker.create(n, 1024, device=dev)
+    t = pds.PSNTracker(_i32(inp["psn/base"], dev), t.ring, t.rx_ok, t.dup,
+                       t.oor)
+    for r in range(size["rounds"]):
+        pdc = torch.as_tensor(inp[f"psn/pdc{r}"]).to(dev)
+        psn = _i32(inp[f"psn/psn{r}"], dev)
+        valid = torch.as_tensor(inp[f"psn/valid{r}"]).to(dev)
+        off = psn - scatter.gather(t.base, torch.where(valid, pdc, 0))
+        mask, already = pds.or_mask(t.ring, pdc, off, valid)
+        t, fresh = pds.record_rx(t, pdc, psn, valid)
+        t, adv = pds.advance_cack(t)
+        cack, lo, hi = pds.sack_view(t)
+        for k, v in (("mask", mask), ("already", already), ("fresh", fresh),
+                     ("adv", adv), ("cack", cack), ("lo", lo), ("hi", hi)):
+            out[f"psn/{k}{r}"] = _np(v)
+    for k in ("base", "ring", "rx_ok", "dup", "oor"):
+        out[f"psn/{k}"] = _np(getattr(t, k))
+    return out
+
+
+def _control_pdc(inp: dict, size: dict, dev) -> dict:
+    from repro_torch.core import pdc
+    out = {}
+
+    def lane(k):
+        return _i32(inp[f"pdc/{k}"], dev)
+    pool = pdc.PDCPool.create(size["pdc_n"], device=dev)
+    pool = pdc.open_pdc(pool, lane("open_slot"), lane("open_peer"),
+                        lane("open_psn"), lane("open_mode"))
+    for k, v in vars(pool).items():
+        out[f"pdc/open/{k}"] = _np(v)
+    pool = pdc.on_ack(pool, lane("ack_slot"), lane("ack_remote"),
+                      lane("ack_n"))
+    for k, v in vars(pool).items():
+        out[f"pdc/ack/{k}"] = _np(v)
+    st, tg = pool.state, torch.zeros_like(pool.state)
+    for r in range(6):
+        st = pdc.step_initiator(st, lane(f"init_ev{r}"))
+        tg = pdc.step_target(tg, lane(f"tgt_ev{r}"))
+        out[f"pdc/init{r}"], out[f"pdc/tgt{r}"] = _np(st), _np(tg)
+        out[f"pdc/send{r}"] = _np(pdc.may_send_data(st))
+        out[f"pdc/accept{r}"] = _np(pdc.may_accept_new_message(st))
+    return out
+
+
+def _control_addr(inp: dict, size: dict, dev) -> dict:
+    from repro_torch.core import addressing
+    t = addressing.FEPTables.create(size["jobs"], size["pids"], size["ris"],
+                                    device=dev)
+    t = addressing.FEPTables(t.jobid_keys, t.jobid_to_pid, t.pid_table,
+                             t.ri_table, _i32(inp["addr/service"], dev))
+    for i, (slot, jobid) in enumerate(zip(inp["addr/slots"].tolist(),
+                                          inp["addr/jobids"].tolist())):
+        t = addressing.register_job(t, slot, jobid,
+                                    _i32(inp[f"addr/proc{i}"], dev),
+                                    _i32(inp[f"addr/ris{i}"], dev))
+    ctx, ok = addressing.resolve(
+        t, *(_i32(inp[f"addr/{k}"], dev) for k in ("jobid", "pid", "ri",
+                                                    "rel")))
+    out = {f"addr/{k}": _np(v) for k, v in vars(t).items()}
+    out["addr/ctx"], out["addr/ok"] = _np(ctx), _np(ok)
+    return out
+
+
+def _control_match(inp: dict, size: dict, dev) -> dict:
+    from repro_torch.core import matching
+    from repro_torch.core.types import Profile
+    q = matching.RecvQueue.create(size["entries"], device=dev)
+    q = matching.post_receive(q, *(_i32(inp[f"match/{k}"], dev) for k in (
+        "slot", "hi", "lo", "mhi", "mlo", "init", "seq", "buf")))
+    out = {f"match/q/{k}": _np(v) for k, v in vars(q).items()}
+    keys = [_i32(inp[f"match/{k}"], dev) for k in ("khi", "klo", "kinit")]
+    for prof in Profile:
+        slot, ok = matching.match(q, *keys, prof)
+        out[f"match/{prof.name}/slot"] = _np(slot)
+        out[f"match/{prof.name}/ok"] = _np(ok)
+        if prof == Profile.AI_FULL:
+            consumed = matching.consume(q, slot, ok)
+    slot, ok = matching.match(consumed, *keys, Profile.HPC)
+    out["match/consumed/valid"] = _np(consumed.valid)
+    out["match/consumed/slot"], out["match/consumed/ok"] = _np(slot), _np(ok)
+    return out
+
+
+def _control_tss(inp: dict, size: dict, dev) -> dict:
+    from repro_torch.core import tss
+    out = {}
+    sd = tss.SecureDomain.create(size["members"], seed=0x5D, device=dev)
+    sd = tss.SecureDomain(sd.sdk, sd.iv_mask, sd.epoch + 3, sd.an,
+                          _i32(inp["tss/pkt_counter"], dev),
+                          _i32(inp["tss/key_packets"], dev))
+    for r in range(size["iv_rounds"]):
+        mem = _i32(inp[f"tss/member{r}"], dev)
+        if r == size["iv_rounds"] // 2:
+            sd = tss.rotate_key(sd)
+        out[f"tss/key{r}"] = _np(tss.source_key(sd, mem))
+        sd, iv_hi, iv_lo = tss.iv_for_packet(sd, mem)
+        out[f"tss/iv_hi{r}"], out[f"tss/iv_lo{r}"] = _np(iv_hi), _np(iv_lo)
+        out[f"tss/rot{r}"] = _np(tss.needs_key_rotation(sd))
+        out[f"tss/rot_shared{r}"] = _np(tss.needs_key_rotation(sd, False))
+    for k, v in vars(sd).items():
+        out[f"tss/sd/{k}"] = _np(v)
+    out["tss/kdf"] = _np(tss.kdf(sd.sdk, _i32(inp["tss/open_psn0"], dev),
+                                 _i32(inp["tss/close_last0"], dev)))
+    g = tss.PSNGuard(_i32(inp["tss/start_psn"], dev),
+                     _i32(inp["tss/expected_psn"], dev))
+    for r in range(4):
+        g = tss.on_pdc_close(g, _i32(inp[f"tss/close_peer{r}"], dev),
+                             _i32(inp[f"tss/close_last{r}"], dev))
+        ok, nack = tss.accept_new_pdc(g, _i32(inp[f"tss/open_peer{r}"], dev),
+                                      _i32(inp[f"tss/open_psn{r}"], dev))
+        out[f"tss/accept{r}"], out[f"tss/nack{r}"] = _np(ok), _np(nack)
+    out["tss/start_psn"] = _np(g.start_psn)
+    out["tss/expected_psn"] = _np(g.expected_psn)
+    out["tss/must_close"] = _np(tss.pdc_must_close(_i32(inp["tss/tx"], dev)))
+    return out
+
+
+def _control_nscc(inp: dict, size: dict, dev) -> dict:
+    from repro_torch.core.cms import nscc
+    p = nscc.NSCCParams(**CONTROL_NSCC)
+
+    def lane(k):
+        return torch.as_tensor(inp[f"nscc/{k}"]).to(dev)
+    st = nscc.NSCCState(lane("cwnd"), lane("epoch_acked"),
+                        lane("epoch_lost"), torch.zeros_like(
+                            lane("epoch_lost")))
+    out = {"nscc/case": _np(nscc.classify(lane("ecn"), lane("rtt"), p))}
+    st = nscc.on_acks(st, p, lane("ccc"), lane("ecn"), lane("rtt"),
+                      lane("valid"))
+    out["nscc/acks_cwnd"] = _np(st.cwnd)
+    st = nscc.on_loss(st, lane("loss_ccc"), lane("loss_count"),
+                      lane("valid"))
+    st = nscc.apply_dfc_penalty(st, p, lane("dfc_ccc"), lane("penalty"),
+                                lane("valid"))
+    for k, v in vars(st).items():
+        out[f"nscc/{k}"] = _np(v)
+    return out
+
+
+CONTROL_RUNS = {"psn": _control_psn, "pdc": _control_pdc,
+                "addr": _control_addr, "match": _control_match,
+                "tss": _control_tss, "nscc": _control_nscc}
+
+
+def run_control(inp: dict, size: dict, dev, parts=CONTROL_PARTS) -> dict:
+    """Every part of the control batch through the port on ``dev``: the
+    outputs as numpy arrays keyed ``part/name`` (uint32 lanes as their
+    int32 patterns)."""
+    out = {}
+    for part in parts:
+        out.update(CONTROL_RUNS[part](inp, size, dev))
+    return out
+
+
+def same_bits(got: np.ndarray, want: np.ndarray) -> bool:
+    """Shape and bytes equal, dtypes equal (an int32 pattern may stand
+    for its uint32 lane)."""
+    got, want = np.asarray(got), np.asarray(want)
+    kinds = {got.dtype.kind, want.dtype.kind}
+    return (got.shape == want.shape
+            and (got.dtype == want.dtype or (
+                kinds <= {"i", "u"}
+                and got.dtype.itemsize == want.dtype.itemsize))
+            and got.tobytes() == want.tobytes())
+
+
+def _control_vs(got: dict, want: dict, what: str) -> None:
+    assert set(got) == set(want), (what, sorted(set(got) ^ set(want))[:8])
+    for k in sorted(got):
+        if not same_bits(got[k], want[k]):
+            a, b = np.asarray(got[k]), np.asarray(want[k])
+            bad = (np.flatnonzero(a.reshape(-1).view(np.uint8) !=
+                                  b.reshape(-1).view(np.uint8))[:4]
+                   if a.shape == b.shape and a.dtype.itemsize ==
+                   b.dtype.itemsize else "shape/dtype")
+            raise AssertionError(f"{what}: {k} differs ({a.dtype}{a.shape} "
+                                 f"vs {b.dtype}{b.shape}; bytes {bad})")
+
+
+def _load_tour():
+    """``examples/uet_transport_tour_torch.py`` as a module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "uet_transport_tour_torch",
+        ROOT / "examples" / "uet_transport_tour_torch.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _control_launches(tag: str, launches: dict, rounds: int) -> None:
+    """One ``nack_mark`` per ``record_rx`` and per ``or_mask`` call, one
+    ``sack_advance`` per ``advance_cack`` call, and no other kernel."""
+    want = {k: 0 for k in launches}
+    want["nack_mark"], want["sack_advance"] = 2 * rounds, rounds
+    assert launches == want, f"control {tag}: launches {launches}, want {want}"
+
+
+def phase_control(smi: str) -> dict:
+    """Phase 8: the control plane on the card. (a) the port's transport
+    tour against the JAX tour's values, (b) the golden-size seeded batch
+    against the JAX golden, both from ``tests/golden/torch_port_control.npz``;
+    (c) one endpoint at real scale on the card against the port's plain
+    CPU path, part by part, bitwise; then the two kernels of its path
+    timed at N = 65536, W = 32."""
+    from repro_torch.kernels import ops, ref
+    gold = np.load(CONTROL)
+    out = {}
+    # (a) the tour
+    t0 = time.perf_counter()
+    tour = _load_tour()
+    v = tour.tour(device=DEV)
+    for k, val in v.items():
+        want = gold[f"tour/{k}"].tolist()
+        assert val == want, (k, val, want)
+    assert "\n".join(tour.lines(v)).splitlines() == \
+        gold["tour_lines"].tolist(), "the tour's printed lines"
+    out["tour_s"] = time.perf_counter() - t0
+    say("8 control", f"(a) tour(device={DEV!r}): {len(v)} values and its "
+        f"printed lines == the JAX tour's ({out['tour_s']:.2f} s)")
+    # (b) the golden-size batch
+    inp = control_inputs(CONTROL_GOLDEN)
+    assert control_digest(inp) == str(gold["inputs_sha256"]), \
+        "control_inputs no longer makes the golden's inputs"
+    got, secs, peak, launches = _timed_batch(
+        lambda: run_control(inp, CONTROL_GOLDEN, DEV))
+    _control_vs(got, {k[6:]: gold[k] for k in gold.files
+                      if k.startswith("batch/")}, "control golden batch")
+    _control_launches("b", launches, CONTROL_GOLDEN["rounds"])
+    out["b"] = {"seconds": secs, "peak_bytes": peak, "launches": launches,
+                "lanes": len(got)}
+    say("8 control", f"(b) golden-size batch {CONTROL_GOLDEN}: {len(got)} "
+        f"output lanes bitwise the JAX golden ({secs:.2f} s, peak "
+        f"{peak} B); launches nack_mark {launches['nack_mark']}, "
+        f"sack_advance {launches['sack_advance']}")
+    # (c) one endpoint at real scale, card against the plain CPU path
+    inp = control_inputs(CONTROL_REAL)
+    total = {k: 0 for k in ops.LAUNCHES}
+    for part in CONTROL_PARTS:
+        got, secs, peak, launches = _timed_batch(
+            lambda: CONTROL_RUNS[part](inp, CONTROL_REAL, DEV))
+        t0 = time.perf_counter()
+        want = CONTROL_RUNS[part](inp, CONTROL_REAL, "cpu")
+        cpu_s = time.perf_counter() - t0
+        _control_vs(got, want, f"control real {part}")
+        if part == "psn":
+            _control_launches("c", launches, CONTROL_REAL["rounds"])
+        else:
+            assert not any(launches.values()), (part, launches)
+        for k, n in launches.items():
+            total[k] += n
+        out[part] = {"seconds": secs, "cpu_seconds": cpu_s,
+                     "peak_bytes": peak, "launches": launches}
+        say("8 control", f"(c) {part}: card {secs:.3f} s, peak {peak} B, "
+            f"plain CPU path {cpu_s:.3f} s; bitwise equal ({len(got)} "
+            f"lanes); {smi}")
+    out["launches"] = {k: total[k] + out["b"]["launches"][k]
+                       for k in total}
+    # the path's two kernels at the endpoint's shapes, timed
+    n, w, lanes = CONTROL_REAL["psn_n"], 32, CONTROL_REAL["lanes"]
+    rng = np.random.default_rng(21)
+    ring, base, _, _ = _sack_inputs(rng, n, w, DEV)
+    nrtx, flow, off, valid = _nack_inputs(rng, n, w, lanes, DEV)
+    rows = {}
+    for name, kern, plain, args, nbytes, nops in (
+            ("nack_mark", ops.nack_mark_cuda, ref.nack_mark_ref,
+             (nrtx, flow, off, valid), 2 * n * w * 4 + lanes * (4 + 4 + 1),
+             8 * lanes),
+            ("sack_advance", ops.sack_advance_cuda, ref.sack_advance_ref,
+             (ring, base), (n * w + n) * 4 + (n * w + 2 * n) * 4,
+             16 * n * w)):
+        got, want = kern(*args), plain(*args)
+        if isinstance(got, torch.Tensor):
+            got, want = (got,), (want,)
+        torch.cuda.synchronize()
+        _assert_equal(got, want, f"{name} at the endpoint's shapes")
+        rows[name] = {"n": n, "w": w, "max_abs_err": _max_abs_err(got, want),
+                      **_time_row(name, kern, plain, args, nbytes, nops)}
+        r = rows[name]
+        say("8 control", f"{name} at N={n}, W={w}"
+            f"{f', L={lanes}' if name == 'nack_mark' else ''}: bitwise "
+            f"equal to plain; kernel {r['ms'] * 1e3:.2f} us (device "
+            f"{r['device_ms'] * 1e3:.3f} us), plain {r['plain_ms'] * 1e3:.2f}"
+            f" us, bound {r['bound_ms'] * 1e3:.3f} us ({r['bound_by']}, "
+            f"{r['bytes']} B); {smi}")
+    out["rows"] = rows
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--trace", type=Path,
@@ -2188,6 +2729,7 @@ def main(argv=None) -> int:
     result["entry_points"] = phase_entry_points(states)
     result["cross_device"] = phase_cross_device()
     result["traffic"] = phase_traffic()
+    result["control"] = phase_control(smi)
     kernels = []
     for name, row in result["kernels"].items():
         row = {k: v for k, v in row.items()
@@ -2213,6 +2755,13 @@ def main(argv=None) -> int:
             row["shard"] = {"launches": result["shard"]["launches"][name]}
             # and on the model-driven traffic's runs, all four parts
             row["traffic"] = {"launches": result["traffic"]["launches"][name]}
+        if name in result["control"]["rows"]:
+            # the control plane's path: record_rx / or_mask and
+            # advance_cack at the endpoint's shapes
+            row["control"] = {
+                **{k: v for k, v in result["control"]["rows"][name].items()
+                   if k != "bytes"},
+                "launches": result["control"]["launches"][name]}
         kernels.append(row)
     result["seconds"] = time.perf_counter() - t0
     if args.out is not None:

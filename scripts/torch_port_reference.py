@@ -6,8 +6,9 @@ width: ``tests/golden/torch_port_fullsize.npz``,
 ``tests/golden/torch_port_faults.npz``,
 ``tests/golden/torch_port_inc.npz``,
 ``tests/golden/torch_port_link.npz``,
-``tests/golden/torch_port_telemetry.npz`` and
-``tests/golden/torch_port_traffic.npz``.
+``tests/golden/torch_port_telemetry.npz``,
+``tests/golden/torch_port_traffic.npz`` and
+``tests/golden/torch_port_control.npz``.
 
 Both use the port's full-width fabric (``chip_smoke.py`` phase 5): a full
 3-tier k=16 fat tree (``fat_tree3(k=16, pods=16)``: 1024 endpoints, 320
@@ -81,7 +82,7 @@ runs on the CPU (about five minutes per one-scenario run on a few
 cores):
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/torch_port_reference.py \
-        [--which fullsize|profiles|batch|faults|inc|link|telemetry|traffic]
+        [--which fullsize|profiles|batch|faults|inc|link|telemetry|traffic|control]
 
 ``fullsize`` holds the workload lanes (``src``, ``dst``, ``size``), the
 per-flow stats and final lanes (``stat_completion``,
@@ -127,6 +128,17 @@ lane ``b<i>``: ``t/b<i>/horizon``, the stats lanes, ``llr_replays``,
 ``fullsize``, and every final state lane but the packet and event
 buffers as ``t/b<i>/state.<dotted path>``; and ``t/cpu_seconds``.
 
+``control`` holds the JAX tour's values (``examples/uet_transport_tour.py``
+walked step by step, ``tour/<key>`` as ``tour()`` of
+``examples/uet_transport_tour_torch.py`` names them) and its printed
+lines (``tour_lines``), the sha256 of the seeded batch's inputs
+(``inputs_sha256``, ``chip_smoke.control_digest``), then every output of
+the control plane's seeded batch
+(``chip_smoke.control_inputs(CONTROL_GOLDEN)``: PSN tracking,
+the PDC pool, addressing, matching, TSS, NSCC's batch API) as
+``batch/<part>/<name>`` (uint32 lanes as uint32), and the seconds each
+part took (``seconds/<part>``).
+
 ``telemetry`` holds, per tag ``t`` (``faults``, ``link``): the spec's
 ``t/probe_every`` and ``t/slots``, ``t/cpu_seconds``, and per lane
 ``b<i>``: ``horizon``; the ring bookkeeping ``tel.n``, ``tel.stride``,
@@ -169,6 +181,7 @@ OUT_INC = GOLDEN / "torch_port_inc.npz"
 OUT_LINK = GOLDEN / "torch_port_link.npz"
 OUT_TELEMETRY = GOLDEN / "torch_port_telemetry.npz"
 OUT_TRAFFIC = GOLDEN / "torch_port_traffic.npz"
+OUT_CONTROL = GOLDEN / "torch_port_control.npz"
 #: netmodel's (kind, algo) pairs of ``tests/test_collectives.py``
 NET_PAIRS = (("all-reduce", "ring"), ("all-reduce", "tree"),
              ("all-gather", "ring"))
@@ -775,11 +788,296 @@ def write_profiles(path: Path) -> None:
     print(f"-> {path}")
 
 
+# ------------------------------------------------------- control plane --
+
+def jax_tour() -> dict:
+    """The JAX tour's values (``examples/uet_transport_tour.py``, step by
+    step), keyed as the port's ``tour()`` keys them."""
+    import jax.numpy as jnp
+
+    from repro.core import addressing, matching, messaging, pdc
+    from repro.core.types import MsgProtocol, Profile
+    out = {"profiles": [prof.describe() for prof in (
+        TransportProfile.ai_base(), TransportProfile.ai_full(),
+        TransportProfile.hpc())]}
+    t = addressing.FEPTables.create(num_jobs=4, procs_per_job=8,
+                                    ris_per_proc=4)
+    ris = jnp.arange(32, dtype=jnp.int32).reshape(8, 4) + 100
+    t = addressing.register_job(t, 1, jobid=0x2313, proc_ids=jnp.arange(8),
+                                ri_contexts=ris)
+    ctx, ok = addressing.resolve(
+        t, jobid=jnp.array([0x2313, 0xBAD]),
+        pid_on_fep=jnp.array([2, 2]), ri=jnp.array([1, 1]),
+        rel=jnp.array([1, 1]))
+    out["addr_ctx"] = [int(x) for x in ctx]
+    out["addr_ok"] = [bool(x) for x in ok]
+    out["directory_relative"] = addressing.directory_entries(10000, 1000,
+                                                             True)
+    out["directory_direct"] = addressing.directory_entries(10000, 1000,
+                                                           False)
+    q = matching.RecvQueue.create(8)
+    hi, lo = matching.encode_match_key(comm_id=7, tag=42, msg_seq=0)
+    q = matching.post_receive(q, 0, hi, lo, 0, 0, matching.ANY_INITIATOR,
+                              seq=0, buffer_id=5)
+    slot, ok = matching.match(q, jnp.array([hi]), jnp.array([lo]),
+                              jnp.array([3], jnp.uint32), Profile.AI_FULL)
+    out["exact_slot"], out["exact_matched"] = int(slot[0]), bool(ok[0])
+    mh, ml = matching.wildcard_mask(match_tag=False, match_seq=False)
+    q2 = matching.RecvQueue.create(8)
+    bh, bl = matching.encode_match_key(7, 0, 0)
+    q2 = matching.post_receive(q2, 0, bh, bl, mh, ml,
+                               matching.ANY_INITIATOR, 0, 6)
+    th, tl = matching.encode_match_key(7, 999, 4)
+    slot, ok = matching.match(q2, jnp.array([th]), jnp.array([tl]),
+                              jnp.array([3], jnp.uint32), Profile.HPC)
+    out["wildcard_matched"] = bool(ok[0])
+    link = messaging.LinkModel(alpha=1.0, beta=0.01)
+    out["protocol_names"] = [proto.name for proto in MsgProtocol]
+    out["protocol_expected"] = [messaging.simulate_protocol(
+        proto, 1000, 5.0, 2.0, link, eager_limit=2000).receiver_complete
+        for proto in MsgProtocol]
+    out["protocol_unexpected"] = [messaging.simulate_protocol(
+        proto, 1000, 2.0, 12.0, link, eager_limit=2000).receiver_complete
+        for proto in MsgProtocol]
+    pool = pdc.PDCPool.create(2)
+    pool = pdc.open_pdc(pool, jnp.int32(0), jnp.int32(7), jnp.uint32(4),
+                        mode=int(DeliveryMode.ROD))
+    out["pdc_open_state"] = pdc.PDCState(int(pool.state[0])).name
+    out["pdc_mode"] = DeliveryMode(int(pool.mode[0])).name
+    pool = pdc.on_ack(pool, jnp.int32(0), jnp.int32(19), jnp.int32(1))
+    out["pdc_ack_state"] = pdc.PDCState(int(pool.state[0])).name
+    out["pdc_remote_id"] = int(pool.remote_id[0])
+    st = pool.state[:1]
+    events = (pdc.InitEvent.CLOSE_REQ, pdc.InitEvent.DRAINED,
+              pdc.InitEvent.CLOSE_ACK)
+    out["pdc_close_events"] = [ev.name for ev in events]
+    out["pdc_close_states"] = []
+    for ev in events:
+        st = pdc.step_initiator(st, jnp.array([int(ev)]))
+        out["pdc_close_states"].append(pdc.PDCState(int(st[0])).name)
+    return out
+
+
+def jax_tour_lines() -> "list[str]":
+    """The lines ``examples/uet_transport_tour.py`` prints."""
+    import contextlib
+    import importlib.util
+    import io
+    spec = importlib.util.spec_from_file_location(
+        "uet_transport_tour", REPO / "examples" / "uet_transport_tour.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        mod.main()
+    return buf.getvalue().splitlines()
+
+
+def _jnp(a):
+    import jax.numpy as jnp
+    return jnp.asarray(a)
+
+
+def _jax_control_psn(inp: dict, size: dict) -> dict:
+    import jax.numpy as jnp
+
+    from repro.core import pds
+    out = {}
+    t = pds.PSNTracker.create(size["psn_n"], 1024)
+    t = pds.PSNTracker(_jnp(inp["psn/base"]), t.ring, t.rx_ok, t.dup,
+                       t.oor)
+    for r in range(size["rounds"]):
+        pdc = _jnp(inp[f"psn/pdc{r}"])
+        psn = _jnp(inp[f"psn/psn{r}"])
+        valid = _jnp(inp[f"psn/valid{r}"])
+        off = (psn - t.base[jnp.where(valid, pdc, 0)]).astype(jnp.int32)
+        mask, already = pds.or_mask(t.ring, pdc, off, valid)
+        t, fresh = pds.record_rx(t, pdc, psn, valid)
+        t, adv = pds.advance_cack(t)
+        cack, lo, hi = pds.sack_view(t)
+        for k, v in (("mask", mask), ("already", already), ("fresh", fresh),
+                     ("adv", adv), ("cack", cack), ("lo", lo), ("hi", hi)):
+            out[f"psn/{k}{r}"] = np.asarray(v)
+    for k in ("base", "ring", "rx_ok", "dup", "oor"):
+        out[f"psn/{k}"] = np.asarray(getattr(t, k))
+    return out
+
+
+def _jax_control_pdc(inp: dict, size: dict) -> dict:
+    from repro.core import pdc
+    out = {}
+
+    def lane(k):
+        return _jnp(inp[f"pdc/{k}"])
+    pool = pdc.PDCPool.create(size["pdc_n"])
+    pool = pdc.open_pdc(pool, lane("open_slot"), lane("open_peer"),
+                        lane("open_psn"), lane("open_mode"))
+    for f in dataclasses.fields(pool):
+        out[f"pdc/open/{f.name}"] = np.asarray(getattr(pool, f.name))
+    pool = pdc.on_ack(pool, lane("ack_slot"), lane("ack_remote"),
+                      lane("ack_n"))
+    for f in dataclasses.fields(pool):
+        out[f"pdc/ack/{f.name}"] = np.asarray(getattr(pool, f.name))
+    st = pool.state
+    tg = np.zeros_like(np.asarray(st))
+    for r in range(6):
+        st = pdc.step_initiator(st, lane(f"init_ev{r}"))
+        tg = pdc.step_target(tg, lane(f"tgt_ev{r}"))
+        out[f"pdc/init{r}"], out[f"pdc/tgt{r}"] = np.asarray(st), np.asarray(tg)
+        out[f"pdc/send{r}"] = np.asarray(pdc.may_send_data(st))
+        out[f"pdc/accept{r}"] = np.asarray(pdc.may_accept_new_message(st))
+    return out
+
+
+def _jax_control_addr(inp: dict, size: dict) -> dict:
+    from repro.core import addressing
+    t = addressing.FEPTables.create(size["jobs"], size["pids"], size["ris"])
+    t = addressing.FEPTables(t.jobid_keys, t.jobid_to_pid, t.pid_table,
+                             t.ri_table, _jnp(inp["addr/service"]))
+    for i, (slot, jobid) in enumerate(zip(inp["addr/slots"].tolist(),
+                                          inp["addr/jobids"].tolist())):
+        t = addressing.register_job(t, slot, jobid,
+                                    _jnp(inp[f"addr/proc{i}"]),
+                                    _jnp(inp[f"addr/ris{i}"]))
+    ctx, ok = addressing.resolve(t, *(_jnp(inp[f"addr/{k}"]) for k in (
+        "jobid", "pid", "ri", "rel")))
+    out = {f"addr/{f.name}": np.asarray(getattr(t, f.name))
+           for f in dataclasses.fields(t)}
+    out["addr/ctx"], out["addr/ok"] = np.asarray(ctx), np.asarray(ok)
+    return out
+
+
+def _jax_control_match(inp: dict, size: dict) -> dict:
+    from repro.core import matching
+    from repro.core.types import Profile
+    q = matching.RecvQueue.create(size["entries"])
+    q = matching.post_receive(q, *(_jnp(inp[f"match/{k}"]) for k in (
+        "slot", "hi", "lo", "mhi", "mlo", "init", "seq", "buf")))
+    out = {f"match/q/{f.name}": np.asarray(getattr(q, f.name))
+           for f in dataclasses.fields(q)}
+    keys = [_jnp(inp[f"match/{k}"]) for k in ("khi", "klo", "kinit")]
+    for prof in Profile:
+        slot, ok = matching.match(q, *keys, prof)
+        out[f"match/{prof.name}/slot"] = np.asarray(slot)
+        out[f"match/{prof.name}/ok"] = np.asarray(ok)
+        if prof == Profile.AI_FULL:
+            consumed = matching.consume(q, slot, ok)
+    slot, ok = matching.match(consumed, *keys, Profile.HPC)
+    out["match/consumed/valid"] = np.asarray(consumed.valid)
+    out["match/consumed/slot"] = np.asarray(slot)
+    out["match/consumed/ok"] = np.asarray(ok)
+    return out
+
+
+def _jax_control_tss(inp: dict, size: dict) -> dict:
+    import jax.numpy as jnp
+
+    from repro.core import tss
+    out = {}
+    sd = tss.SecureDomain.create(size["members"], seed=0x5D)
+    sd = tss.SecureDomain(sd.sdk, sd.iv_mask, sd.epoch + jnp.int32(3),
+                          sd.an, _jnp(inp["tss/pkt_counter"]),
+                          _jnp(inp["tss/key_packets"]))
+    for r in range(size["iv_rounds"]):
+        mem = _jnp(inp[f"tss/member{r}"])
+        if r == size["iv_rounds"] // 2:
+            sd = tss.rotate_key(sd)
+        out[f"tss/key{r}"] = np.asarray(tss.source_key(sd, mem))
+        sd, iv_hi, iv_lo = tss.iv_for_packet(sd, mem)
+        out[f"tss/iv_hi{r}"] = np.asarray(iv_hi)
+        out[f"tss/iv_lo{r}"] = np.asarray(iv_lo)
+        out[f"tss/rot{r}"] = np.asarray(tss.needs_key_rotation(sd))
+        out[f"tss/rot_shared{r}"] = np.asarray(
+            tss.needs_key_rotation(sd, False))
+    for f in dataclasses.fields(sd):
+        out[f"tss/sd/{f.name}"] = np.asarray(getattr(sd, f.name))
+    out["tss/kdf"] = np.asarray(tss.kdf(sd.sdk, _jnp(inp["tss/open_psn0"]),
+                                        _jnp(inp["tss/close_last0"])))
+    g = tss.PSNGuard(_jnp(inp["tss/start_psn"]),
+                     _jnp(inp["tss/expected_psn"]))
+    for r in range(4):
+        g = tss.on_pdc_close(g, _jnp(inp[f"tss/close_peer{r}"]),
+                             _jnp(inp[f"tss/close_last{r}"]))
+        ok, nack = tss.accept_new_pdc(g, _jnp(inp[f"tss/open_peer{r}"]),
+                                      _jnp(inp[f"tss/open_psn{r}"]))
+        out[f"tss/accept{r}"], out[f"tss/nack{r}"] = (np.asarray(ok),
+                                                      np.asarray(nack))
+    out["tss/start_psn"] = np.asarray(g.start_psn)
+    out["tss/expected_psn"] = np.asarray(g.expected_psn)
+    out["tss/must_close"] = np.asarray(tss.pdc_must_close(
+        _jnp(inp["tss/tx"])))
+    return out
+
+
+def _jax_control_nscc(inp: dict, size: dict, params: dict) -> dict:
+    import jax.numpy as jnp
+
+    from repro.core.cms import nscc
+    p = nscc.NSCCParams(**params)
+
+    def lane(k):
+        return _jnp(inp[f"nscc/{k}"])
+    st = nscc.NSCCState(lane("cwnd"), lane("epoch_acked"),
+                        lane("epoch_lost"),
+                        jnp.zeros_like(lane("epoch_lost")))
+    out = {"nscc/case": np.asarray(nscc.classify(lane("ecn"), lane("rtt"),
+                                                 p))}
+    st = nscc.on_acks(st, p, lane("ccc"), lane("ecn"), lane("rtt"),
+                      lane("valid"))
+    out["nscc/acks_cwnd"] = np.asarray(st.cwnd)
+    st = nscc.on_loss(st, lane("loss_ccc"), lane("loss_count"),
+                      lane("valid"))
+    st = nscc.apply_dfc_penalty(st, p, lane("dfc_ccc"), lane("penalty"),
+                                lane("valid"))
+    for f in dataclasses.fields(st):
+        out[f"nscc/{f.name}"] = np.asarray(getattr(st, f.name))
+    return out
+
+
+def jax_control(inp: dict, size: dict, nscc_params: dict,
+                parts=("psn", "pdc", "addr", "match", "tss", "nscc"),
+                seconds: "dict | None" = None) -> dict:
+    """Every part of the control batch through the JAX package, keyed as
+    ``chip_smoke.run_control`` keys the port's outputs."""
+    runs = {"psn": _jax_control_psn, "pdc": _jax_control_pdc,
+            "addr": _jax_control_addr, "match": _jax_control_match,
+            "tss": _jax_control_tss,
+            "nscc": lambda i, s: _jax_control_nscc(i, s, nscc_params)}
+    out = {}
+    for part in parts:
+        t0 = time.perf_counter()
+        out.update(runs[part](inp, size))
+        if seconds is not None:
+            seconds[part] = time.perf_counter() - t0
+    return out
+
+
+def write_control(path: Path) -> None:
+    """The JAX tour and the control batch at ``CONTROL_GOLDEN``."""
+    import sys
+    sys.path.insert(0, str(REPO))
+    from chip_smoke import (CONTROL_GOLDEN, CONTROL_NSCC, control_digest,
+                            control_inputs)
+    out = {f"tour/{k}": np.asarray(v) for k, v in jax_tour().items()}
+    out["tour_lines"] = np.asarray(jax_tour_lines())
+    secs: dict = {}
+    inp = control_inputs(CONTROL_GOLDEN)
+    out["inputs_sha256"] = np.asarray(control_digest(inp))
+    batch = jax_control(inp, CONTROL_GOLDEN, CONTROL_NSCC, seconds=secs)
+    out.update({f"batch/{k}": v for k, v in batch.items()})
+    out.update({f"seconds/{k}": np.asarray(v) for k, v in secs.items()})
+    path.parent.mkdir(parents=True, exist_ok=True)
+    np.savez_compressed(path, **out)
+    print(f"control -> {path} ({path.stat().st_size} B); JAX seconds "
+          f"per part {secs}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--which", default="fullsize",
                     choices=("fullsize", "profiles", "batch", "faults",
-                             "inc", "link", "telemetry", "traffic"))
+                             "inc", "link", "telemetry", "traffic",
+                             "control"))
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args()
     if args.which == "fullsize":
@@ -796,6 +1094,8 @@ def main() -> int:
         write_telemetry(args.out or OUT_TELEMETRY)
     elif args.which == "traffic":
         write_traffic(args.out or OUT_TRAFFIC)
+    elif args.which == "control":
+        write_control(args.out or OUT_CONTROL)
     else:
         write_profiles(args.out or OUT_PROFILES)
     return 0

@@ -16,11 +16,13 @@ Which operations are already exact on the int32 pattern:
 Which go through a helper in this module (nowhere else decides them):
 
 * logical right shift (:func:`shr`) — int32 ``>>`` sign-fills;
-* unsigned ``<`` (:func:`ult`), unsigned ``%`` (:func:`umod`);
+* unsigned ``<`` (:func:`ult`), unsigned ``%`` (:func:`umod`), unsigned
+  scatter-max (:func:`scatter_umax`);
 * shifts by a per-lane tensor amount (:func:`bit`, :func:`funnel_r`);
 * conversion to float (:func:`to_f32`);
 * hash constants >= 2**31 (:func:`c32`): ``int32_tensor * 0x9E3779B1``
-  raises, so constants go in as their int32 bit pattern.
+  raises, so constants go in as their int32 bit pattern; :func:`lane`
+  makes an int32 tensor of a value that may be such a Python int.
 
 The helpers that need more than 32 bits widen to int64 and mask with
 ``0xFFFFFFFF``; int64 shifts below 64 are well defined on every device.
@@ -39,6 +41,15 @@ def c32(v: int) -> int:
     """The int32 bit pattern of a 32-bit constant, as a Python int."""
     v &= M32
     return v - (1 << 32) if v >= (1 << 31) else v
+
+
+def lane(x, device=None) -> torch.Tensor:
+    """An int32 tensor of ``x`` (a tensor, array or Python int), on
+    ``device`` if given; a Python int may be given unsigned and enters as
+    its int32 pattern."""
+    if isinstance(x, int):
+        x = c32(x)
+    return torch.as_tensor(x, dtype=torch.int32, device=device)
 
 
 def u64(x: torch.Tensor) -> torch.Tensor:
@@ -86,3 +97,14 @@ def umod(x: torch.Tensor, m: int) -> torch.Tensor:
 def to_f32(x: torch.Tensor) -> torch.Tensor:
     """uint32 -> float32 (round to nearest, as ``astype`` does)."""
     return u64(x).to(torch.float32)
+
+
+def scatter_umax(x: torch.Tensor, row: torch.Tensor,
+                 val: torch.Tensor) -> torch.Tensor:
+    """Unsigned scatter-max into [n] int32 patterns: a copy of ``x`` with
+    ``x[row[l]] = umax(x[row[l]], val[l])`` for every lane (rows int64 in
+    [0, n)). Flipping the sign bit maps unsigned order onto signed order,
+    so one signed "amax" scatter decides it, exactly in any order."""
+    out = x ^ INT_MIN
+    out.scatter_reduce_(0, row, val ^ INT_MIN, "amax")
+    return out ^ INT_MIN

@@ -17,6 +17,10 @@ and their credit-return ring) included; a lane the port does not know
 raises ``NotImplementedError`` instead of being dropped. A
 ``FaultSchedule`` crosses whole: link windows, gray-link and BER lanes,
 the seed (a uint32 lane) and the host / NIC lanes.
+
+The control-plane states (``PDCPool``, ``PSNTracker``, ``FEPTables``,
+``RecvQueue``, ``SecureDomain``, ``PSNGuard``, ``NSCCState``) cross the
+same way, flat, through ``control_from_numpy`` / ``control_to_numpy``.
 """
 from __future__ import annotations
 
@@ -25,11 +29,15 @@ from dataclasses import fields, is_dataclass
 import numpy as np
 import torch
 
+from repro_torch.core.addressing import FEPTables
 from repro_torch.core.cms.nscc import NSCCState
 from repro_torch.core.cms.rccc import RCCCState
 from repro_torch.core.inc import INCState
 from repro_torch.core.lb.schemes import LBState
+from repro_torch.core.matching import RecvQueue
+from repro_torch.core.pdc import PDCPool
 from repro_torch.core.pds import PSNTracker
+from repro_torch.core.tss import PSNGuard, SecureDomain
 from repro_torch.network.fabric import SimState, Workload
 from repro_torch.network.faults import FaultSchedule
 
@@ -133,3 +141,43 @@ def faults_from_numpy(d: dict, device) -> FaultSchedule:
 
 def faults_to_numpy(f: FaultSchedule) -> dict:
     return _to_numpy(f)
+
+
+#: the uint32 lanes of each control-plane state
+CONTROL_U32 = {
+    PDCPool: frozenset({"next_psn", "start_psn"}),
+    PSNTracker: frozenset({"base", "ring", "rx_ok", "dup", "oor"}),
+    FEPTables: frozenset(),
+    RecvQueue: frozenset({"tag_hi", "tag_lo", "mask_hi", "mask_lo",
+                          "initiators"}),
+    SecureDomain: frozenset({"sdk", "iv_mask", "pkt_counter"}),
+    PSNGuard: frozenset({"start_psn", "expected_psn"}),
+    NSCCState: frozenset(),
+}
+
+
+def control_from_numpy(cls, d: dict, device):
+    """A control-plane state of class ``cls`` (a key of ``CONTROL_U32``)
+    from the reference's, given as a dict of numpy arrays by field name
+    (uint32 lanes become their int32 patterns); every field is required
+    and an unknown one raises."""
+    _require_known(d, cls, cls.__name__)
+    u32 = CONTROL_U32[cls]
+    vals = {}
+    for f in fields(cls):
+        a = np.array(d[f.name])
+        if f.name in u32:
+            a = a.astype(np.uint32).view(np.int32)
+        vals[f.name] = torch.as_tensor(a).to(device)
+    return cls(**vals)
+
+
+def control_to_numpy(obj) -> dict:
+    """A control-plane state as a dict of numpy arrays keyed like the
+    reference's fields (uint32 lanes as uint32)."""
+    u32 = CONTROL_U32[type(obj)]
+    out = {}
+    for f in fields(obj):
+        a = getattr(obj, f.name).detach().cpu().numpy()
+        out[f.name] = a.view(np.uint32) if f.name in u32 else a
+    return out

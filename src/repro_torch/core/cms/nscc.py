@@ -19,6 +19,12 @@ calls) divide exactly. The two differ in the last bit for some RTTs
 — always takes the folded form, so the ``cwnd`` lane stays bitwise with
 the reference engine; ``window_delta`` takes the exact one by default
 (``folded_reciprocal``), as the kernel oracle ``nscc_update_ref`` needs.
+
+The batch API over a pool of CCCs — ``classify``, ``on_acks``,
+``on_loss`` and DFC's ``apply_dfc_penalty`` — is the reference's eager
+one: it divides exactly, and its f32 scatters over repeated CCCs add
+(or multiply) in lane order, as the reference's do on the CPU, on every
+device (``repro_torch.core.scatter``).
 """
 from __future__ import annotations
 
@@ -26,6 +32,7 @@ from dataclasses import dataclass, replace
 
 import torch
 
+from repro_torch.core import scatter
 from repro_torch.core.types import lane_shape
 
 
@@ -71,6 +78,15 @@ class NSCCState:
             epoch_acked=z, epoch_lost=z.clone(), epoch_tick=z.clone())
 
 
+def classify(ecn: torch.Tensor, rtt: torch.Tensor,
+             params: NSCCParams) -> torch.Tensor:
+    """Return the paper's case number (1..4) per ACK, int32."""
+    high = rtt > params.base_rtt * params.target_factor
+    case = torch.where(ecn, torch.where(high, 2, 1),
+                       torch.where(high, 4, 3))
+    return case.to(torch.int32)
+
+
 def _f32_reciprocal(x: float) -> float:
     """The f32 reciprocal of f32(x), as XLA folds ``1 / constant``."""
     one = torch.ones((), dtype=torch.float32)
@@ -104,6 +120,47 @@ def window_delta(cwnd: torch.Tensor, ecn: torch.Tensor, rtt: torch.Tensor,
     zero = torch.zeros_like(dec)
     return torch.where(ecn, torch.where(high, dec, zero),
                        torch.where(high, gentle, quick))
+
+
+def on_acks(state: NSCCState, params: NSCCParams, ccc: torch.Tensor,
+            ecn: torch.Tensor, rtt: torch.Tensor,
+            valid: torch.Tensor) -> NSCCState:
+    """Apply a batch of ACKs: ccc [B] int32, ecn [B] bool, rtt [B] float32.
+
+    Multiple ACKs may target the same CCC in one batch; each lane's delta
+    is taken from the window before the batch, and a CCC adds its lanes'
+    deltas in lane order (the reference's order on the CPU; torch's
+    atomic scatter-add would leave it to the device). Lanes with
+    ``valid`` False, or a CCC outside [-N, N), change nothing.
+    """
+    cw = scatter.gather(state.cwnd, ccc)
+    delta = window_delta(cw, ecn, rtt.to(torch.float32), params)
+    drop = torch.where(valid, ccc.to(torch.int64), state.cwnd.shape[0])
+    cwnd = scatter.add_at_ordered(state.cwnd, drop, delta)
+    return replace(
+        state, cwnd=cwnd.clamp(params.min_cwnd, params.max_cwnd),
+        epoch_acked=scatter.add_at(state.epoch_acked, drop, 1))
+
+
+def on_loss(state: NSCCState, ccc: torch.Tensor, count: torch.Tensor,
+            valid: torch.Tensor) -> NSCCState:
+    """Record loss evidence (trim NACK / EV-inference / timeout) for QA."""
+    drop = torch.where(valid, ccc.to(torch.int64), state.cwnd.shape[0])
+    return replace(state, epoch_lost=scatter.add_at(
+        state.epoch_lost, drop, count.to(torch.int32)))
+
+
+def apply_dfc_penalty(state: NSCCState, params: NSCCParams,
+                      ccc: torch.Tensor, penalty: torch.Tensor,
+                      valid: torch.Tensor) -> NSCCState:
+    """Destination Flow Control for NSCC (Sec. 3.3.4): the receiver sends a
+    window *penalty* that scales the sender's congestion window. Repeated
+    CCCs multiply in lane order."""
+    drop = torch.where(valid, ccc.to(torch.int64), state.cwnd.shape[0])
+    one = torch.ones_like(penalty, dtype=torch.float32)
+    scale = (one - penalty).clamp(0.05, 1.0)
+    cwnd = scatter.mul_at_ordered(state.cwnd, drop, scale)
+    return replace(state, cwnd=cwnd.clamp(params.min_cwnd, params.max_cwnd))
 
 
 def on_ack_per_flow(state: NSCCState, params: NSCCParams, ecn: torch.Tensor,

@@ -8,7 +8,13 @@ A flow's tracker keeps a ring bitmap anchored at the cumulative-ACK point:
 All uint32 lanes are int32 bit patterns (see ``repro_torch._u32``).
 The CACK advance and ring shift run per tick through
 ``repro_torch.kernels.ops`` (hand-written CUDA on the card); the
-functions here are the plain versions those kernels are held against.
+helpers here are the plain versions those kernels are held against.
+
+The batch API of the reference — ``record_rx`` (with ``or_mask``),
+``advance_cack`` and ``sack_view`` over one [N, W] tracker — runs
+through the same kernels: ``record_rx`` ORs its accepted lanes into the
+ring with one ``ops.nack_mark`` launch, ``advance_cack`` is one
+``ops.sack_advance`` launch (the plain versions for CPU tensors).
 """
 from __future__ import annotations
 
@@ -16,7 +22,9 @@ from dataclasses import dataclass
 
 import torch
 
-from repro_torch._u32 import bit, funnel_r, shr
+from repro_torch import resolve_device
+from repro_torch._u32 import bit, funnel_r, shr, ult
+from repro_torch.core import scatter
 from repro_torch.core.types import lane_shape
 
 WORD = 32  # ring bitmap word width
@@ -42,12 +50,14 @@ class PSNTracker:
 
     @staticmethod
     def create(n: "int | tuple[int, ...]", mp_range: int,
-               device: torch.device) -> "PSNTracker":
-        """n trackers, or a lane shape such as (B, N)."""
+               device=None) -> "PSNTracker":
+        """n trackers, or a lane shape such as (B, N), on ``device``
+        (``cuda`` unless the caller asks for another)."""
         if mp_range % WORD:
             raise ValueError(f"mp_range must be a multiple of {WORD}, "
                              f"got {mp_range}")
         shape = lane_shape(n)
+        device = resolve_device(device)
         z = torch.zeros(shape, dtype=torch.int32, device=device)
         return PSNTracker(
             base=z, ring=torch.zeros(shape + (mp_range // WORD,),
@@ -57,6 +67,102 @@ class PSNTracker:
     @property
     def mp_range(self) -> int:
         return self.ring.shape[-1] * WORD
+
+
+def _lane_bits(ring: torch.Tensor, row: torch.Tensor, off: torch.Tensor,
+               valid: torch.Tensor):
+    """The reference ``or_mask``'s lanes over an [N, W] ring: (flow, o,
+    already, keep). ``o`` is the offset clamped into the window, ``flow``
+    the lane's row with a negative one counted from the end (the
+    reference's index rule; a row still outside [0, N) marks nothing),
+    ``already`` whether the lane's bit is set in ``ring`` (read at the
+    clamped row), and ``keep`` the in-window lanes that set a new bit."""
+    n, w = ring.shape
+    mp = w * WORD
+    ok = valid & (off >= 0) & (off < mp)
+    o = off.clamp(0, mp - 1).to(torch.int32)
+    safe = torch.where(ok, row, 0)
+    word = torch.div(o, WORD, rounding_mode="floor")
+    already = (ring[scatter.read_index(safe, n), word] & bit(o % WORD)) != 0
+    flow, _ = scatter.write_index(safe, n)
+    return flow.to(torch.int32), o, already, ok & ~already
+
+
+def or_mask(ring: torch.Tensor, row: torch.Tensor, off: torch.Tensor,
+            valid: torch.Tensor, unique_rows: bool = False):
+    """Build the uint32 OR-mask a batch of lanes wants to set in `ring`.
+
+    ring: [N, W] uint32; row, off: [B] int32 (off = bit offset within the
+    row's window); valid: [B] bool. Out-of-window offsets are dropped.
+    Returns (mask [N, W] uint32, already [B] bool) where `already` flags
+    lanes whose bit is set in `ring` before this batch.
+
+    The mask is one ``ops.nack_mark`` over a zero ring: lanes that hit
+    one bit combine as OR, so no dedup pass is needed (the reference's
+    first-lane-wins claim is an O(B^2) pairwise test). The mask is bitwise
+    the reference's whenever the caller keeps ``unique_rows``' contract:
+    with ``unique_rows=True`` the reference adds its single-bit words, so
+    two lanes at one (row, bit) carry into the next bit; the port ORs
+    them and never carries (ROADMAP.md queue 3). ``unique_rows`` is kept
+    for the reference's signature and changes nothing here.
+    """
+    from repro_torch.kernels import ops
+    flow, o, already, keep = _lane_bits(ring, row, off, valid)
+    return ops.nack_mark(torch.zeros_like(ring), flow, o, keep), already
+
+
+def record_rx(t: PSNTracker, pdc: torch.Tensor, psn: torch.Tensor,
+              valid: torch.Tensor, unique_rows: bool = False):
+    """Record a batch of arriving packets.
+
+    pdc: [B] int32; psn: [B] uint32 (int32 pattern); valid: [B] bool
+    (False = no packet in lane). Returns (tracker', accepted [B] bool) —
+    accepted means in-range and not a duplicate of a PSN already in the
+    ring; two lanes of one batch at one PSN are both accepted, and both
+    count in ``rx_ok``, as in the reference. The ring update is one
+    ``ops.nack_mark`` launch (OR-combined, so duplicate lanes need no
+    dedup); ``unique_rows`` is the reference's signature (see
+    ``or_mask``). The counters accumulate every lane (integer adds).
+    """
+    from repro_torch.kernels import ops
+    safe = torch.where(valid, pdc, 0)
+    off = psn - scatter.gather(t.base, safe)      # uint32 wrap
+    in_range = ult(off, t.mp_range) & valid
+    flow, o, already, keep = _lane_bits(t.ring, pdc, off, in_range)
+    fresh = in_range & ~already
+    i32 = torch.int32
+    return PSNTracker(
+        base=t.base,
+        ring=ops.nack_mark(t.ring, flow, o, keep),
+        rx_ok=scatter.add_at(t.rx_ok, safe, fresh.to(i32)),
+        dup=scatter.add_at(t.dup, safe, (in_range & already).to(i32)),
+        oor=scatter.add_at(t.oor, safe, (valid & ~in_range).to(i32)),
+    ), fresh
+
+
+def advance_cack(t: PSNTracker):
+    """Advance the cumulative-ACK point past every contiguous received PSN.
+
+    Returns (tracker', advanced [N] int32): one ``ops.sack_advance``
+    launch (the hand-written kernel on the card, its plain version on
+    the CPU)."""
+    from repro_torch.kernels import ops
+    ring, base, adv = ops.sack_advance(t.ring, t.base)
+    return PSNTracker(base=base, ring=ring, rx_ok=t.rx_ok, dup=t.dup,
+                      oor=t.oor), adv
+
+
+def sack_view(t: PSNTracker):
+    """(cack_psn, sack_lo, sack_hi) per PDC: the ACK-carried fields.
+
+    cack_psn acknowledges every PSN < base; (sack_hi:sack_lo) is the 64-bit
+    SACK bitmap immediately above base (Sec. 3.2.5), as two uint32 words
+    (int32 patterns) — exactly the two words a wire header would carry.
+    """
+    cack = t.base
+    lo = t.ring[:, 0]
+    hi = t.ring[:, 1] if t.ring.shape[1] > 1 else torch.zeros_like(lo)
+    return cack, lo, hi
 
 
 def _popcount32(x: torch.Tensor) -> torch.Tensor:

@@ -93,15 +93,15 @@ def _lane_words(f: int, w: int, flow: torch.Tensor, off: torch.Tensor,
                 ok: torch.Tensor) -> torch.Tensor:
     """[F, W] words holding bit off[l] of row flow[l] for every lane with
     ok[l] (ok implies 0 <= flow[l] < F and 0 <= off[l] < W*32); lanes
-    hitting one bit combine as OR."""
-    rows = torch.where(ok, flow, f).long()      # row f is a discard row
-    cols = torch.where(ok, off, 0).long()
-    plane = torch.zeros((f + 1, w * 32), dtype=torch.bool, device=flow.device)
-    plane[rows, cols] = True
-    # bits are distinct powers of two per word: the pack-sum IS the OR
-    shifts = torch.arange(32, dtype=torch.int64, device=flow.device)
-    words = (plane[:f].view(f, w, 32).to(torch.int64) << shifts).sum(dim=2)
-    return from_u64(words)
+    hitting one bit combine as OR. The distinct (row, bit) keys are summed
+    into their words: distinct powers of two, so the sum IS the OR."""
+    key = torch.where(ok, flow.long() * (w * 32) + off.long(), -1)
+    key = torch.unique(key)
+    key = key[key >= 0]
+    words = torch.zeros(f * w, dtype=torch.int64, device=flow.device)
+    words.index_add_(0, torch.div(key, 32, rounding_mode="floor"),
+                     torch.ones_like(key) << (key % 32))
+    return from_u64(words.view(f, w))
 
 
 def nack_mark_ref(rtx: torch.Tensor, flow: torch.Tensor, off: torch.Tensor,

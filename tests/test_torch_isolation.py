@@ -1,6 +1,8 @@
-"""The port stands alone: no file of ``src/repro_torch`` and not
-``chip_smoke.py`` imports JAX or the reference package (the machine with
-the card has no JAX), and importing the port loads no JAX."""
+"""The port stands alone: no file of ``src/repro_torch``, not
+``chip_smoke.py`` and not the port's transport tour
+(``examples/uet_transport_tour_torch.py``) imports JAX or the reference
+package (the machine with the card has no JAX), and importing the port
+loads no JAX."""
 import ast
 import os
 import subprocess
@@ -11,7 +13,7 @@ import pytest
 
 REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py"]
+    REPO / "chip_smoke.py", REPO / "examples" / "uet_transport_tour_torch.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -39,12 +41,21 @@ def test_importing_the_port_loads_no_jax():
             "import repro_torch.network.traffic, repro_torch.distributed.plan\n"
             "import repro_torch.distributed.netmodel\n"
             "import repro_torch.ckpt.checkpointing\n"
+            "import repro_torch.core.addressing, repro_torch.core.headers\n"
+            "import repro_torch.core.matching, repro_torch.core.messaging\n"
+            "import repro_torch.core.pdc, repro_torch.core.pds\n"
+            "import repro_torch.core.scatter, repro_torch.core.tss\n"
+            "import repro_torch.core.types\n"
+            "import runpy\n"
+            "runpy.run_path('examples/uet_transport_tour_torch.py')\n"
+            "import chip_smoke\n"
             "from repro_torch import configs\n"
             "[configs.get(n) for n in configs.ARCH_NAMES]\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
             "assert not bad, bad\n")
-    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    env = dict(os.environ,
+               PYTHONPATH=os.pathsep.join([str(REPO / "src"), str(REPO)]))
     proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
