@@ -196,6 +196,31 @@ Phases, one line each:
    part's card and CPU seconds and peak memory; then ``nack_mark`` and
    ``sack_advance`` timed at N = 65536, W = 32 (L = 262144 lanes).
 
+9. serving — the LM substrate's serving path (``repro_torch.models.
+   layers`` / ``lm``, ``serve.serve_step``), f32 with TF32 off, no kernel
+   of its own: (a) the ten archs at ``configs.reduced`` widths (B = 2, S
+   = 24; mixtral-8x22b's window is 16, so its ring cache wraps), params
+   and tokens drawn with numpy by ``lm_inputs``: the full forward's
+   logits and aux, every decode step's logits and the final cache within
+   ``LM_ATOL`` of ``tests/golden/torch_port_lm.npz`` (written by
+   ``scripts/torch_port_reference.py --which lm``); (b) mixtral-8x22b at
+   full width (d_model 6144, 48 / 8 heads of 128, d_ff 16384, 8 experts
+   top-2, SWA 4096, vocab 32768), depth cut from 56 layers to R = 2,
+   params drawn on the card from a seeded generator: the MoE assignments
+   a B = 2, S = 512 full forward drops over capacity, counted and
+   printed, then a B = 2, S = 4 forward (8 tokens: no expert can pass its
+   capacity of 8) with 0 drops required and the decode step held against
+   it at every step; then one attention layer alone at that width, B =
+   2, 5120 tokens decoded one by one through its ring of 4096 slots
+   (``attention_ring``: the last 1024 wrap it) against its full-sequence
+   form within ``LM_ATOL["dense"]``; (c) the same model in bf16: ``make_prefill`` at B =
+   8, S = 1024, timed, then the prompt fed token by token into the cache
+   and 128 greedy tokens, timed (tokens/s, ms/step, peak memory, the
+   card's name and power limit); (d) ``serving_rate`` of mixtral-8x22b
+   at ``decode_32k``, ``tp_only``, dp = tp = 4 on ``leaf_spine(4, 4,
+   4)``, every field ``==`` the golden's, and each tick kernel launched
+   once a tick of its simulator run; no kernel launches in (a)-(c).
+
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and the script
 exits non-zero. It imports nothing of JAX.
@@ -2591,12 +2616,11 @@ def _control_vs(got: dict, want: dict, what: str) -> None:
                                  f"vs {b.dtype}{b.shape}; bytes {bad})")
 
 
-def _load_tour():
-    """``examples/uet_transport_tour_torch.py`` as a module."""
+def _load_example(name: str):
+    """``examples/<name>.py`` as a module."""
     import importlib.util
     spec = importlib.util.spec_from_file_location(
-        "uet_transport_tour_torch",
-        ROOT / "examples" / "uet_transport_tour_torch.py")
+        name, ROOT / "examples" / f"{name}.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -2622,7 +2646,7 @@ def phase_control(smi: str) -> dict:
     out = {}
     # (a) the tour
     t0 = time.perf_counter()
-    tour = _load_tour()
+    tour = _load_example("uet_transport_tour_torch")
     v = tour.tour(device=DEV)
     for k, val in v.items():
         want = gold[f"tour/{k}"].tolist()
@@ -2701,6 +2725,368 @@ def phase_control(smi: str) -> dict:
     return out
 
 
+# ------------------------------------------------------------- serving --
+
+LM = ROOT / "tests" / "golden" / "torch_port_lm.npz"
+#: phase 9 (a): the ten archs at ``configs.reduced`` widths, f32; at seq
+#: 24 mixtral-8x22b's window is 16 (``configs.reduced``), so its ring
+#: cache wraps
+LM_GOLDEN = {"batch": 2, "seq": 24, "seed": 0x5E7}
+#: atol of a logit, aux or cache lane against the golden (rtol 1e-4):
+#: ``tests/test_decode_parity.py``'s, 2e-4 dense (attention, RWKV) and
+#: 5e-3 where MoE routing or Mamba's exp chain takes part
+LM_ATOL = {"dense": 2e-4, "moe": 5e-3}
+LM_RTOL = 1e-4
+#: phase 9 (b) / (c): mixtral-8x22b at full width, depth cut 56 -> 2
+LM_ARCH = "mixtral-8x22b"
+LM_FULL_LAYERS = 2
+LM_SEED = 0x5E7
+#: (b): T = B * S = 8 tokens, so no expert can get more than its
+#: capacity of 8 (``lm.moe_capacity``): the full forward cannot drop
+LM_PARITY = {"batch": 2, "seq": 4}
+#: (b): a forward whose capacity drops are counted and printed
+LM_CENSUS = {"batch": 2, "seq": 512}
+#: (b): one attention layer alone, decoded through a ring cache of
+#: min(S, window) = 4096 slots: positions 0-5119, the last 1024 wrap it
+LM_RING = {"batch": 2, "seq": 5120}
+#: (c): the bf16 served run
+LM_SERVE = {"batch": 8, "prompt": 1024, "new": 128}
+#: (d): the priced decode step
+LM_RATE = {"dp": 4, "tp": 4, "layout": "tp_only", "shape": "decode_32k"}
+
+
+def lm_family(cfg) -> str:
+    """``"moe"`` where MoE routing or a Mamba mixer takes part, else
+    ``"dense"`` (the key of ``LM_ATOL``)."""
+    return ("moe" if cfg.num_experts or any(m == "mamba"
+                                            for m, _ in cfg.pattern)
+            else "dense")
+
+
+def lm_inputs(arch: str, size: dict = LM_GOLDEN) -> "tuple[dict, np.ndarray]":
+    """Phase 9 (a)'s params ({path: f32 array} over the tree of
+    ``lm.param_shapes``, drawn with numpy from ``size["seed"]``, path by
+    path in name order) and [B, S] int32 tokens of ``configs.reduced(arch,
+    seq=S)``. Norm scales near 1, mixes in (0.1, 0.9), decay biases in
+    (-7, -5), Mamba's ``a_log`` near log(1..N), the embedding at 0.02 and
+    every other matrix at fan-in ** -0.5."""
+    from repro_torch import configs
+    from repro_torch.models import lm
+    cfg = configs.reduced(arch, seq=size["seq"])
+    rng = np.random.default_rng(size["seed"])
+    out = {}
+    for path, (shape, _) in sorted(lm.param_shapes(cfg, torch.float32)
+                                   .items()):
+        name = path.rsplit("/", 1)[-1]
+        if name == "scale":
+            a = 1 + 0.1 * rng.standard_normal(shape)
+        elif name == "mix":
+            a = rng.uniform(0.1, 0.9, shape)
+        elif name == "decay_bias":
+            a = rng.uniform(-7, -5, shape)
+        elif name == "a_log":
+            a = (np.log(np.arange(1, shape[-1] + 1))
+                 + 0.1 * rng.standard_normal(shape))
+        elif name in ("bonus", "dt_bias"):
+            a = 0.1 * rng.standard_normal(shape)
+        elif name == "embed":
+            a = 0.02 * rng.standard_normal(shape)
+        else:
+            a = rng.standard_normal(shape) * shape[-2] ** -0.5
+        out[path] = a.astype(np.float32)
+    toks = rng.integers(0, cfg.vocab, (size["batch"], size["seq"]))
+    return out, toks.astype(np.int32)
+
+
+def run_lm(arch: str, dev, size: dict = LM_GOLDEN) -> dict:
+    """One arch of phase 9 (a) on the port: the full forward's logits and
+    aux, every decode step's logits (``make_decode_step`` from an empty
+    cache of S slots) and the final cache ({name: numpy array})."""
+    from repro_torch import configs, convert
+    from repro_torch.models import lm
+    from repro_torch.serve.serve_step import make_decode_step
+    cfg = configs.reduced(arch, seq=size["seq"])
+    arrays, toks = lm_inputs(arch, size)
+    params = convert.lm_params_from_numpy(cfg, arrays, dev)
+    toks = torch.as_tensor(toks, device=dev)
+    logits, aux, _ = lm.build_forward(cfg, remat=False)(params, toks)
+    step = make_decode_step(cfg)
+    B, S = toks.shape
+    cache = lm.init_cache(cfg, B, S, torch.float32, device=dev)
+    outs = []
+    for i in range(S):
+        lg, cache = step(params, cache, toks[:, i:i + 1], i)
+        outs.append(lg)
+    out = {"logits": _np(logits), "aux": _np(aux),
+           "decode": _np(torch.stack(outs, 1))}
+    out.update({f"cache/{k}": v
+                for k, v in convert.lm_cache_to_numpy(cache).items()})
+    return out
+
+
+def lm_vs_golden(arch: str, got: dict, gold) -> float:
+    """Every output of ``run_lm`` against the golden's: floats within
+    ``LM_ATOL`` / ``LM_RTOL``, integer and bool lanes equal. Returns the
+    largest absolute error."""
+    from repro_torch import configs
+    cfg = configs.reduced(arch, seq=LM_GOLDEN["seq"])
+    atol = LM_ATOL[lm_family(cfg)]
+    keys = {k[len(arch) + 1:] for k in gold.files
+            if k.startswith(f"{arch}/") and k[len(arch) + 1:] not in (
+                "params_sha256", "tokens")}
+    assert keys == set(got), (arch, sorted(keys ^ set(got)))
+    worst = 0.0
+    for k in sorted(keys):
+        want, have = gold[f"{arch}/{k}"], got[k]
+        assert want.shape == have.shape, (arch, k, want.shape, have.shape)
+        if want.dtype.kind == "f":
+            err = np.abs(have.astype(np.float64) - want)
+            bad = err > atol + LM_RTOL * np.abs(want)
+            assert not bad.any(), (arch, k, float(err.max()), atol)
+            worst = max(worst, float(err.max()))
+        else:
+            assert np.array_equal(have, want), (arch, k)
+    return worst
+
+
+def lm_golden_phase(dev) -> dict:
+    """Phase 9 (a): the ten archs against ``tests/golden/torch_port_lm.npz``
+    on ``dev``; per arch its largest error and seconds."""
+    from repro_torch import configs
+    gold = np.load(LM)
+    out = {}
+    for arch in configs.ARCH_NAMES:
+        arrays, toks = lm_inputs(arch)
+        assert control_digest({**arrays, "tokens": toks}) == \
+            str(gold[f"{arch}/params_sha256"]), \
+            f"lm_inputs({arch!r}) no longer makes the golden's inputs"
+        t0 = time.perf_counter()
+        got = run_lm(arch, dev)
+        secs = time.perf_counter() - t0
+        out[arch] = {"max_abs_err": lm_vs_golden(arch, got, gold),
+                     "seconds": secs}
+    return out
+
+
+def attention_ring(cfg, size: dict, dev, seed: int) -> dict:
+    """Phase 9 (b)'s layer check: one attention layer of ``cfg``
+    (``L.init_attention``, f32, drawn from ``seed`` on ``dev``) over
+    [B, S, d_model] N(0, 1) inputs, decoded token by token through a ring
+    cache of min(S, window) slots and held at every step against the
+    full-sequence (flash) form of the same inputs, within
+    ``LM_ATOL["dense"]`` / ``LM_RTOL``. No MoE, so nothing drops. Returns
+    the largest absolute error and output."""
+    from repro_torch.models import layers as L
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    p = L.init_attention(gen, cfg.d_model, cfg.n_q, cfg.n_kv, cfg.head_dim,
+                         torch.float32, dev)
+    B, S = size["batch"], size["seq"]
+    x = torch.randn((B, S, cfg.d_model), generator=gen, device=dev)
+    pos = torch.arange(S, dtype=torch.int32, device=dev)
+    kw = dict(n_q=cfg.n_q, n_kv=cfg.n_kv, head_dim=cfg.head_dim,
+              rope_theta=cfg.rope_theta, window=cfg.sliding_window)
+    full, _ = L.attention_fwd(p, x, pos, **kw)
+    C = min(S, cfg.sliding_window) if cfg.sliding_window else S
+    cache = L.init_attention_cache(B, cfg.n_kv, C, cfg.head_dim,
+                                   torch.float32, dev)
+    dec = torch.empty_like(full)
+    for i in range(S):
+        out, cache = L.attention_fwd(p, x[:, i:i + 1], pos[i:i + 1],
+                                     cache=cache, **kw)
+        dec[:, i] = out[:, 0]
+    err = (dec - full).abs()
+    bad = err > LM_ATOL["dense"] + LM_RTOL * full.abs()
+    assert not bool(bad.any()), (
+        "decode through the ring disagrees with the full form at "
+        f"position {int(bad.any(0).any(-1).nonzero()[0])}", float(err.max()))
+    # the ring held the last C positions
+    assert sorted(cache["pos"].tolist()) == list(range(S - C, S))
+    return {"cache_slots": C, "max_abs_err": float(err.max()),
+            "max_abs_out": float(full.abs().max())}
+
+
+def _full_cfg():
+    import dataclasses
+    from repro_torch import configs
+    return dataclasses.replace(configs.get(LM_ARCH),
+                               num_layers=LM_FULL_LAYERS)
+
+
+def _tokens(cfg, size: dict, seed: int):
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    return torch.randint(0, cfg.vocab, (size["batch"], size["seq"]),
+                         generator=gen, device=DEV, dtype=torch.int32)
+
+
+def _param_bytes(params: dict) -> int:
+    from repro_torch.models import lm
+    return sum(v.numel() * v.element_size()
+               for v in lm.flatten(params).values())
+
+
+def phase_serving(smi: str) -> dict:
+    """Phase 9: the LM substrate's serving path on the card. (a) the ten
+    reduced archs against the golden, f32; (b) mixtral-8x22b at full
+    width, f32: the decode step against the full forward with no
+    capacity drop, and one attention layer decoded through its wrapping
+    ring against its full form; (c) the same in bf16: prefill and greedy decode,
+    timed; (d) ``serving_rate`` against the golden, with the tick
+    kernels' launches."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    from repro_torch.serve.serve_step import (make_decode_step, make_prefill,
+                                              serving_rate)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    out = {}
+    # (a) the ten reduced archs against the golden
+    res, secs, peak, launches = _timed_batch(lambda: lm_golden_phase(DEV))
+    assert not any(launches.values()), launches
+    out["a"] = {"archs": res, "seconds": secs, "peak_bytes": peak}
+    errs = {k: float(f"{v['max_abs_err']:.3g}") for k, v in res.items()}
+    say("9 serving", f"(a) ten reduced archs (B={LM_GOLDEN['batch']}, "
+        f"S={LM_GOLDEN['seq']}, f32, TF32 off): full-forward logits and "
+        f"aux, {LM_GOLDEN['seq']} decode steps and the final cache within "
+        f"{LM_ATOL} (rtol {LM_RTOL}) of the JAX golden; largest errors "
+        f"{errs} ({secs:.2f} s, peak {peak} B)")
+    # (b) full width, f32: decode against the full forward
+    cfg = _full_cfg()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, LM_SEED, torch.float32, device=DEV)
+    drops: list = []
+    fwd = lm.build_forward(cfg, remat=False, moe_drops=drops)
+    census_logits, _, _ = fwd(params, _tokens(cfg, LM_CENSUS, LM_SEED))
+    census = [int(d) for d in drops]
+    assert bool(torch.isfinite(census_logits).all())
+    del census_logits
+    drops.clear()
+    toks = _tokens(cfg, LM_PARITY, LM_SEED + 1)
+    full, aux, _ = fwd(params, toks)
+    assert sum(int(d) for d in drops) == 0, drops
+    step = make_decode_step(cfg)
+    B, S = toks.shape
+    cache = lm.init_cache(cfg, B, S, torch.float32, device=DEV)
+    worst = 0.0
+    for i in range(S):
+        lg, cache = step(params, cache, toks[:, i:i + 1], i)
+        err = (lg - full[:, i]).abs()
+        assert bool((err <= LM_ATOL["moe"]
+                     + LM_RTOL * full[:, i].abs()).all()), (i, float(
+                         err.max()))
+        worst = max(worst, float(err.max()))
+    torch.cuda.synchronize()
+    assert not any(ops.LAUNCHES.values()), dict(ops.LAUNCHES)
+    out["b"] = {"param_bytes": _param_bytes(params), "census": census,
+                "parity_max_abs_err": worst, "aux": float(aux),
+                "seconds": time.perf_counter() - t0,
+                "peak_bytes": torch.cuda.max_memory_allocated()}
+    say("9 serving", f"(b) {LM_ARCH} full width (d_model {cfg.d_model}, "
+        f"{cfg.n_q}/{cfg.n_kv} heads of {cfg.head_dim}, d_ff {cfg.d_ff}, "
+        f"{cfg.num_experts} experts top-{cfg.experts_per_token}, SWA "
+        f"{cfg.sliding_window}, vocab {cfg.vocab}), R={cfg.repeats}, f32 "
+        f"({out['b']['param_bytes']} B of params): the full forward at "
+        f"B={LM_CENSUS['batch']}, S={LM_CENSUS['seq']} drops {census} "
+        f"assignments over capacity (per MoE layer); at B={B}, S={S} it "
+        f"drops 0 and the decode step matches it at every step, largest "
+        f"error {worst:.3g} (atol {LM_ATOL['moe']}, rtol {LM_RTOL}); "
+        f"{out['b']['seconds']:.2f} s, peak {out['b']['peak_bytes']} B")
+    del params, fwd, full, cache, lg
+    torch.cuda.empty_cache()
+    # (b) the attention layer alone at full width, far into the ring
+    t0 = time.perf_counter()
+    ring = attention_ring(cfg, LM_RING, DEV, LM_SEED + 3)
+    torch.cuda.synchronize()
+    assert not any(ops.LAUNCHES.values()), dict(ops.LAUNCHES)
+    out["b"]["ring"] = {**ring, "seconds": time.perf_counter() - t0}
+    say("9 serving", f"(b) one {LM_ARCH} attention layer at full width, "
+        f"f32, B={LM_RING['batch']}: {LM_RING['seq']} tokens decoded one by "
+        f"one through a ring of {ring['cache_slots']} slots (SWA "
+        f"{cfg.sliding_window}) match its full-sequence form at every "
+        f"step, largest error {ring['max_abs_err']:.3g} on outputs up to "
+        f"{ring['max_abs_out']:.3g} (atol {LM_ATOL['dense']}, rtol "
+        f"{LM_RTOL}); {out['b']['ring']['seconds']:.2f} s")
+    torch.cuda.empty_cache()
+    # (c) the served run in bf16
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params = lm.init_params(cfg, LM_SEED, torch.bfloat16, device=DEV)
+    nbytes = _param_bytes(params)
+    Bs, P, N = LM_SERVE["batch"], LM_SERVE["prompt"], LM_SERVE["new"]
+    prompts = _tokens(cfg, {"batch": Bs, "seq": P}, LM_SEED + 2)
+    prefill = make_prefill(cfg)
+    t0 = time.perf_counter()
+    first = prefill(params, prompts)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        last = prefill(params, prompts)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    prefill_s = sorted(times)[1]
+    assert bool(torch.isfinite(last.float()).all())
+    assert torch.equal(first, last)
+    # the prompt through the decode step into the cache, then greedy
+    # decode: the serving example's loop
+    r = _load_example("serve_decode_torch").generate(cfg, params, prompts, N)
+    feed_s, decode_s = r["prefill_s"], r["decode_s"]
+    assert bool(torch.isfinite(r["logits"].float()).all())
+    assert int(r["ids"].min()) >= 0 and int(r["ids"].max()) < cfg.vocab
+    assert not any(ops.LAUNCHES.values()), dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    # the least a decode step can take: every weight but the embedding's
+    # unread rows read once, over the card's memory rate
+    step_bytes = nbytes - params["embed"].numel() * 2
+    out["c"] = {"param_bytes": nbytes, "prefill_first_s": first_s,
+                "prefill_s": prefill_s,
+                "prefill_tokens_per_s": Bs * P / prefill_s,
+                "feed_ms_per_step": feed_s / P * 1e3,
+                "decode_ms_per_step": decode_s / N * 1e3,
+                "decode_tokens_per_s": Bs * N / decode_s,
+                "decode_bound_ms": step_bytes / HBM_BYTES_PER_S * 1e3,
+                "peak_bytes": peak, "nvidia_smi": smi}
+    c = out["c"]
+    say("9 serving", f"(c) {LM_ARCH} full width, R={cfg.repeats}, bf16 "
+        f"({nbytes} B of params): make_prefill B={Bs} S={P} "
+        f"{prefill_s * 1e3:.1f} ms ({c['prefill_tokens_per_s']:.0f} "
+        f"tokens/s; first call {first_s * 1e3:.1f} ms); the prompt fed "
+        f"token by token {c['feed_ms_per_step']:.3f} ms/step, then {N} "
+        f"greedy tokens {c['decode_ms_per_step']:.3f} ms/step "
+        f"({c['decode_tokens_per_s']:.0f} tokens/s; the weights' bytes "
+        f"over {HBM_BYTES_PER_S / 1e12} TB/s bound a step at "
+        f"{c['decode_bound_ms']:.3f} ms); peak {peak} B; {smi}")
+    del params, r, last, first
+    torch.cuda.empty_cache()
+    # (d) serving_rate on the simulated fabric, against the golden
+    from repro_torch import configs
+    from repro_torch.network import traffic
+    gold = np.load(LM)
+    with _Capture(traffic, "simulate") as cap:
+        rate, secs, peak, launches = _timed_batch(
+            lambda: serving_rate(configs.get(LM_ARCH), **LM_RATE,
+                                 device=DEV))
+    got = lm.flatten(rate, "serve/")
+    assert set(got) == {k for k in gold.files if k.startswith("serve/")}
+    for k, v in got.items():
+        assert v == gold[k].item(), (k, v, gold[k])
+    (r,) = cap.results
+    _launches_per_group("serving", launches, {("g", "ai_full"): r.horizon})
+    out["d"] = {"rate": rate, "seconds": secs, "peak_bytes": peak,
+                "launches": launches, "horizon": r.horizon}
+    say("9 serving", f"(d) serving_rate({LM_ARCH}, {LM_RATE}): "
+        f"{rate['sim_ticks']} ticks, modelled {rate['tokens_per_sec_served']!r}"
+        f" tokens/s served, step {rate['step_s']!r} s (priced with the "
+        f"reference's modelled accelerator), eff {rate['eff']}; == the JAX "
+        f"golden ({secs:.2f} s); launches {launches}")
+    out["launches"] = launches
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--trace", type=Path,
@@ -2730,6 +3116,7 @@ def main(argv=None) -> int:
     result["cross_device"] = phase_cross_device()
     result["traffic"] = phase_traffic()
     result["control"] = phase_control(smi)
+    result["serving"] = phase_serving(smi)
     kernels = []
     for name, row in result["kernels"].items():
         row = {k: v for k, v in row.items()
@@ -2755,6 +3142,8 @@ def main(argv=None) -> int:
             row["shard"] = {"launches": result["shard"]["launches"][name]}
             # and on the model-driven traffic's runs, all four parts
             row["traffic"] = {"launches": result["traffic"]["launches"][name]}
+            # and on serving_rate's priced decode step
+            row["serving"] = {"launches": result["serving"]["launches"][name]}
         if name in result["control"]["rows"]:
             # the control plane's path: record_rx / or_mask and
             # advance_cack at the endpoint's shapes

@@ -7,8 +7,9 @@ width: ``tests/golden/torch_port_fullsize.npz``,
 ``tests/golden/torch_port_inc.npz``,
 ``tests/golden/torch_port_link.npz``,
 ``tests/golden/torch_port_telemetry.npz``,
-``tests/golden/torch_port_traffic.npz`` and
-``tests/golden/torch_port_control.npz``.
+``tests/golden/torch_port_traffic.npz``,
+``tests/golden/torch_port_control.npz`` and
+``tests/golden/torch_port_lm.npz``.
 
 Both use the port's full-width fabric (``chip_smoke.py`` phase 5): a full
 3-tier k=16 fat tree (``fat_tree3(k=16, pods=16)``: 1024 endpoints, 320
@@ -82,7 +83,7 @@ runs on the CPU (about five minutes per one-scenario run on a few
 cores):
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/torch_port_reference.py \
-        [--which fullsize|profiles|batch|faults|inc|link|telemetry|traffic|control]
+        [--which fullsize|profiles|batch|faults|inc|link|telemetry|traffic|control|lm]
 
 ``fullsize`` holds the workload lanes (``src``, ``dst``, ``size``), the
 per-flow stats and final lanes (``stat_completion``,
@@ -139,6 +140,16 @@ the PDC pool, addressing, matching, TSS, NSCC's batch API) as
 ``batch/<part>/<name>`` (uint32 lanes as uint32), and the seconds each
 part took (``seconds/<part>``).
 
+``lm`` holds, per arch ``a`` of the registry at ``configs.reduced(a,
+seq=24)`` (``chip_smoke.LM_GOLDEN``; the params and tokens come from
+``chip_smoke.lm_inputs``, whose digest it records as
+``a/params_sha256``): ``a/tokens``, the full forward's ``a/logits`` and
+``a/aux``, every decode step's logits ``a/decode`` ([B, S, V], the
+reference's ``make_decode_step`` from an empty cache of S slots) and
+the final cache as ``a/cache/<path>``; then ``serve/<key>`` (``eff``'s
+scopes as ``serve/eff/<scope>``): ``serving_rate`` of mixtral-8x22b at
+``chip_smoke.LM_RATE`` on ``leaf_spine(4, 4, 4)``.
+
 ``telemetry`` holds, per tag ``t`` (``faults``, ``link``): the spec's
 ``t/probe_every`` and ``t/slots``, ``t/cpu_seconds``, and per lane
 ``b<i>``: ``horizon``; the ring bookkeeping ``tel.n``, ``tel.stride``,
@@ -182,6 +193,7 @@ OUT_LINK = GOLDEN / "torch_port_link.npz"
 OUT_TELEMETRY = GOLDEN / "torch_port_telemetry.npz"
 OUT_TRAFFIC = GOLDEN / "torch_port_traffic.npz"
 OUT_CONTROL = GOLDEN / "torch_port_control.npz"
+OUT_LM = GOLDEN / "torch_port_lm.npz"
 #: netmodel's (kind, algo) pairs of ``tests/test_collectives.py``
 NET_PAIRS = (("all-reduce", "ring"), ("all-reduce", "tree"),
              ("all-gather", "ring"))
@@ -1072,12 +1084,71 @@ def write_control(path: Path) -> None:
           f"per part {secs}")
 
 
+def jax_lm(arch: str, size: dict) -> dict:
+    """One arch of ``chip_smoke.py`` phase 9 (a) on the JAX package: the
+    full forward's logits and aux, every decode step's logits and the
+    final cache, as ``chip_smoke.run_lm`` names them."""
+    import sys
+    import jax
+    import jax.numpy as jnp
+    from repro import configs as jconfigs
+    from repro.models import lm as jlm
+    from repro.serve.serve_step import make_decode_step
+    from repro_torch.models.lm import flatten, unflatten
+    sys.path.insert(0, str(REPO))
+    from chip_smoke import lm_inputs
+    cfg = jconfigs.reduced(arch, seq=size["seq"])
+    arrays, toks = lm_inputs(arch, size)
+    params = unflatten({k: jnp.asarray(a) for k, a in arrays.items()})
+    logits, aux, _ = jax.jit(jlm.build_forward(cfg, remat=False))(
+        params, jnp.asarray(toks))
+    step = jax.jit(make_decode_step(cfg))
+    B, S = toks.shape
+    cache = jlm.init_cache(cfg, B, S, jnp.float32)
+    outs = []
+    for i in range(S):
+        lg, cache = step(params, cache, jnp.asarray(toks[:, i:i + 1]),
+                         jnp.int32(i))
+        outs.append(lg)
+    out = {"logits": np.asarray(logits), "aux": np.asarray(aux),
+           "decode": np.asarray(jnp.stack(outs, 1))}
+    out.update({k: np.asarray(v) for k, v in flatten(cache, "cache/").items()})
+    return out
+
+
+def write_lm(path: Path) -> None:
+    """The ten reduced archs of phase 9 (a) and the priced decode step of
+    phase 9 (d)."""
+    import sys
+    from repro import configs as jconfigs
+    from repro.serve.serve_step import serving_rate
+    from repro_torch.models.lm import flatten
+    sys.path.insert(0, str(REPO))
+    from chip_smoke import LM_ARCH, LM_GOLDEN, LM_RATE, control_digest, \
+        lm_inputs
+    out = {}
+    for arch in jconfigs.ARCH_NAMES:
+        t0 = time.perf_counter()
+        arrays, toks = lm_inputs(arch, LM_GOLDEN)
+        out[f"{arch}/params_sha256"] = np.asarray(
+            control_digest({**arrays, "tokens": toks}))
+        out[f"{arch}/tokens"] = toks
+        out.update({f"{arch}/{k}": v
+                    for k, v in jax_lm(arch, LM_GOLDEN).items()})
+        print(f"lm {arch}: {time.perf_counter() - t0:.1f} s")
+    rate = serving_rate(jconfigs.get(LM_ARCH), **LM_RATE)
+    out.update({k: np.asarray(v) for k, v in flatten(rate, "serve/").items()})
+    path.parent.mkdir(parents=True, exist_ok=True)
+    np.savez_compressed(path, **out)
+    print(f"lm -> {path} ({path.stat().st_size} B); serving_rate {rate}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--which", default="fullsize",
                     choices=("fullsize", "profiles", "batch", "faults",
                              "inc", "link", "telemetry", "traffic",
-                             "control"))
+                             "control", "lm"))
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args()
     if args.which == "fullsize":
@@ -1096,6 +1167,8 @@ def main() -> int:
         write_traffic(args.out or OUT_TRAFFIC)
     elif args.which == "control":
         write_control(args.out or OUT_CONTROL)
+    elif args.which == "lm":
+        write_lm(args.out or OUT_LM)
     else:
         write_profiles(args.out or OUT_PROFILES)
     return 0

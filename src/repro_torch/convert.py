@@ -21,6 +21,14 @@ the seed (a uint32 lane) and the host / NIC lanes.
 The control-plane states (``PDCPool``, ``PSNTracker``, ``FEPTables``,
 ``RecvQueue``, ``SecureDomain``, ``PSNGuard``, ``NSCCState``) cross the
 same way, flat, through ``control_from_numpy`` / ``control_to_numpy``.
+
+The LM's parameter and decode-cache trees cross as flat dicts of numpy
+arrays keyed by path (``"blocks/pos0/mixer/wq"``) through
+``lm_params_from_numpy`` / ``lm_params_to_numpy`` and
+``lm_cache_from_numpy`` / ``lm_cache_to_numpy``: every path of the
+config's tree is required and an unknown one raises. bf16 arrays (numpy
+has no bf16 of its own; JAX hands out ``ml_dtypes.bfloat16``) cross by
+their bit pattern; on the way back a bf16 tensor becomes f32, exactly.
 """
 from __future__ import annotations
 
@@ -29,6 +37,7 @@ from dataclasses import fields, is_dataclass
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ArchConfig
 from repro_torch.core.addressing import FEPTables
 from repro_torch.core.cms.nscc import NSCCState
 from repro_torch.core.cms.rccc import RCCCState
@@ -38,6 +47,7 @@ from repro_torch.core.matching import RecvQueue
 from repro_torch.core.pdc import PDCPool
 from repro_torch.core.pds import PSNTracker
 from repro_torch.core.tss import PSNGuard, SecureDomain
+from repro_torch.models import lm
 from repro_torch.network.fabric import SimState, Workload
 from repro_torch.network.faults import FaultSchedule
 
@@ -181,3 +191,54 @@ def control_to_numpy(obj) -> dict:
         a = getattr(obj, f.name).detach().cpu().numpy()
         out[f.name] = a.view(np.uint32) if f.name in u32 else a
     return out
+
+
+def _lm_tensor(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).astype(np.int16)).view(
+            torch.bfloat16).to(device)
+    return torch.as_tensor(np.array(a)).to(device)
+
+
+def _lm_tree(arrays: dict, known, what: str, device) -> dict:
+    unknown = sorted(set(arrays) - set(known))
+    missing = sorted(set(known) - set(arrays))
+    if unknown or missing:
+        raise NotImplementedError(
+            f"{what} path(s) {unknown} are not in the port's tree"
+            if unknown else f"{what} path(s) {missing} are missing")
+    return lm.unflatten({k: _lm_tensor(arrays[k], device) for k in known})
+
+
+def _lm_numpy(tree: dict) -> dict:
+    return {k: (v.float() if v.dtype == torch.bfloat16 else v)
+            .detach().cpu().numpy() for k, v in lm.flatten(tree).items()}
+
+
+def lm_params_from_numpy(cfg: ArchConfig, arrays: dict, device) -> dict:
+    """The port's LM parameter tree from the reference's, given as {path:
+    numpy array}; the shapes must be the config's."""
+    shapes = lm.param_shapes(cfg)
+    for k, (shape, _) in shapes.items():
+        if k in arrays and tuple(np.shape(arrays[k])) != shape:
+            raise ValueError(f"LM param {k}: shape {np.shape(arrays[k])}, "
+                             f"the config's is {shape}")
+    return _lm_tree(arrays, shapes, "LM param", device)
+
+
+def lm_params_to_numpy(params: dict) -> dict:
+    """An LM parameter tree as {path: numpy array} (bf16 as f32)."""
+    return _lm_numpy(params)
+
+
+def lm_cache_from_numpy(cfg: ArchConfig, arrays: dict, device) -> dict:
+    """The port's decode cache from the reference's, given as {path:
+    numpy array}."""
+    known = lm.flatten(lm.init_cache(cfg, 1, 1, device="meta"))
+    return _lm_tree(arrays, known, "LM cache", device)
+
+
+def lm_cache_to_numpy(cache: dict) -> dict:
+    """A decode cache as {path: numpy array} (bf16 as f32)."""
+    return _lm_numpy(cache)

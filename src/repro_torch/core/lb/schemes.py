@@ -15,6 +15,7 @@ from dataclasses import dataclass, replace
 import torch
 
 from repro_torch._u32 import c32, shr, umod
+from repro_torch.core import scatter
 from repro_torch.core.types import EV_SPACE, scenario_rows
 
 
@@ -204,9 +205,26 @@ def on_ack(state: LBState, scheme: LBScheme, flow: torch.Tensor,
         marks = plane[:n].view(state.cong_bits.shape) > 0
         return replace(state, cong_bits=state.cong_bits | marks)
     if scheme == LBScheme.REPS:
-        raise NotImplementedError(
-            "lane-wise REPS feedback is not ported (the fabric tick uses "
-            "reps_recycle); see ROADMAP.md 'Modules to port' item 2")
+        # recycle EVs that came back clean; congested EVs leave circulation
+        n = state.reps_size.numel()               # B*F rows
+        base = scenario_rows(flow, F)
+        ok = valid & ~congested
+        size = state.reps_size.reshape(n)
+        pos = ((state.reps_head + state.reps_size) % K).reshape(n)
+        # reads take the reference's rule (negatives once from the end,
+        # then clamped), writes keep only rows in [0, F)
+        rd = base + scatter.read_index(torch.where(ok, flow, 0), F)
+        r, in_range = scatter.write_index(flow, F)
+        keep = ok & (size[rd] < K) & in_range     # the ring has room
+        rows = torch.where(keep, base + r, n)     # n: dropped
+        # lanes of one flow read the same pos: the last lane's EV wins
+        ring = scatter.set_last(state.reps_ring.reshape(n * K),
+                                torch.where(keep, rows * K + pos[rd], n * K),
+                                ev)
+        return replace(
+            state, reps_ring=ring.view(state.reps_ring.shape),
+            reps_size=scatter.add_at(size, rows, 1).view(
+                state.reps_size.shape))
     return state
 
 

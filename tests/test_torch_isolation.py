@@ -1,8 +1,9 @@
 """The port stands alone: no file of ``src/repro_torch``, not
-``chip_smoke.py`` and not the port's transport tour
-(``examples/uet_transport_tour_torch.py``) imports JAX or the reference
-package (the machine with the card has no JAX), and importing the port
-loads no JAX."""
+``chip_smoke.py`` and not the port's examples (the transport tour
+``examples/uet_transport_tour_torch.py``, the serving example
+``examples/serve_decode_torch.py``) imports JAX or the reference package
+(the machine with the card has no JAX), and importing the port loads no
+JAX."""
 import ast
 import os
 import subprocess
@@ -13,7 +14,8 @@ import pytest
 
 REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py", REPO / "examples" / "uet_transport_tour_torch.py"]
+    REPO / "chip_smoke.py", REPO / "examples" / "uet_transport_tour_torch.py",
+    REPO / "examples" / "serve_decode_torch.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -46,7 +48,10 @@ def test_importing_the_port_loads_no_jax():
             "import repro_torch.core.pdc, repro_torch.core.pds\n"
             "import repro_torch.core.scatter, repro_torch.core.tss\n"
             "import repro_torch.core.types\n"
+            "import repro_torch.models.layers, repro_torch.models.lm\n"
+            "import repro_torch.serve.serve_step, repro_torch.launch.mesh\n"
             "import runpy\n"
+            "runpy.run_path('examples/serve_decode_torch.py')\n"
             "runpy.run_path('examples/uet_transport_tour_torch.py')\n"
             "import chip_smoke\n"
             "from repro_torch import configs\n"

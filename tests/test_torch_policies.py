@@ -2,8 +2,9 @@
 the NSCC hooks and Quick Adapt (the f32 ``cwnd`` lane included), LB
 selection and feedback for STATIC, OBLIVIOUS and REPS, the named
 profiles, EV eviction and the recovery statics building beside each CC
-composition, and what stays unported (INC, the lane-wise REPS feedback)
-raising. RCCC, the hybrid, the open
+composition, and the lane-wise REPS feedback (``schemes.on_ack``) bitwise
+with repeated flows, full rings, invalid and out-of-range lanes, at B = 1
+and batched. RCCC, the hybrid, the open
 loop, RR_SLOTS and EVBITMAP are held in ``test_torch_profile_policies.py``.
 """
 from dataclasses import fields, replace
@@ -204,11 +205,58 @@ def test_unported_cc_raises(cc):
 @pytest.mark.parametrize("scheme", ["RR_SLOTS", "EVBITMAP"])
 def test_unported_lb_raises(scheme):
     """Every LB scheme is built now, with EV eviction (ROADMAP.md item
-    6) too; the lane-wise REPS feedback, which the tick does not use,
-    still raises."""
+    6) too; the lane-wise REPS feedback, which the tick does not use and
+    which raised until it was ported, runs (held against the reference
+    in ``test_lane_wise_reps_feedback_matches_the_reference``): with no
+    valid lane it changes nothing."""
     assert lb.LBPolicy(lb.LBScheme[scheme]).scheme == lb.LBScheme[scheme]
     assert lb.LBPolicy(lb.LBScheme[scheme], evict_enabled=True).evict_enabled
     st = lb.LBState.create(4, 8, 0x5EED, torch.device("cpu"))
     z = torch.zeros(4, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        lb.on_ack(st, lb.LBScheme.REPS, z, z, z.bool(), z.bool())
+    _same_dc(lb.on_ack(st, lb.LBScheme.REPS, z, z, z.bool(), z.bool()), st)
+
+
+def _reps_lanes(rng, n, flows, hi=None):
+    """n lanes over ``flows`` (repeats, negatives and rows past the end
+    when ``hi`` widens the range), a quarter congested, a fifth invalid."""
+    lo, hi = (-flows - 3, flows + 3) if hi is None else (0, hi)
+    return (rng.integers(lo, hi, n).astype(np.int32),
+            rng.integers(0, 2 ** 16, n).astype(np.int32),
+            rng.random(n) < 0.25, rng.random(n) < 0.8)
+
+
+@pytest.mark.parametrize("case", ["repeats", "full_rings", "edges"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_lane_wise_reps_feedback_matches_the_reference(case, seed):
+    """``on_ack(..., REPS)`` against the reference's
+    (``src/repro/core/lb/schemes.py:325-337``): lanes of one flow write
+    one ring slot, the last lane's EV staying, and each adds one to the
+    size; a flow whose ring is full takes nothing; congested and invalid
+    lanes take nothing; rows outside [0, F) drop (a negative row counts
+    from the end once)."""
+    rng = np.random.default_rng(seed)
+    f, k = 24, 8
+    js = jlb.LBState.create(f, k, np.uint32(0x5EED + seed))
+    size = {"repeats": rng.integers(0, k // 2, f),
+            "full_rings": rng.choice([k - 1, k], f),
+            "edges": rng.integers(0, k + 1, f)}[case].astype(np.int32)
+    js = replace(js, reps_size=jnp.asarray(size),
+                 reps_head=jnp.asarray(rng.integers(0, 3 * k, f).astype(
+                     np.int32)),
+                 reps_ring=jnp.asarray(rng.integers(-1, 99, (f, k)).astype(
+                     np.int32)))
+    ts = lb.LBState(*(_t(np.asarray(getattr(js, x.name))) for x in fields(js)))
+    lanes = _reps_lanes(rng, 96, f, hi=6 if case == "repeats" else None)
+    want = jlb.on_ack(js, jlb.LBScheme.REPS, *(jnp.asarray(a) for a in lanes))
+    got = lb.on_ack(ts, lb.LBScheme.REPS, *(_t(a) for a in lanes))
+    _same_dc(got, want)
+    # batched: B = 3 scenarios, lane b its own draw, each as if alone
+    draws = [lanes] + [_reps_lanes(rng, 96, f) for _ in range(2)]
+    tb = lb.LBState(*(torch.stack([getattr(ts, x.name)] * 3)
+                      for x in fields(ts)))
+    gb = lb.on_ack(tb, lb.LBScheme.REPS,
+                   *(torch.stack([_t(d[i]) for d in draws]) for i in range(4)))
+    for b, d in enumerate(draws):
+        one = jlb.on_ack(js, jlb.LBScheme.REPS, *(jnp.asarray(a) for a in d))
+        _same(gb.reps_ring[b], one.reps_ring, f"ring {b}")
+        _same(gb.reps_size[b], one.reps_size, f"size {b}")

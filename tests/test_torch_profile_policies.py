@@ -246,9 +246,13 @@ def test_lanewise_evbitmap_feedback_with_duplicate_and_negative_flows():
                jlb.on_ack(js, jlb.LBScheme.EVBITMAP, jnp.asarray(flow),
                           jnp.asarray(ev), jnp.asarray(cong),
                           jnp.asarray(valid)))
-    with pytest.raises(NotImplementedError, match="reps_recycle"):
-        lb.on_ack(ts, lb.LBScheme.REPS, _t(flow), _t(ev), _t(cong),
-                  _t(valid))
+    # the REPS branch, which raised until it was ported, on the same
+    # duplicate and negative flows
+    _same_tree(lb.on_ack(ts, lb.LBScheme.REPS, _t(flow), _t(ev), _t(cong),
+                         _t(valid)),
+               jlb.on_ack(js, jlb.LBScheme.REPS, jnp.asarray(flow),
+                          jnp.asarray(ev), jnp.asarray(cong),
+                          jnp.asarray(valid)))
 
 
 @pytest.mark.parametrize("name", ["ai_base", "ai_full", "hpc", "resilient"])
