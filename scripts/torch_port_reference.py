@@ -8,8 +8,9 @@ width: ``tests/golden/torch_port_fullsize.npz``,
 ``tests/golden/torch_port_link.npz``,
 ``tests/golden/torch_port_telemetry.npz``,
 ``tests/golden/torch_port_traffic.npz``,
-``tests/golden/torch_port_control.npz`` and
-``tests/golden/torch_port_lm.npz``.
+``tests/golden/torch_port_control.npz``,
+``tests/golden/torch_port_lm.npz`` and
+``tests/golden/torch_port_train.npz``.
 
 Both use the port's full-width fabric (``chip_smoke.py`` phase 5): a full
 3-tier k=16 fat tree (``fat_tree3(k=16, pods=16)``: 1024 endpoints, 320
@@ -83,7 +84,7 @@ runs on the CPU (about five minutes per one-scenario run on a few
 cores):
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/torch_port_reference.py \
-        [--which fullsize|profiles|batch|faults|inc|link|telemetry|traffic|control|lm]
+        [--which fullsize|profiles|batch|faults|inc|link|telemetry|traffic|control|lm|train]
 
 ``fullsize`` holds the workload lanes (``src``, ``dst``, ``size``), the
 per-flow stats and final lanes (``stat_completion``,
@@ -150,6 +151,19 @@ the final cache as ``a/cache/<path>``; then ``serve/<key>`` (``eff``'s
 scopes as ``serve/eff/<scope>``): ``serving_rate`` of mixtral-8x22b at
 ``chip_smoke.LM_RATE`` on ``leaf_spine(4, 4, 4)``.
 
+``train`` holds, per arch ``a`` at ``configs.reduced(a, seq=16)``
+(``chip_smoke.TRAIN_GOLDEN``; params and batch from
+``chip_smoke.train_inputs``, whose digest it records as
+``a/inputs_sha256``): two jitted ``make_train_step`` steps
+(``chip_smoke.TRAIN_OPT``) on one batch, recorded by
+``chip_smoke.train_record``: ``a/s<i>/<metric>`` of both steps, each
+leaf's step-1 gradient sum of squares ``a/grad_sumsq/<path>`` and
+seeded samples of up to 256 entries (``chip_smoke.train_sample``) of
+the step-1 gradients ``a/grad/<path>`` and of the params and moments
+after step 2 (``a/param/``, ``a/m/``, ``a/v/``); then ``derate/<kind>``,
+``repro.launch.roofline.uet_efficiencies`` over
+``chip_smoke.TRAIN_KINDS`` at ``chip_smoke.TRAIN_DERATE``.
+
 ``telemetry`` holds, per tag ``t`` (``faults``, ``link``): the spec's
 ``t/probe_every`` and ``t/slots``, ``t/cpu_seconds``, and per lane
 ``b<i>``: ``horizon``; the ring bookkeeping ``tel.n``, ``tel.stride``,
@@ -164,6 +178,7 @@ of its C-order bytes; and ``trims``, ``drops``, ``llr_replays``,
 """
 import argparse
 import dataclasses
+import functools
 import hashlib
 import time
 from dataclasses import replace
@@ -194,6 +209,7 @@ OUT_TELEMETRY = GOLDEN / "torch_port_telemetry.npz"
 OUT_TRAFFIC = GOLDEN / "torch_port_traffic.npz"
 OUT_CONTROL = GOLDEN / "torch_port_control.npz"
 OUT_LM = GOLDEN / "torch_port_lm.npz"
+OUT_TRAIN = GOLDEN / "torch_port_train.npz"
 #: netmodel's (kind, algo) pairs of ``tests/test_collectives.py``
 NET_PAIRS = (("all-reduce", "ring"), ("all-reduce", "tree"),
              ("all-gather", "ring"))
@@ -1143,12 +1159,93 @@ def write_lm(path: Path) -> None:
     print(f"lm -> {path} ({path.stat().st_size} B); serving_rate {rate}")
 
 
+
+@functools.lru_cache(maxsize=None)
+def _jax_train_fn(arch: str, seq: int, microbatches: int):
+    """The jitted (train step, step-1 gradients) of one reduced arch,
+    built once per (arch, seq, microbatches)."""
+    import sys
+    import jax
+    from repro import configs as jconfigs
+    from repro.models import lm as jlm
+    from repro.train.optimizer import AdamWConfig
+    from repro.train.train_step import (MOE_AUX_WEIGHT, chunked_ce_loss,
+                                        make_train_step)
+    sys.path.insert(0, str(REPO))
+    from chip_smoke import TRAIN_OPT
+    cfg = jconfigs.reduced(arch, seq=seq)
+    step = make_train_step(cfg, opt_cfg=AdamWConfig(**TRAIN_OPT),
+                           microbatches=microbatches)
+    fwd = jlm.build_forward(cfg, remat=True, output="hidden")
+
+    def loss(p, b):
+        hidden, aux, _ = fwd(p, b["inputs"])
+        return chunked_ce_loss(hidden, p["head"], b["labels"]) + \
+            MOE_AUX_WEIGHT * aux
+
+    return jax.jit(lambda p, o, b: (step(p, o, b), jax.grad(loss)(p, b)))
+
+
+def jax_train(arch: str, size: dict, full: bool = False,
+              microbatches: int = 1, inputs=None) -> dict:
+    """One arch of ``chip_smoke.py`` phase 10 (a) on the JAX package,
+    jitted: two steps of ``make_train_step`` on ``chip_smoke.train_inputs``
+    (or on ``inputs``, a (params, batch) pair of numpy trees like it)
+    and the step-1 gradients of its loss (``make_train_step``'s
+    ``loss_fn``: the hidden forward with remat, ``chunked_ce_loss``, the
+    MoE aux), recorded as ``chip_smoke.train_record`` names it."""
+    import sys
+    import jax.numpy as jnp
+    from repro.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.models.lm import flatten, unflatten
+    sys.path.insert(0, str(REPO))
+    from chip_smoke import TRAIN_OPT, train_inputs, train_record
+    arrays, batch = inputs or train_inputs(arch, size)
+    params = unflatten({k: jnp.asarray(a) for k, a in arrays.items()})
+    batch = {k: jnp.asarray(v) for k, v in batch.items()}
+    both = _jax_train_fn(arch, size["seq"], microbatches)
+    opt = init_opt_state(params, AdamWConfig(**TRAIN_OPT))
+    (p1, o1, m1), grads = both(params, opt, batch)
+    (p2, o2, m2), _ = both(p1, o1, batch)
+
+    def host(tree):
+        return {k: np.asarray(v) for k, v in flatten(tree).items()}
+    return train_record(host(m1), host(m2), host(grads), host(p2),
+                        host(o2["m"]), host(o2["v"]), full)
+
+
+def write_train(path: Path) -> None:
+    """The ten reduced archs of phase 10 (a) and the derates of (d)."""
+    import sys
+    from repro import configs as jconfigs
+    from repro.launch.roofline import uet_efficiencies
+    sys.path.insert(0, str(REPO))
+    from chip_smoke import (TRAIN_DERATE, TRAIN_GOLDEN, TRAIN_KINDS,
+                            control_digest, train_inputs)
+    out = {}
+    for arch in jconfigs.ARCH_NAMES:
+        t0 = time.perf_counter()
+        arrays, batch = train_inputs(arch, TRAIN_GOLDEN)
+        out[f"{arch}/inputs_sha256"] = np.asarray(
+            control_digest({**arrays, **batch}))
+        out.update({f"{arch}/{k}": v
+                    for k, v in jax_train(arch, TRAIN_GOLDEN).items()})
+        print(f"train {arch}: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    eff = uet_efficiencies(TRAIN_KINDS, **TRAIN_DERATE)
+    out.update({f"derate/{k}": np.asarray(v) for k, v in eff.items()})
+    print(f"derates {eff}: {time.perf_counter() - t0:.1f} s")
+    path.parent.mkdir(parents=True, exist_ok=True)
+    np.savez_compressed(path, **out)
+    print(f"train -> {path} ({path.stat().st_size} B)")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--which", default="fullsize",
                     choices=("fullsize", "profiles", "batch", "faults",
                              "inc", "link", "telemetry", "traffic",
-                             "control", "lm"))
+                             "control", "lm", "train"))
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args()
     if args.which == "fullsize":
@@ -1169,6 +1266,8 @@ def main() -> int:
         write_control(args.out or OUT_CONTROL)
     elif args.which == "lm":
         write_lm(args.out or OUT_LM)
+    elif args.which == "train":
+        write_train(args.out or OUT_TRAIN)
     else:
         write_profiles(args.out or OUT_PROFILES)
     return 0

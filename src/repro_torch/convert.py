@@ -29,6 +29,11 @@ arrays keyed by path (``"blocks/pos0/mixer/wq"``) through
 config's tree is required and an unknown one raises. bf16 arrays (numpy
 has no bf16 of its own; JAX hands out ``ml_dtypes.bfloat16``) cross by
 their bit pattern; on the way back a bf16 tensor becomes f32, exactly.
+The training state crosses the same way: a gradient tree through the
+params' converters (the same paths and shapes) and the AdamW state
+through ``lm_opt_state_from_numpy`` / ``lm_opt_state_to_numpy``
+(``m/<param path>``, ``v/<param path>`` and ``step``, the reference's
+``opt_state`` tree flattened).
 """
 from __future__ import annotations
 
@@ -242,3 +247,34 @@ def lm_cache_from_numpy(cfg: ArchConfig, arrays: dict, device) -> dict:
 def lm_cache_to_numpy(cache: dict) -> dict:
     """A decode cache as {path: numpy array} (bf16 as f32)."""
     return _lm_numpy(cache)
+
+
+def lm_opt_state_from_numpy(cfg: ArchConfig, arrays: dict, device) -> dict:
+    """The port's AdamW state {"m", "v", "step"} from the reference's,
+    given as {"m/<path>" | "v/<path>" | "step": numpy array}; the
+    moments take the params' paths and shapes, the step is 0-d int32."""
+    moments = {}
+    for which in ("m", "v"):
+        sub = {k[2:]: a for k, a in arrays.items()
+               if k.startswith(which + "/")}
+        moments[which] = lm_params_from_numpy(cfg, sub, device)
+    extra = sorted(k for k in arrays
+                   if k != "step" and not k.startswith(("m/", "v/")))
+    if extra or "step" not in arrays:
+        raise NotImplementedError(
+            f"opt state path(s) {extra} are not in the port's tree"
+            if extra else "opt state path 'step' is missing")
+    step = np.asarray(arrays["step"])
+    if step.shape != () or step.dtype != np.int32:
+        raise ValueError(f"opt state step: {step.dtype}{step.shape}, the "
+                         f"reference's is a 0-d int32")
+    return {**moments, "step": torch.as_tensor(step).to(device)}
+
+
+def lm_opt_state_to_numpy(opt_state: dict) -> dict:
+    """An AdamW state as {"m/<path>" | "v/<path>" | "step": numpy
+    array} (bf16 moments as f32)."""
+    out = {f"{w}/{k}": v for w in ("m", "v")
+           for k, v in _lm_numpy(opt_state[w]).items()}
+    out["step"] = opt_state["step"].detach().cpu().numpy()
+    return out

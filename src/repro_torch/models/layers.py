@@ -17,12 +17,15 @@ not divide its chunk fails as the reference's reshape does.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
+from repro_torch import tree as T
 
 f32 = torch.float32
 
@@ -47,6 +50,39 @@ def repeat_heads(x: torch.Tensor, rep: int) -> torch.Tensor:
     B, H = x.shape[:2]
     return x[:, :, None].expand(B, H, rep, *x.shape[2:]).reshape(
         B, H * rep, *x.shape[2:])
+
+
+_RECOMPUTING = [0]
+
+
+@contextlib.contextmanager
+def _recompute():
+    _RECOMPUTING[0] += 1
+    try:
+        yield
+    finally:
+        _RECOMPUTING[0] -= 1
+
+
+def recomputing() -> bool:
+    """Whether the code running is a backward pass's recompute of a
+    ``remat`` region (where a counter must not count again)."""
+    return _RECOMPUTING[0] > 0
+
+
+def remat(fn, *args):
+    """``fn(*args)``, recomputed on the backward pass instead of saved
+    (the reference's ``jax.checkpoint`` with nothing saveable) where
+    autograd records it: gradients on and some tensor in ``args``
+    requiring one. Elsewhere (inference, decode) a plain call. The
+    result is the same either way."""
+    if torch.is_grad_enabled() and any(
+            isinstance(a, torch.Tensor) and a.requires_grad
+            for a in T.leaves(list(args))):
+        return checkpoint(fn, *args, use_reentrant=False,
+                          context_fn=lambda: (contextlib.nullcontext(),
+                                              _recompute()))
+    return fn(*args)
 
 
 def bincount(idx: torch.Tensor, n: int) -> torch.Tensor:
@@ -147,6 +183,15 @@ def flash_attention(q, k, v, q_positions, k_positions, window: int = 0,
     v_r = v.reshape(B, Hq, nk, kv_chunk, hd).permute(2, 0, 1, 3, 4)
     kp_r = k_positions.reshape(nk, kv_chunk)
 
+    def kv_step(m_run, l_run, o_run, qc, kc, vc, qpc, kpc):
+        m, l, o = _flash_block(qc, kc, vc, qpc, kpc, window)
+        m_new = torch.maximum(m_run, m)
+        alpha = torch.exp(m_run - m_new)
+        beta = torch.exp(m - m_new)
+        l_new = l_run * alpha + l * beta
+        o_new = o_run * alpha[..., None] + o * beta[..., None]
+        return m_new, l_new, o_new
+
     outs = []
     for qi in range(nq):
         m_run = torch.full((B, Hq, q_chunk), -1e30, dtype=f32,
@@ -154,14 +199,11 @@ def flash_attention(q, k, v, q_positions, k_positions, window: int = 0,
         l_run = torch.zeros((B, Hq, q_chunk), dtype=f32, device=q.device)
         o_run = torch.zeros((B, Hq, q_chunk, hd), dtype=f32, device=q.device)
         for ki in range(nk):
-            m, l, o = _flash_block(q_r[qi], k_r[ki], v_r[ki], qp_r[qi],
-                                   kp_r[ki], window)
-            m_new = torch.maximum(m_run, m)
-            alpha = torch.exp(m_run - m_new)
-            beta = torch.exp(m - m_new)
-            l_run = l_run * alpha + l * beta
-            o_run = o_run * alpha[..., None] + o * beta[..., None]
-            m_run = m_new
+            # each step's score tile is recomputed on the backward pass,
+            # not saved: O(S) residual memory, as the reference's
+            m_run, l_run, o_run = remat(kv_step, m_run, l_run, o_run,
+                                        q_r[qi], k_r[ki], v_r[ki], qp_r[qi],
+                                        kp_r[ki])
         outs.append(o_run / torch.clamp_min(l_run[..., None], 1e-30))
     out = torch.stack(outs).permute(1, 2, 0, 3, 4).reshape(B, Hq, Sq, hd)
     return out.to(q.dtype)

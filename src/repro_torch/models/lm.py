@@ -13,16 +13,26 @@ The MoE block is the reference's capacity dispatch (``_moe_block``'s
 capacity per expert, one FFN per expert and a scatter-add that drops the
 rows over capacity. The reference runs it under ``shard_map`` on a mesh;
 on the port's one-device mesh its ``psum`` / ``pmean`` are the identity
-and a larger mesh raises. ``remat`` changes nothing without gradients.
+and a larger mesh raises.
+
+Where autograd records the forward (gradients on, no decode cache),
+``remat`` recomputes on the backward pass what the reference's
+``jax.checkpoint`` sites recompute: each repeating unit (or, under
+``remat_policy="save_mixer"``, each mixer half and each FFN half apart,
+so the residual stream after each mixer is kept), and inside it every
+MoE token chunk and expert FFN (and, in ``layers.flash_attention``,
+every kv step) whatever ``remat`` says. Results are the same either
+way; only the backward's memory and recompute change.
 """
 from __future__ import annotations
 
-from typing import Any, Callable
+from typing import Any
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch import resolve_device
+from repro_torch import tree as T
 from repro_torch.configs.base import (ArchConfig, FFN_MLP, FFN_MOE, FFN_RWKV,
                                       MIXER_ATTN, MIXER_MAMBA, MIXER_RWKV)
 from repro_torch.models import layers as L
@@ -33,13 +43,6 @@ f32 = torch.float32
 # ---------------------------------------------------------------------------
 # nested-dict trees
 # ---------------------------------------------------------------------------
-
-
-def tree_map(fn: Callable, tree):
-    """``fn`` on every tensor leaf of a nested dict."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
 
 
 def flatten(tree, prefix: str = "") -> "dict[str, Any]":
@@ -112,7 +115,7 @@ def init_params(cfg: ArchConfig, seed: "int | torch.Generator" = 0,
         for r in range(R):
             tree = init()
             if out is None:
-                out = tree_map(lambda a: a.new_empty((R,) + tuple(a.shape)),
+                out = T.map(lambda a: a.new_empty((R,) + tuple(a.shape)),
                                tree)
             _put(out, tree, r)
             del tree
@@ -193,7 +196,7 @@ def init_cache(cfg: ArchConfig, batch: int, cache_len: int,
         if mixer == MIXER_ATTN:
             clen = min(cache_len, cfg.sliding_window) if cfg.sliding_window \
                 else cache_len
-            c["attn"] = tree_map(
+            c["attn"] = T.map(
                 lambda x: x.expand((R,) + tuple(x.shape)).clone(),
                 L.init_attention_cache(batch, cfg.n_kv, clen, cfg.head_dim,
                                        dtype, dev))
@@ -280,14 +283,12 @@ def _moe_block(cfg: ArchConfig, mesh, capacity_factor: float = 1.25,
         xin_all = xc[tok_all] * vmask[:, None].to(xc.dtype)
         g_all = gates_flat[pos_c] * vmask.to(xc.dtype)
 
-        yos = [ffn(w_gate[e], w_up[e], w_down[e],
-                   xin_all[e * cap:(e + 1) * cap]) for e in range(E)]
+        yos = [L.remat(ffn, w_gate[e], w_up[e], w_down[e],
+                       xin_all[e * cap:(e + 1) * cap]) for e in range(E)]
         yo_all = torch.cat(yos, 0) * g_all[:, None]
         drop_tok = torch.where(vmask, tok_all, Tc)             # Tc => drop
         out = torch.zeros((Tc + 1, D), dtype=xc.dtype, device=dev)
         out.index_add_(0, drop_tok, yo_all.to(xc.dtype))
-        if drops is not None:
-            drops.append((group_sizes - cap).clamp(min=0).sum())
         return out[:Tc]
 
     def local_moe(xt, router, w_gate, w_up, w_down):
@@ -310,8 +311,14 @@ def _moe_block(cfg: ArchConfig, mesh, capacity_factor: float = 1.25,
         xs = xt.reshape(n_chunks, Tc, D)
         gs = gate_all.reshape(n_chunks, Tc, top_k)
         es = experts_all.reshape(n_chunks, Tc, top_k)
-        out = torch.cat([chunk_moe(xs[i], gs[i], es[i], w_gate, w_up,
-                                   w_down, cap) for i in range(n_chunks)], 0)
+        out = torch.cat([L.remat(chunk_moe, xs[i], gs[i], es[i], w_gate,
+                                 w_up, w_down, cap)
+                         for i in range(n_chunks)], 0)
+        if drops is not None and not L.recomputing():
+            # counted once a forward, not again when the backward pass
+            # recomputes it
+            drops.extend((L.bincount(es[i], E) - cap).clamp(min=0).sum()
+                         for i in range(n_chunks))
         me = probs.mean(dim=0)
         ce = L.bincount(experts_all, E).to(f32) / (T * top_k)
         aux = E * (me * ce).sum()
@@ -334,68 +341,81 @@ def build_forward(cfg: ArchConfig, mesh=None, dp_axes=("data",),
     the cache, returns (logits, aux, cache'). The sharding specs
     (``act_spec``, ``moe_token_spec``, ``attn_head_specs``) are accepted
     and are the identity on one device; ``remat`` / ``remat_policy``
-    change nothing without gradients; ``scan_layers`` either way is a
-    loop over R. A mesh of more than one device raises. ``moe_drops``,
-    when given, collects the MoE assignments dropped over capacity (see
+    choose what the backward pass recomputes (module docstring) and
+    change no result; ``scan_layers`` either way is a loop over R. A
+    mesh of more than one device raises. ``moe_drops``, when given,
+    collects the MoE assignments dropped over capacity (see
     ``_moe_block``)."""
     L.require_one_card(mesh, "build_forward")
     moe_fn = _moe_block(cfg, mesh, drops=moe_drops)
     cache_attn = (L.sharded_cache_attention(mesh, dp_axes)
                   if sharded_cache_attn and mesh is not None else None)
 
-    def unit_fn(x, positions, unit_params, unit_cache):
-        """Apply one repeating unit. x: [B, S, D]."""
+    def mixer_half(x, positions, p, c, mixer):
+        """x + the mixer of one position; and its new cache entries."""
+        nc: dict[str, Any] = {}
+        h = L.rms_norm(x, p["norm1"]["scale"])
+        if mixer == MIXER_ATTN:
+            out, ac = L.attention_fwd(
+                p["mixer"], h, positions, n_q=cfg.n_q, n_kv=cfg.n_kv,
+                head_dim=cfg.head_dim, rope_theta=cfg.rope_theta,
+                window=cfg.sliding_window,
+                cache=c["attn"] if c is not None else None,
+                select_write=select_write,
+                head_shardings=attn_head_specs,
+                cache_attn=cache_attn)
+            if ac is not None:
+                nc["attn"] = ac
+        elif mixer == MIXER_MAMBA:
+            out, st = L.mamba_fwd(p["mixer"], h,
+                                  state=c["mamba"] if c is not None
+                                  else None)
+            if c is not None:
+                nc["mamba"] = st
+        else:  # rwkv
+            out, st = L.rwkv_fwd(p["mixer"], h,
+                                 state=c["rwkv"] if c is not None
+                                 else None, n_heads=cfg.rwkv_heads)
+            if c is not None:
+                nc["rwkv"] = st
+        return x + out, nc
+
+    def ffn_half(x, p, c, ffn):
+        """x + the FFN of one position; its MoE aux (or None) and new
+        cache entries."""
+        nc: dict[str, Any] = {}
+        aux = None
+        h = L.rms_norm(x, p["norm2"]["scale"])
+        if ffn == FFN_MLP:
+            out = L.mlp_fwd(p["ffn"], h)
+        elif ffn == FFN_MOE:
+            B, S, D = h.shape
+            out, aux = moe_fn(h.reshape(B * S, D), p["ffn"]["router"],
+                              p["ffn"]["w_gate"], p["ffn"]["w_up"],
+                              p["ffn"]["w_down"])
+            out = out.reshape(B, S, D)
+        else:  # rwkv channel mix
+            out, prev = L.rwkv_mlp_fwd(
+                p["ffn"], h, prev=c["ffn_prev"] if c is not None else None)
+            if c is not None:
+                nc["ffn_prev"] = prev
+        return x + out, aux, nc
+
+    def unit_fn(x, positions, unit_params, unit_cache, halves=False):
+        """Apply one repeating unit. x: [B, S, D]. ``halves``: each
+        mixer half and FFN half recomputed apart on the backward pass."""
         aux_total = torch.zeros((), dtype=f32, device=x.device)
         new_cache = {} if unit_cache is not None else None
+        run = L.remat if halves else (lambda fn, *args: fn(*args))
         for i, (mixer, ffn) in enumerate(cfg.pattern):
             p = unit_params[f"pos{i}"]
             c = unit_cache[f"pos{i}"] if unit_cache is not None else None
-            nc: dict[str, Any] = {}
-            h = L.rms_norm(x, p["norm1"]["scale"])
-            if mixer == MIXER_ATTN:
-                out, ac = L.attention_fwd(
-                    p["mixer"], h, positions, n_q=cfg.n_q, n_kv=cfg.n_kv,
-                    head_dim=cfg.head_dim, rope_theta=cfg.rope_theta,
-                    window=cfg.sliding_window,
-                    cache=c["attn"] if c is not None else None,
-                    select_write=select_write,
-                    head_shardings=attn_head_specs,
-                    cache_attn=cache_attn)
-                if ac is not None:
-                    nc["attn"] = ac
-            elif mixer == MIXER_MAMBA:
-                out, st = L.mamba_fwd(p["mixer"], h,
-                                      state=c["mamba"] if c is not None
-                                      else None)
-                if c is not None:
-                    nc["mamba"] = st
-            else:  # rwkv
-                out, st = L.rwkv_fwd(p["mixer"], h,
-                                     state=c["rwkv"] if c is not None
-                                     else None, n_heads=cfg.rwkv_heads)
-                if c is not None:
-                    nc["rwkv"] = st
-            x = x + out
-
-            h = L.rms_norm(x, p["norm2"]["scale"])
-            if ffn == FFN_MLP:
-                out = L.mlp_fwd(p["ffn"], h)
-            elif ffn == FFN_MOE:
-                B, S, D = h.shape
-                out, aux = moe_fn(h.reshape(B * S, D), p["ffn"]["router"],
-                                  p["ffn"]["w_gate"], p["ffn"]["w_up"],
-                                  p["ffn"]["w_down"])
-                out = out.reshape(B, S, D)
+            x, nc = run(mixer_half, x, positions, p, c, mixer)
+            x, aux, nf = run(ffn_half, x, p, c, ffn)
+            if aux is not None:
                 aux_total = aux_total + aux
-            else:  # rwkv channel mix
-                out, prev = L.rwkv_mlp_fwd(
-                    p["ffn"], h,
-                    prev=c["ffn_prev"] if c is not None else None)
-                if c is not None:
-                    nc["ffn_prev"] = prev
-            x = x + out
             if new_cache is not None:
-                new_cache[f"pos{i}"] = nc
+                new_cache[f"pos{i}"] = {**nc, **nf}
         return x, aux_total, new_cache
 
     def fwd(params, inputs, cache=None, pos0=0):
@@ -410,10 +430,15 @@ def build_forward(cfg: ArchConfig, mesh=None, dp_axes=("data",),
         R = cfg.repeats
         new_caches = []
         for r in range(R):
-            up = tree_map(lambda a: a[r], params["blocks"])
-            uc = (tree_map(lambda a: a[r], cache)
+            up = T.map(lambda a: a[r], params["blocks"])
+            uc = (T.map(lambda a: a[r], cache)
                   if cache is not None else None)
-            x, a, nc = unit_fn(x, positions, up, uc)
+            if remat and cache is None and remat_policy == "save_mixer":
+                x, a, nc = unit_fn(x, positions, up, None, True)
+            elif remat and cache is None:
+                x, a, nc = L.remat(unit_fn, x, positions, up, None)
+            else:
+                x, a, nc = unit_fn(x, positions, up, uc)
             aux = aux + a
             if cache is not None:
                 new_caches.append(nc)

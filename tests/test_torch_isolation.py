@@ -1,7 +1,8 @@
 """The port stands alone: no file of ``src/repro_torch``, not
 ``chip_smoke.py`` and not the port's examples (the transport tour
 ``examples/uet_transport_tour_torch.py``, the serving example
-``examples/serve_decode_torch.py``) imports JAX or the reference package
+``examples/serve_decode_torch.py``, the training example
+``examples/train_lm_torch.py``) imports JAX or the reference package
 (the machine with the card has no JAX), and importing the port loads no
 JAX."""
 import ast
@@ -15,7 +16,8 @@ import pytest
 REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "examples" / "uet_transport_tour_torch.py",
-    REPO / "examples" / "serve_decode_torch.py"]
+    REPO / "examples" / "serve_decode_torch.py",
+    REPO / "examples" / "train_lm_torch.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -50,9 +52,16 @@ def test_importing_the_port_loads_no_jax():
             "import repro_torch.core.types\n"
             "import repro_torch.models.layers, repro_torch.models.lm\n"
             "import repro_torch.serve.serve_step, repro_torch.launch.mesh\n"
+            "import repro_torch.train.optimizer, repro_torch.train.trainer\n"
+            "import repro_torch.train.train_step, repro_torch.tree\n"
+            "import repro_torch.data.pipeline, repro_torch.launch.train\n"
+            "import repro_torch.launch.roofline\n"
+            "import repro_torch.distributed.compression\n"
+            "import repro_torch.distributed.sharding\n"
             "import runpy\n"
             "runpy.run_path('examples/serve_decode_torch.py')\n"
             "runpy.run_path('examples/uet_transport_tour_torch.py')\n"
+            "runpy.run_path('examples/train_lm_torch.py')\n"
             "import chip_smoke\n"
             "from repro_torch import configs\n"
             "[configs.get(n) for n in configs.ARCH_NAMES]\n"
