@@ -253,6 +253,28 @@ Phases, one line each:
    ``compress_tree`` of a 2**24-element f32 tensor and its carried error,
    card against CPU, bitwise. No kernel launches in (a)-(c) or (e).
 
+11. entry points — the last entry points of the port, each printing the
+   lines of its JAX twin (``tests/golden/torch_port_entry.npz``, written
+   by ``scripts/torch_port_reference.py --which entry``): (a) the twelve
+   sections of ``examples/quickstart_torch.py`` (``SECTIONS``), its
+   lines with the header byte for byte those of ``examples/quickstart.py``;
+   (b) ``examples/fabric_telemetry_torch.py``, its lines byte for byte,
+   and ``scripts/trace_export_torch.py`` at its defaults, its lines byte
+   for byte and its Chrome-trace JSON by sha256 and event count, each in
+   a temporary working directory; (c) the six CLI canaries
+   (``repro_torch.network.faults`` ``_smoke`` / ``_endpoint_smoke``,
+   ``network.telemetry``, ``core.link``, ``network.traffic``,
+   ``network.shard`` over ``(cuda:0,) * 4`` on one card), every assert
+   passing and every line the golden's once the golden's ``mask`` has
+   replaced the traffic canary's wall seconds and the shard canary's
+   device count. Each of the 20 tasks runs in a worker process of this
+   script (as many at once as the host's cores less two: the tasks'
+   fabrics are small and their ticks host-bound), which counts the
+   ticks of every step it builds: each tick kernel is launched as often
+   as those ticks' profiles say (``per_tick``), and no entry-point form.
+   Each part's seconds and the phase's wall, beside the card's name and
+   power limit.
+
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and the script
 exits non-zero. It imports nothing of JAX.
@@ -3782,6 +3804,303 @@ def phase_training(smi: str) -> dict:
     return out
 
 
+ENTRY = ROOT / "tests" / "golden" / "torch_port_entry.npz"
+#: phase 11's CLI canaries: golden key -> (module, function); each takes
+#: ``device`` and prints its lines
+ENTRY_CANARIES = {
+    "faults": ("repro_torch.network.faults", "_smoke"),
+    "endpoint": ("repro_torch.network.faults", "_endpoint_smoke"),
+    "telemetry": ("repro_torch.network.telemetry", "_smoke"),
+    "link": ("repro_torch.core.link", "_smoke"),
+    "traffic": ("repro_torch.network.traffic", "_canary"),
+    "shard": ("repro_torch.network.shard", "_smoke"),
+}
+ENTRY_PARTS = {"a": "the quickstart", "b": "the tour and the export",
+               "c": "the six canaries"}
+#: phase 11's tasks: ``qs<n>`` the quickstart's sections, ``tour`` and
+#: ``export``, ``canary/<name>``; longest first (their seconds alone on
+#: the card), the order its workers take them in
+ENTRY_TASKS = ("canary/faults", "canary/endpoint", "qs2", "canary/telemetry",
+               "qs12", "qs7", "qs11", "qs1", "qs5", "export", "canary/link",
+               "qs3", "tour", "canary/shard", "qs10", "qs8", "qs6", "qs4",
+               "qs9", "canary/traffic")
+#: seconds one task may take before phase 11 kills its worker and fails
+ENTRY_TASK_LIMIT = 600
+
+
+def entry_part(task: str) -> str:
+    return ("a" if task.startswith("qs") else "c"
+            if task.startswith("canary/") else "b")
+
+
+def per_tick(profile, num_flows: int) -> tuple:
+    """Launches a tick of each tick kernel (``TICK_KERNELS``) under
+    ``profile`` with ``num_flows`` flows, from the tick's sites: the two
+    SACK kernels and the retransmit pick once; the NACK mark and the
+    RTO's set once unless every flow is ROD; RR_SLOTS's loss inference
+    two sets more."""
+    from repro_torch.core.lb.schemes import LBScheme
+    from repro_torch.network.profile import DeliveryMode
+    rod = profile.delivery_modes(num_flows) == int(DeliveryMode.ROD)
+    sel = int(not bool(rod.all()))
+    rr = int(profile.lb == LBScheme.RR_SLOTS and bool(sel))
+    return (1, 1, sel, 2 * rr + sel, 1)
+
+
+class _Ticks:
+    """Count the ticks of every step ``fabric.make_step`` builds while
+    the context is open, with the launches a tick its profile makes
+    (:func:`per_tick`), and record the ``devices=`` of every
+    ``fabric.simulate_batch`` call."""
+
+    def __init__(self):
+        self.steps: list = []     # [per-tick launches, ticks] per step
+        self.devices: list = []
+
+    def __enter__(self):
+        from repro_torch.network import fabric
+        self.fabric = fabric
+        self.orig = (fabric.make_step, fabric.simulate_batch)
+        make_step, simulate_batch = self.orig
+
+        def counted(g, profile, p, F, *args, **kw):
+            step = make_step(g, profile, p, F, *args, **kw)
+            rec = [per_tick(profile, F), 0]
+            self.steps.append(rec)
+
+            def run(*a, **k):
+                rec[1] += 1
+                return step(*a, **k)
+            return run
+
+        def batch(*args, **kw):
+            if kw.get("devices") is not None:
+                self.devices.append([str(d) for d in kw["devices"]])
+            return simulate_batch(*args, **kw)
+        fabric.make_step, fabric.simulate_batch = counted, batch
+        return self
+
+    def __exit__(self, *exc):
+        self.fabric.make_step, self.fabric.simulate_batch = self.orig
+
+    def want(self) -> dict:
+        """Each tick kernel's launches over the counted ticks."""
+        return {k: sum(per[i] * n for per, n in self.steps)
+                for i, k in enumerate(TICK_KERNELS)}
+
+
+def _load_script(name: str):
+    """``scripts/<name>.py`` as a module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "scripts" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_entry_task(task: str, dev: str = DEV) -> dict:
+    """Run one of phase 11's tasks on ``dev`` in a fresh temporary working
+    directory (the tour and the export write ``fabric_trace.json`` to
+    theirs): the lines it prints (a quickstart section's, as returned),
+    its seconds, its launches, the launches its ticks make, the
+    ``devices=`` it split over; the export also the sha256 of its JSON
+    text and its event count."""
+    import contextlib
+    import hashlib
+    import importlib
+    import io
+    import tempfile
+
+    from repro_torch.kernels import ops
+    out: dict = {"task": task}
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            buf = io.StringIO()
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            with _Ticks() as ticks, contextlib.redirect_stdout(buf):
+                if task.startswith("qs"):
+                    sections = _load_example("quickstart_torch").SECTIONS
+                    lines = sections[int(task[2:]) - 1](dev)
+                elif task == "tour":
+                    _load_example("fabric_telemetry_torch").main(
+                        ["--device", dev])
+                elif task == "export":
+                    _load_script("trace_export_torch").main(
+                        ["--device", dev])
+                else:
+                    mod, fn = ENTRY_CANARIES[task.split("/", 1)[1]]
+                    rc = getattr(importlib.import_module(mod), fn)(dev)
+                    assert rc == 0, (task, rc)
+                if dev != "cpu":
+                    torch.cuda.synchronize()
+            out["seconds"] = time.perf_counter() - t0
+            out["launches"] = dict(ops.LAUNCHES)
+            if not task.startswith("qs"):
+                lines = buf.getvalue().splitlines()
+            else:
+                assert not buf.getvalue(), (task, buf.getvalue())
+            if task in ("tour", "export"):
+                text = Path("fabric_trace.json").read_text()
+                out["sha256"] = hashlib.sha256(text.encode()).hexdigest()
+                out["events"] = len(json.loads(text)["traceEvents"])
+        finally:
+            os.chdir(cwd)
+    out.update(lines=list(lines), want=ticks.want(),
+               ticks=sum(n for _, n in ticks.steps),
+               steps=len(ticks.steps), devices=ticks.devices)
+    return out
+
+
+def masked(lines, mask: str) -> "list[str]":
+    """``lines`` with every match of the entry golden's ``mask`` replaced
+    by one marker."""
+    import re
+    return [re.sub(mask, "<masked>", str(ln)) for ln in lines]
+
+
+def entry_vs_golden(res: dict, gold, dev: str = DEV) -> None:
+    """Phase 11's task results against ``tests/golden/torch_port_entry.npz``:
+    the quickstart's lines, the tour's and the export's byte for byte,
+    the export's JSON by digest and event count, the canaries' apart from
+    the golden's masked fields; each tick kernel launched as its ticks
+    say, no entry-point kernel; the shard canary split over four devices
+    of the run's kind."""
+    from repro_torch.network.shard import available_devices
+    qs = ["=== UET quickstart ==="] + sum(
+        (res[f"qs{i}"]["lines"] for i in range(1, 13)), [])
+    want = [str(x) for x in gold["quickstart"]]
+    assert qs == want, _first_diff("quickstart", qs, want)
+    for task in ("tour", "export"):
+        got, want = res[task]["lines"], [str(x) for x in gold[task]]
+        assert got == want, _first_diff(task, got, want)
+    assert res["export"]["sha256"] == str(gold["export_sha256"]), \
+        (res["export"]["sha256"], str(gold["export_sha256"]))
+    assert res["export"]["events"] == int(gold["export_events"])
+    mask = str(gold["mask"])
+    for c in ENTRY_CANARIES:
+        got = masked(res[f"canary/{c}"]["lines"], mask)
+        want = masked(np.atleast_1d(gold[f"canary/{c}"]), mask)
+        assert got == want, _first_diff(f"canary {c}", got, want)
+    avail = available_devices(torch.device(dev))
+    four = [str(avail[i % len(avail)]) for i in range(4)]
+    assert res["canary/shard"]["devices"] == [four], \
+        res["canary/shard"]["devices"]
+    for task, r in res.items():
+        assert r["ticks"] > 0, task
+        for k in TICK_KERNELS:
+            # the plain versions (a CPU run) count no launch
+            want = r["want"][k] if torch.device(dev).type == "cuda" else 0
+            assert r["launches"][k] == want, \
+                (task, k, r["launches"][k], want, r["ticks"])
+        assert all(r["launches"][k] == 0 for k in ENTRY_KERNELS), \
+            (task, r["launches"])
+
+
+def _first_diff(what: str, got: list, want: list) -> str:
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a != b:
+            return f"{what}: line {i}: got {a!r}, want {b!r}"
+    return f"{what}: {len(got)} lines, want {len(want)}"
+
+
+def entry_workers() -> int:
+    """Phase 11's worker processes: the host's cores less two, at most
+    eight. Its tasks are host-bound (a small fabric's tick is a few
+    hundred tiny device operations), so processes overlap them."""
+    return max(1, min(8, len(os.sched_getaffinity(0)) - 2))
+
+
+def run_entry_tasks(tasks: list, workers: int, dev: str = DEV) -> dict:
+    """Run ``tasks`` in ``workers`` processes of this script
+    (``--entry-task``), at most one task a process, in their order; each
+    process's result comes back as JSON. A task that fails or passes
+    ``ENTRY_TASK_LIMIT`` fails the phase, and every process still running
+    is killed."""
+    import tempfile
+    if workers <= 1:
+        return {t: run_entry_task(t, dev) for t in tasks}
+    todo, live, res = list(tasks), [], {}
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            while todo or live:
+                while todo and len(live) < workers:
+                    task = todo.pop(0)
+                    path = Path(tmp) / f"{len(todo)}.json"
+                    # stderr to a file: a pipe nobody reads until the
+                    # worker ends could fill and stall it
+                    with open(path.with_suffix(".err"), "w") as err:
+                        proc = subprocess.Popen(
+                            [sys.executable, str(Path(__file__).resolve()),
+                             "--entry-task", task, "--entry-device", dev,
+                             "--out", str(path)],
+                            stdout=subprocess.DEVNULL, stderr=err)
+                    live.append((task, proc, path, time.perf_counter()))
+                time.sleep(0.2)
+                for item in list(live):
+                    task, proc, path, t0 = item
+                    if proc.poll() is None:
+                        if time.perf_counter() - t0 > ENTRY_TASK_LIMIT:
+                            raise RuntimeError(f"phase 11 task {task} ran "
+                                               f"past {ENTRY_TASK_LIMIT} s")
+                        continue
+                    live.remove(item)
+                    if proc.returncode:
+                        err = path.with_suffix(".err").read_text()
+                        raise RuntimeError(f"phase 11 task {task} exited "
+                                           f"{proc.returncode}:\n{err[-4000:]}")
+                    res[task] = json.loads(path.read_text())
+        finally:
+            for _, proc, _, _ in live:
+                proc.kill()
+                proc.wait()
+    return {t: res[t] for t in tasks}
+
+
+def phase_entry(smi: str, workers: "int | None" = None) -> dict:
+    """Phase 11: the last entry points on the card, against the JAX
+    package's printed lines (``tests/golden/torch_port_entry.npz``)."""
+    gold = np.load(ENTRY)
+    workers = entry_workers() if workers is None else workers
+    t0 = time.perf_counter()
+    res = run_entry_tasks(ENTRY_TASKS, workers)
+    wall = time.perf_counter() - t0
+    entry_vs_golden(res, gold)
+    launches = {k: sum(r["launches"][k] for r in res.values())
+                for k in TICK_KERNELS + ENTRY_KERNELS}
+    assert all(launches[k] > 0 for k in TICK_KERNELS), launches
+    out = {"workers": workers, "seconds": wall, "launches": launches,
+           "tasks": {t: {k: r[k] for k in ("seconds", "ticks", "steps",
+                                            "launches")}
+                     for t, r in res.items()}}
+    for part, what in ENTRY_PARTS.items():
+        tasks = [t for t in res if entry_part(t) == part]
+        secs = [res[t]["seconds"] for t in tasks]
+        ticks = sum(res[t]["ticks"] for t in tasks)
+        out[part] = {"seconds": sum(secs), "longest": max(secs),
+                     "ticks": ticks}
+        say("11 entry", f"({part}) {what}: {len(tasks)} tasks, {ticks} "
+            f"ticks, {sum(secs):.1f} s of task time (longest "
+            f"{max(secs):.1f} s: {tasks[secs.index(max(secs))]})")
+    qs = 1 + sum(len(res[f"qs{i}"]["lines"]) for i in range(1, 13))
+    say("11 entry", f"the quickstart's {qs} lines, the tour's "
+        f"{len(res['tour']['lines'])} and the export's "
+        f"{len(res['export']['lines'])} byte for byte the JAX package's; "
+        f"the export's JSON sha256 {res['export']['sha256'][:16]}... and "
+        f"{res['export']['events']} events the golden's; the six canaries' "
+        f"asserts pass, their lines the golden's (masked: wall seconds, "
+        f"device count), the shard canary over "
+        f"{res['canary/shard']['devices'][0]}; each tick kernel launched "
+        f"as its ticks' profiles say, no entry-point kernel; launches "
+        f"{launches}")
+    say("11 entry", f"phase {wall:.1f} s over {workers} worker processes; "
+        f"{smi}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--trace", type=Path,
@@ -3789,7 +4108,17 @@ def main(argv=None) -> int:
                     help="where the flap canary's Perfetto JSON goes")
     ap.add_argument("--out", type=Path, default=None,
                     help="also write every phase's numbers to this JSON file")
+    ap.add_argument("--entry-task", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--entry-device", default=DEV, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.entry_task is not None:
+        # one of phase 11's worker processes: run one task, write its
+        # result to --out
+        sys.path.insert(0, str(ROOT / "src"))
+        torch.set_num_threads(1)
+        res = run_entry_task(args.entry_task, args.entry_device)
+        args.out.write_text(json.dumps(res))
+        return 0
     t0 = time.perf_counter()
     smi, device = phase_device()
     sys.path.insert(0, str(ROOT / "src"))
@@ -3813,6 +4142,7 @@ def main(argv=None) -> int:
     result["control"] = phase_control(smi)
     result["serving"] = phase_serving(smi)
     result["training"] = phase_training(smi)
+    result["entry"] = phase_entry(smi)
     kernels = []
     for name, row in result["kernels"].items():
         row = {k: v for k, v in row.items()
@@ -3843,6 +4173,9 @@ def main(argv=None) -> int:
             # and on the roofline's UET derates
             row["training"] = {
                 "launches": result["training"]["launches"][name]}
+            # and on the last entry points: the quickstart, the tour,
+            # the export and the six canaries
+            row["entry"] = {"launches": result["entry"]["launches"][name]}
         if name in result["control"]["rows"]:
             # the control plane's path: record_rx / or_mask and
             # advance_cack at the endpoint's shapes

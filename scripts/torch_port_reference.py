@@ -9,8 +9,9 @@ width: ``tests/golden/torch_port_fullsize.npz``,
 ``tests/golden/torch_port_telemetry.npz``,
 ``tests/golden/torch_port_traffic.npz``,
 ``tests/golden/torch_port_control.npz``,
-``tests/golden/torch_port_lm.npz`` and
-``tests/golden/torch_port_train.npz``.
+``tests/golden/torch_port_lm.npz``,
+``tests/golden/torch_port_train.npz`` and
+``tests/golden/torch_port_entry.npz``.
 
 Both use the port's full-width fabric (``chip_smoke.py`` phase 5): a full
 3-tier k=16 fat tree (``fat_tree3(k=16, pods=16)``: 1024 endpoints, 320
@@ -84,7 +85,7 @@ runs on the CPU (about five minutes per one-scenario run on a few
 cores):
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/torch_port_reference.py \
-        [--which fullsize|profiles|batch|faults|inc|link|telemetry|traffic|control|lm|train]
+        [--which fullsize|profiles|batch|faults|inc|link|telemetry|traffic|control|lm|train|entry]
 
 ``fullsize`` holds the workload lanes (``src``, ``dst``, ``size``), the
 per-flow stats and final lanes (``stat_completion``,
@@ -164,6 +165,23 @@ after step 2 (``a/param/``, ``a/m/``, ``a/v/``); then ``derate/<kind>``,
 ``repro.launch.roofline.uet_efficiencies`` over
 ``chip_smoke.TRAIN_KINDS`` at ``chip_smoke.TRAIN_DERATE``.
 
+``entry`` holds what the JAX package's entry points print, as lines:
+``quickstart`` (``examples/quickstart.py``), ``tour``
+(``examples/fabric_telemetry.py``, run in a temporary working
+directory), ``export`` (``scripts/trace_export.py`` at its defaults, in
+a temporary working directory) and, per canary ``c``, ``canary/c``:
+``faults`` (``python -m repro.network.faults``), ``endpoint`` (the same
+with ``--endpoint``), ``telemetry``, ``link``, ``traffic`` and ``shard``
+(``python -m repro.network.shard`` under
+``XLA_FLAGS=--xla_force_host_platform_device_count=4``), each in a
+fresh interpreter; the export's Chrome-trace JSON as ``export_sha256``
+(the hex sha256 of its text) and ``export_events`` (its event count);
+``mask`` (``ENTRY_MASK``), the one regex whose matches every reader
+replaces by one marker on both sides before comparing lines: the traffic
+canary's wall seconds and the shard canary's device count, the only
+fields that are wall clock or host shape; and the seconds each took on
+this CPU (``seconds/<name>``).
+
 ``telemetry`` holds, per tag ``t`` (``faults``, ``link``): the spec's
 ``t/probe_every`` and ``t/slots``, ``t/cpu_seconds``, and per lane
 ``b<i>``: ``horizon``; the ring bookkeeping ``tel.n``, ``tel.stride``,
@@ -210,6 +228,7 @@ OUT_TRAFFIC = GOLDEN / "torch_port_traffic.npz"
 OUT_CONTROL = GOLDEN / "torch_port_control.npz"
 OUT_LM = GOLDEN / "torch_port_lm.npz"
 OUT_TRAIN = GOLDEN / "torch_port_train.npz"
+OUT_ENTRY = GOLDEN / "torch_port_entry.npz"
 #: netmodel's (kind, algo) pairs of ``tests/test_collectives.py``
 NET_PAIRS = (("all-reduce", "ring"), ("all-reduce", "tree"),
              ("all-gather", "ring"))
@@ -219,6 +238,22 @@ TEL_SPECS = {"faults": TelemetrySpec.on(probe_every=16, slots=16),
 #: ring lanes the telemetry reference stores as sha256 digests
 TEL_RINGS = ("s_occ", "s_ecn", "s_trim", "s_drop", "s_llr", "s_stall",
              "s_rtt", "s_cwnd")
+#: the fields of the entry points' lines that are wall clock or host
+#: shape (the traffic canary's ``[{s:.1f}s]``, the shard canary's device
+#: count); the ``entry`` golden stores it, and every reader takes it from
+#: there
+ENTRY_MASK = r"\[\d+\.\ds\]|\b\d+ devices\b"
+#: the CLI canaries: golden key -> the ``python -m`` arguments and extra
+#: environment of their run
+ENTRY_CANARIES = {
+    "faults": (["repro.network.faults"], {}),
+    "endpoint": (["repro.network.faults", "--endpoint"], {}),
+    "telemetry": (["repro.network.telemetry"], {}),
+    "link": (["repro.core.link"], {}),
+    "traffic": (["repro.network.traffic"], {}),
+    "shard": (["repro.network.shard"],
+              {"XLA_FLAGS": "--xla_force_host_platform_device_count=4"}),
+}
 INC_GROUPS = 32               # concurrent tree all-reduces
 INC_RANKS = 32                # hosts per group
 INC_SIZE = 32                 # packets per rank
@@ -901,6 +936,74 @@ def jax_tour_lines() -> "list[str]":
     return buf.getvalue().splitlines()
 
 
+def _printed(fn, *args) -> "list[str]":
+    """The lines ``fn(*args)`` prints."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        fn(*args)
+    return buf.getvalue().splitlines()
+
+
+def _load(path: Path, name: str):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def write_entry(path: Path) -> None:
+    """The JAX package's entry points' printed lines (``entry`` above)."""
+    import os
+    import subprocess
+    import sys
+    import tempfile
+    out: dict = {"mask": np.asarray(ENTRY_MASK)}
+    secs: dict = {}
+    t0 = time.perf_counter()
+    out["quickstart"] = np.asarray(_printed(
+        _load(REPO / "examples" / "quickstart.py", "quickstart").main))
+    secs["quickstart"] = time.perf_counter() - t0
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            t0 = time.perf_counter()
+            out["tour"] = np.asarray(_printed(_load(
+                REPO / "examples" / "fabric_telemetry.py",
+                "fabric_telemetry").main))
+            secs["tour"] = time.perf_counter() - t0
+            os.remove("fabric_trace.json")
+            t0 = time.perf_counter()
+            out["export"] = np.asarray(_printed(_load(
+                REPO / "scripts" / "trace_export.py", "trace_export").main,
+                []))
+            secs["export"] = time.perf_counter() - t0
+            text = Path("fabric_trace.json").read_text()
+        finally:
+            os.chdir(cwd)
+    out["export_sha256"] = np.asarray(
+        hashlib.sha256(text.encode()).hexdigest())
+    import json
+    out["export_events"] = np.asarray(len(json.loads(text)["traceEvents"]))
+    for name, (args, extra) in ENTRY_CANARIES.items():
+        env = {**os.environ, "PYTHONPATH": str(REPO / "src"),
+               "JAX_PLATFORMS": "cpu", **extra}
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, "-m", *args], env=env,
+                             cwd=REPO, capture_output=True, text=True)
+        secs[name] = time.perf_counter() - t0
+        if run.returncode:
+            raise RuntimeError(f"canary {name} failed:\n{run.stderr}")
+        out[f"canary/{name}"] = np.asarray(run.stdout.splitlines())
+    out.update({f"seconds/{k}": np.asarray(v) for k, v in secs.items()})
+    path.parent.mkdir(parents=True, exist_ok=True)
+    np.savez_compressed(path, **out)
+    print(f"entry -> {path} ({path.stat().st_size} B); JAX seconds {secs}")
+
+
 def _jnp(a):
     import jax.numpy as jnp
     return jnp.asarray(a)
@@ -1245,7 +1348,7 @@ def main() -> int:
     ap.add_argument("--which", default="fullsize",
                     choices=("fullsize", "profiles", "batch", "faults",
                              "inc", "link", "telemetry", "traffic",
-                             "control", "lm", "train"))
+                             "control", "lm", "train", "entry"))
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args()
     if args.which == "fullsize":
@@ -1268,6 +1371,8 @@ def main() -> int:
         write_lm(args.out or OUT_LM)
     elif args.which == "train":
         write_train(args.out or OUT_TRAIN)
+    elif args.which == "entry":
+        write_entry(args.out or OUT_ENTRY)
     else:
         write_profiles(args.out or OUT_PROFILES)
     return 0

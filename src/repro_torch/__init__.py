@@ -7,6 +7,8 @@ Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 import torch
 
+__version__ = "1.0.0"
+
 
 def resolve_device(device: "str | torch.device | None") -> torch.device:
     """The device an entry point runs on: ``cuda`` unless the caller asks

@@ -10,7 +10,7 @@ patterns (see ``repro_torch._u32``).
 from __future__ import annotations
 
 import enum
-from dataclasses import dataclass, replace
+from dataclasses import dataclass, fields, replace
 
 import torch
 
@@ -162,6 +162,20 @@ def reps_recycle(state: LBState, ev: torch.Tensor,
         reps_ring=torch.where(hot, ev[..., None], state.reps_ring),
         reps_size=state.reps_size + push.to(torch.int32),
     )
+
+
+def commit_selection(old: LBState, new: LBState,
+                     injected: torch.Tensor) -> LBState:
+    """Keep ``new`` lanes only where a packet was actually injected: a
+    per-flow select over every field, the [..., F] mask broadcast over
+    each field's trailing axes."""
+    def pick(a, b):
+        mask = injected.reshape(injected.shape
+                                + (1,) * (a.dim() - injected.dim()))
+        return torch.where(mask, b, a)
+
+    return LBState(*(pick(getattr(old, f.name), getattr(new, f.name))
+                     for f in fields(LBState)))
 
 
 def _rows(flow: torch.Tensor, n: int) -> torch.Tensor:

@@ -259,3 +259,65 @@ def state_bitwise_equal(a, b, skip=LINK_STATE_LANES) -> "str | None":
                    for x, y in pairs):
             return f.name
     return None
+
+
+def _smoke(device=None) -> int:
+    """Link-layer canary: corruption confinement on the engine (an
+    LLR-armed BER-y fabric delivers every flow with ZERO end-to-end
+    drops, while the LLR-off twin leaks the corruption into end-to-end
+    recovery) and the CBFC-beats-PFC buffer claim. Runs the shared
+    ``workloads.corruption_sweep`` grid at two BER points — lane 0
+    (BER=0) is the bitwise-inertness anchor. Runs on ``device``
+    (``cuda`` unless given)."""
+    # import through the canonical module path: under ``python -m
+    # repro_torch.core.link`` this file is also loaded as __main__, and
+    # fabric's isinstance check needs the real LinkConfig class
+    from repro_torch.core import link as linkmod
+    from repro_torch.network import workloads
+    from repro_torch.network.fabric import simulate_batch
+
+    g, wls, scheds, exp = workloads.corruption_sweep(bers=(0.0, 0.03))
+    prof, p, link = exp["profile"], exp["params"], exp["link"]
+    on = simulate_batch(g, wls, prof, p, faults=scheds, link=link,
+                        device=device)
+    off = simulate_batch(g, wls, prof, p, faults=scheds, device=device)
+
+    r_llr, r_e2e = on[1], off[1]
+    ct_llr, ct_e2e = r_llr.completion_tick(), r_e2e.completion_tick()
+    assert int(r_llr.drops) == 0, \
+        f"LLR must confine corruption to the hop, saw {int(r_llr.drops)} drops"
+    assert r_llr.llr_replays > 0, "the BER lane must actually corrupt"
+    assert ct_llr > 0, "every flow must complete under LLR"
+    assert int(r_e2e.drops) > 0, "LLR-off must leak corruption end-to-end"
+    e2e_str = str(ct_e2e) if ct_e2e > 0 else f"DNF@{p.ticks}"
+    ct_e2e_eff = ct_e2e if ct_e2e > 0 else p.ticks
+    assert ct_llr < ct_e2e_eff, (ct_llr, ct_e2e)
+    print(f"link canary: LLR confined {r_llr.llr_replays} corrupted "
+          f"frames (0 e2e drops), completion {ct_llr} vs e2e-only {e2e_str} "
+          f"({int(r_e2e.drops)} silent drops, {int(r_e2e.timeouts)} RTOs)")
+
+    # the clean-link inertness half of the contract: BER=0 + LLR armed
+    # must be bitwise the plain run
+    drift = linkmod.state_bitwise_equal(on[0].state, off[0].state)
+    assert drift is None, f"clean-link LLR run drifted: {drift}"
+    print("link canary: clean-link LLR-on run is bitwise the LLR-off run")
+
+    # Sec. 3.5.2 claim (1): CBFC is lossless on the buffer it advertises;
+    # PFC needs RTT+MTU headroom per (port, priority) on top
+    pricing = linkmod.fabric_buffer_pricing(g.num_queues)
+    assert pricing["cbfc_total_bytes"] < pricing["pfc_total_bytes"] / 2, \
+        pricing
+    print(f"link canary: {g.name} lossless buffer bill "
+          f"CBFC {pricing['cbfc_total_bytes'] / 1e6:.2f} MB vs "
+          f"PFC {pricing['pfc_total_bytes'] / 1e6:.2f} MB "
+          f"({pricing['cbfc_over_pfc']:.2f}x per port)")
+    return 0
+
+
+if __name__ == "__main__":
+    import argparse
+    ap = argparse.ArgumentParser(description="the link-layer canary")
+    ap.add_argument("--device", default=None,
+                    help="cuda (the default) or cpu")
+    from repro_torch.core import link as _canonical
+    raise SystemExit(_canonical._smoke(ap.parse_args().device))

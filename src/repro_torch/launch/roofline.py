@@ -1,6 +1,6 @@
 """The roofline's collective pieces — the port of ``ring_time``,
-``kind_sizes_from_reports`` and ``uet_efficiencies`` of
-``repro.launch.roofline``.
+``kind_sizes_from_reports``, ``uet_efficiencies`` and
+``model_flops_per_device`` of ``repro.launch.roofline``.
 
 ``uet_efficiencies`` derates each collective kind by the packet-level
 UET simulator: the analytic alpha-beta time over the simulated,
@@ -20,6 +20,23 @@ import math
 #: bytes/s of one link, the reference roofline's modelled interconnect
 #: (``ring_time`` prices with it, so its results are the reference's)
 LINK_BW = 50e9
+
+#: tokens one step of each shape processes, over the whole fleet
+_SHAPE_TOKENS = {
+    "train_4k": 4096 * 256,
+    "prefill_32k": 32768 * 32,
+    "decode_32k": 128,      # one token per sequence
+    "long_500k": 1,
+}
+
+
+def model_flops_per_device(rep: dict) -> float:
+    """6*N_active*D train / 2*N_active*D forward, per device, of a report
+    dict (``active_params``, ``kind``, ``shape``, ``devices``)."""
+    n = rep["active_params"]
+    mult = 6.0 if rep["kind"] == "train" else 2.0
+    tokens = _SHAPE_TOKENS[rep["shape"]]
+    return mult * n * tokens / rep["devices"]
 
 
 def ring_time(kind: str, bytes_per_dev: float, chips: int) -> float:

@@ -15,6 +15,7 @@ from repro_torch._u32 import c32, shr, umod
 from repro_torch.network.topology import QueueGraph, Stage
 
 DELIVERED = -2
+INVALID = -1
 
 
 def ecmp_hash(src: torch.Tensor, dst: torch.Tensor, ev: torch.Tensor,

@@ -334,3 +334,121 @@ def as_schedule(num_queues: int, failed, faults, batch: int,
         raise ValueError(f"failed mask must be [B={batch}, Q={num_queues}], "
                          f"got {dead.shape}")
     return FaultSchedule.from_mask(dead, device=device)
+
+
+def _smoke(device=None) -> int:
+    """Recovery canary: (1) a mid-run uplink flap is survived — timeouts
+    fire while the link is down, the flow completes after heal, and the
+    degraded-tick counter brackets the outage; (2) a PERMANENT mid-run
+    failure of a pinned static path is escaped via EV eviction (the
+    eviction-off twin stays stuck). Runs on ``device`` (``cuda`` unless
+    given)."""
+    from dataclasses import replace as _rep
+
+    from repro_torch.core.lb.schemes import LBScheme
+    # canonical class, NOT the __main__ copy this file becomes under -m
+    from repro_torch.network.faults import FaultSchedule as FS
+    from repro_torch.network.fabric import (SimParams, TransportProfile,
+                                            Workload, simulate)
+    from repro_torch.network.topology import leaf_spine
+
+    g = leaf_spine(leaves=2, spines=2, hosts_per_leaf=4)
+    wl = Workload.of([0, 1, 2, 3], [4, 5, 6, 7], 150)
+    p = SimParams(ticks=4000, timeout_ticks=64)
+    up = [int(g.up1_table[0, i]) for i in range(2)]
+
+    # 1) flap: both uplinks down over [120, 420) — no surviving path
+    #    during the window, full recovery after heal
+    flap = FS.healthy(g.num_queues).flap(up, 120, 420)
+    r = simulate(g, wl, TransportProfile.ai_full(), p, faults=flap,
+                 device=device)
+    ct = r.completion_tick()
+    assert ct > 420, f"flap scenario should finish after heal, got {ct}"
+    assert r.timeouts > 0, "outage must trigger RTO timeouts"
+    assert r.ticks_degraded == 300, r.ticks_degraded
+
+    # 2) permanent failure of a static path: eviction-on escapes,
+    #    eviction-off is stuck at the budget
+    dead = FS.healthy(g.num_queues).flap(up[0], 120)
+    off = TransportProfile.ai_full(lb=LBScheme.STATIC, name="static")
+    on = _rep(off, ev_eviction=True, name="static+evict")
+    r_off = simulate(g, wl, off, p, faults=dead, device=device)
+    r_on = simulate(g, wl, on, p, faults=dead, device=device)
+    ct_on = r_on.completion_tick()
+    assert ct_on != -1, "eviction must migrate flows off the dead path"
+    assert r_on.ev_evictions > 0
+    ct_off = r_off.completion_tick()
+    assert ct_off == -1 or ct_on < ct_off, (ct_on, ct_off)
+    print(f"fault smoke ok: flap survived (completion {ct}, "
+          f"{r.timeouts} timeouts, {r.ticks_degraded} degraded ticks); "
+          f"permanent failure escaped via {r_on.ev_evictions} evictions "
+          f"(completion {ct_on} vs eviction-off "
+          f"{'stuck' if ct_off == -1 else ct_off})")
+    return 0
+
+
+def _endpoint_smoke(device=None) -> int:
+    """Endpoint canary: a never-healing dead host under a
+    ``pdc_dead_after`` profile must be DETECTED (flows to/from it
+    quarantined, abandonment visible in the stat lanes) and the run must
+    quiesce EARLY — strictly before the tick budget — while every
+    surviving flow still completes. The pdc-off twin burns the whole
+    budget on the same schedule. Runs on ``device`` (``cuda`` unless
+    given)."""
+    from repro_torch.network import workloads
+    from repro_torch.network.fabric import SimParams, simulate_batch
+
+    g, wls, scheds, exp = workloads.host_fault_sweep()
+    budget = int(exp["budget"])
+    p = SimParams(ticks=budget, timeout_ticks=64)
+    rs = simulate_batch(g, wls, exp["profile"], p, faults=scheds,
+                        device=device)
+    by = dict(zip(exp["names"], rs))
+
+    r = by["host_dead"]
+    dead_flows = exp["dead_flows"]
+    assert r.horizon < budget, \
+        f"dead host must quiesce early, ran {r.horizon}/{budget}"
+    assert r.flows_abandoned == len(dead_flows), \
+        (r.flows_abandoned, dead_flows)
+    assert r.ticks_unreachable > 0 and r.abandon_tick > 0
+    ct = r.completion_ticks()
+    surviving = [f for f in range(ct.shape[0]) if f not in dead_flows]
+    assert all(ct[f] > 0 for f in surviving), ct
+    assert all(ct[f] == -1 for f in dead_flows), ct
+
+    r_off = by["host_dead_pdc_off"]
+    assert r_off.horizon == budget, \
+        f"pdc-off twin must burn the budget, exited at {r_off.horizon}"
+    assert r_off.flows_abandoned == 0
+
+    r_stall = by["nic_stall"]
+    assert r_stall.flows_abandoned == 0, \
+        "an ACK-live NIC stall must not be declared dead"
+    assert r_stall.completion_tick() > 0, "stall heals -> all complete"
+
+    healthy = by["healthy"]
+    assert healthy.flows_abandoned == 0 and healthy.ticks_unreachable == 0
+    print(f"endpoint smoke ok: dead host detected at tick "
+          f"{r.abandon_tick} ({r.flows_abandoned} flows abandoned, "
+          f"{r.ticks_unreachable} unreachable ticks), quiesced at "
+          f"{r.horizon}/{budget} vs pdc-off stuck at {r_off.horizon}; "
+          f"NIC stall stayed live (completion "
+          f"{r_stall.completion_tick()})")
+    return 0
+
+
+if __name__ == "__main__":
+    import argparse
+    ap = argparse.ArgumentParser(description="the recovery canary "
+                                 "(--endpoint: the endpoint canary)")
+    ap.add_argument("--endpoint", action="store_true")
+    ap.add_argument("--device", default=None,
+                    help="cuda (the default) or cpu")
+    args = ap.parse_args()
+    # run through the canonical module: under ``python -m`` this file is
+    # also loaded as __main__, and fabric's isinstance check needs the
+    # real FaultSchedule class
+    from repro_torch.network import faults as _canonical
+    raise SystemExit((_canonical._endpoint_smoke if args.endpoint
+                      else _canonical._smoke)(args.device))

@@ -119,3 +119,45 @@ def run_sharded(g, wls, profile, p, fault, seeds, trace: str, budget: int,
         out += fabric._results(lp, sizes[i * m:(i + 1) * m], budget, trace,
                                goodput_window, tel)
     return out[:B]
+
+
+def _smoke(device=None) -> int:
+    """Ragged sharded batch vs the unsharded engine: bitwise parity of
+    completion ticks, horizons, and the full final state. The batch is
+    split over four devices of ``device``'s kind (``cuda`` unless given):
+    every card when there are four, else the ones there are, repeated
+    (one card: ``(cuda:0,) * 4``; the CPU: ``(cpu,) * 4``)."""
+    from repro_torch import resolve_device
+    from repro_torch.core.link import state_bitwise_equal
+    from repro_torch.network.profile import TransportProfile
+    from repro_torch.network.topology import leaf_spine
+
+    avail = available_devices(resolve_device(device))
+    devs = tuple(avail[i % len(avail)] for i in range(4))
+    g = leaf_spine(leaves=2, spines=2, hosts_per_leaf=4)
+    sizes = [40, 80, 120, 160, 200, 240]      # B=6: ragged on 4 devices
+    wls = fabric.Workload.stack(
+        [fabric.Workload.of([0, 1, 2, 3], [4, 5, 6, 7], s) for s in sizes])
+    p = fabric.SimParams(ticks=2000)
+    prof = TransportProfile.ai_full()
+    base = fabric.simulate_batch(g, wls, prof, p, device=device)
+    shd = fabric.simulate_batch(g, wls, prof, p, devices=devs, device=device)
+    for i, (rb, rs) in enumerate(zip(base, shd)):
+        assert rb.horizon == rs.horizon, (i, rb.horizon, rs.horizon)
+        np.testing.assert_array_equal(rb.completion_ticks(),
+                                      rs.completion_ticks(),
+                                      err_msg=f"scenario {i}")
+        drift = state_bitwise_equal(rb.state, rs.state, skip=())
+        assert drift is None, f"scenario {i} state: {drift} drifted"
+    print(f"shard smoke ok: {len(devs)} devices, B={len(sizes)} (ragged), "
+          f"bitwise parity with the unsharded engine")
+    return 0
+
+
+if __name__ == "__main__":
+    import argparse
+    ap = argparse.ArgumentParser(description="the sharded engine canary")
+    ap.add_argument("--device", default=None,
+                    help="cuda (the default) or cpu")
+    from repro_torch.network import shard as _canonical
+    raise SystemExit(_canonical._smoke(ap.parse_args().device))

@@ -53,6 +53,7 @@ Young/Daly closed forms for effective-throughput pricing.
 from __future__ import annotations
 
 import math
+import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -597,3 +598,44 @@ def run_model_sweep(arch_names=("deepseek-coder-33b", "mixtral-8x22b"),
             "eff": {k: round(v, 4) for k, v in timing.eff.items()},
         })
     return out
+
+
+# ---------------------------------------------------------------------------
+# canary: one small config, sim within a band of analytic
+# ---------------------------------------------------------------------------
+
+def _canary(device=None) -> int:
+    """Traffic canary: one small config priced end to end; the simulated
+    network term must land within [1, 10]x of the plan's alpha-beta
+    lower bound. Runs on ``device`` (``cuda`` unless given)."""
+    from repro_torch import configs
+    from repro_torch.network.profile import TransportProfile
+
+    cfg = configs.get("deepseek-coder-33b")
+    plan = derive_plan(cfg, "decode_32k", dp=4, tp=4, layout="fsdp_tp")
+    g = leaf_spine(4, 2, 4)
+    t0 = time.time()
+    timing = step_time(plan, g, TransportProfile.ai_full(), device=device)
+    ratio = timing.net_s / max(timing.analytic_net_s, 1e-12)
+    print(f"traffic canary: {plan.arch} x {plan.shape} on {g.name}: "
+          f"step={timing.step_s * 1e3:.3f} ms "
+          f"net={timing.net_s * 1e3:.3f} ms "
+          f"(analytic {timing.analytic_net_s * 1e3:.3f} ms, "
+          f"sim/analytic {ratio:.2f}x) "
+          f"tok/s={timing.tokens_per_sec:.0f} "
+          f"[{time.time() - t0:.1f}s]")
+    assert 1.0 <= ratio <= 10.0, (
+        f"simulated network term {ratio:.2f}x analytic is outside the sane "
+        f"band [1, 10] — scheduling or pricing regression")
+    assert timing.sim_ticks > 0 and timing.step_s > 0
+    print("traffic canary OK")
+    return 0
+
+
+if __name__ == "__main__":
+    import argparse
+    ap = argparse.ArgumentParser(description="the traffic canary")
+    ap.add_argument("--device", default=None,
+                    help="cuda (the default) or cpu")
+    from repro_torch.network import traffic as _canonical
+    raise SystemExit(_canonical._canary(ap.parse_args().device))

@@ -1,8 +1,11 @@
 """The port stands alone: no file of ``src/repro_torch``, not
-``chip_smoke.py`` and not the port's examples (the transport tour
+``chip_smoke.py``, not the port's examples (the transport tour
 ``examples/uet_transport_tour_torch.py``, the serving example
 ``examples/serve_decode_torch.py``, the training example
-``examples/train_lm_torch.py``) imports JAX or the reference package
+``examples/train_lm_torch.py``, the quickstart
+``examples/quickstart_torch.py``, the telemetry tour
+``examples/fabric_telemetry_torch.py``) and not its trace export
+``scripts/trace_export_torch.py`` imports JAX or the reference package
 (the machine with the card has no JAX), and importing the port loads no
 JAX."""
 import ast
@@ -17,7 +20,10 @@ REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "examples" / "uet_transport_tour_torch.py",
     REPO / "examples" / "serve_decode_torch.py",
-    REPO / "examples" / "train_lm_torch.py"]
+    REPO / "examples" / "train_lm_torch.py",
+    REPO / "examples" / "quickstart_torch.py",
+    REPO / "examples" / "fabric_telemetry_torch.py",
+    REPO / "scripts" / "trace_export_torch.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -62,6 +68,9 @@ def test_importing_the_port_loads_no_jax():
             "runpy.run_path('examples/serve_decode_torch.py')\n"
             "runpy.run_path('examples/uet_transport_tour_torch.py')\n"
             "runpy.run_path('examples/train_lm_torch.py')\n"
+            "runpy.run_path('examples/quickstart_torch.py')\n"
+            "runpy.run_path('examples/fabric_telemetry_torch.py')\n"
+            "runpy.run_path('scripts/trace_export_torch.py')\n"
             "import chip_smoke\n"
             "from repro_torch import configs\n"
             "[configs.get(n) for n in configs.ARCH_NAMES]\n"
