@@ -9,7 +9,7 @@ Phases, one line each:
    no run: the script exits non-zero before printing any result.
 2. build  — compile every CUDA kernel of the port from ``src/repro_torch/
    kernels/csrc`` (one ``nvcc`` per source, in parallel).
-3. kernels — each of the ten kernels against its plain PyTorch
+3. kernels — each of the fourteen kernels against its plain PyTorch
    version on the card, random inputs plus edge lanes, bitwise: the
    dense ``sack_fused`` / ``sack_advance`` and ``nack_mark`` at the main
    path's shapes (F = 2048 flows, W = 16 ring words, L = Q + 2F = 9216
@@ -31,13 +31,28 @@ Phases, one line each:
    events, warm, median of 20) beside the bound (for the marks, the
    bytes this data needs: the lanes, and the rows and words they
    reach); each kernel's device time alone (``torch.profiler``, CUDA
-   kernel time / launches). Then the sites: each tick kernel beside the
+   kernel time / launches). The tick forms of the last two: ``nscc_ack``
+   (NSCC's per-flow ACK update, the tick's folded gap) and ``nscc_epoch``
+   (Quick Adapt) on the lanes of tick ``TICK_CAPTURE - 1`` of the
+   full-width ``ai_full`` batch (B = 4) and at B·F in {1, 33, 2048, 8192}
+   under three params sets with edge lanes (rtt 0, at and just below the
+   target, +-inf, NaN; cwnd below 1, at min and max, NaN; has_ack off;
+   lost 0 and > 0; epoch ages epoch_len - 1, epoch_len, epoch_len + 1);
+   ``ecmp_inject`` ([4, 2048] flow lanes) and ``ecmp_route`` ([4, 5120]
+   queue heads under the [Q] ids, read with a zero scenario stride) on
+   that tick's lanes and on random in-range lanes of the full-width fat
+   tree and of ``leaf_spine(4, 4, 4)``; each timed at B = 1 and B = 4
+   (bound: each lane in and out once, the routing tables once). Then the
+   sites: each tick kernel beside the
    dense composition that the tick ran before it (bit plane, old-bit
    test, dense kernel, and for the ACK site the clear of the ACKed bit;
    for the NACK site its lane arithmetic and the copying ``nack_mark``;
    for the RTO set, the retransmit clear and the RR_SLOTS mark the
    [F, W] plane, and the old-bit test for the last; a copy of each is
-   kept here), bitwise, both timed with CUDA events in turns, with their
+   kept here; for the four tick forms the eager bodies of
+   ``NSCCPolicy.on_ack`` / ``end_of_tick`` and ``RoutingTables.
+   injection_queue`` / ``route_step`` on scenario 0 of that tick's
+   lanes), bitwise, both timed with CUDA events in turns, with their
    device operations per call.
 4. goldens — the two reference goldens (``tests/golden/fabric_golden.npz``)
    reproduced bitwise on the card: A through ``simulate``, B (REPS, a
@@ -58,7 +73,9 @@ Phases, one line each:
    ``clear_own_bit`` 1, 1, 1 under ``ai_full`` and ``ai_base``, 0, 0, 1
    under all-ROD ``hpc()``, whose tick has no selective-retransmit path
    or RTO mark, and 1, 3, 1 under RR_SLOTS, whose loss inference marks
-   twice) and the entry-point forms never. Then the kernel entry points
+   twice; ``nscc_ack`` and ``nscc_epoch`` once under NSCC and the hybrid,
+   never under RCCC or open loop; ``ecmp_inject`` and ``ecmp_route``
+   once) and the entry-point forms never. Then the kernel entry points
    (``repro_torch.kernels.ops.nscc_update`` / ``ecmp_select`` /
    ``sack_fused`` / ``sack_advance`` / ``nack_mark``): one batched NSCC
    round over the hpc run's 2048 windows, the ECMP port choice of 7168
@@ -282,6 +299,7 @@ exits non-zero. It imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import math
 import os
@@ -352,17 +370,37 @@ KERNELS = {
     "ecmp_select": ("src/repro_torch/kernels/csrc/ecmp_hash.cu",
                     "src/repro/kernels/ecmp_hash.py:52",
                     "ecmp_select_kernel"),
+    "nscc_ack": ("src/repro_torch/kernels/csrc/nscc_update.cu",
+                 "src/repro/kernels/nscc_update.py:53", "nscc_ack_kernel"),
+    "nscc_epoch": ("src/repro_torch/kernels/csrc/nscc_update.cu",
+                   "src/repro/kernels/nscc_update.py:53",
+                   "nscc_epoch_kernel"),
+    "ecmp_inject": ("src/repro_torch/kernels/csrc/ecmp_hash.cu",
+                    "src/repro/kernels/ecmp_hash.py:52",
+                    "ecmp_inject_kernel"),
+    "ecmp_route": ("src/repro_torch/kernels/csrc/ecmp_hash.cu",
+                   "src/repro/kernels/ecmp_hash.py:52",
+                   "ecmp_route_kernel<true"),
 }
 TICK_KERNELS = ("sack_fused_own", "sack_advance_own", "nack_mark_lanes",
-                "set_own_bit", "clear_own_bit")
+                "set_own_bit", "clear_own_bit", "nscc_ack", "nscc_epoch",
+                "ecmp_inject", "ecmp_route")
+#: the tick forms of the two entry-point kernels (``ops`` dispatch names)
+TICK_FORMS = ("nscc_ack", "nscc_epoch", "ecmp_inject", "ecmp_route")
 #: launches per tick of each tick kernel, by run: under all-ROD the NACK
 #: site and the RTO's set are compiled out; RR_SLOTS's loss inference
-#: adds two sets
-PER_TICK = {"ai_full": (1, 1, 1, 1, 1), "hpc": (1, 1, 0, 0, 1),
-            "base": (1, 1, 1, 1, 1), "ai_base": (1, 1, 1, 1, 1),
-            "mixed": (1, 1, 1, 3, 1),
-            "resilient": (1, 1, 1, 1, 1), "inc": (1, 1, 1, 1, 1),
-            "llr": (1, 1, 1, 1, 1), "cbfc": (1, 1, 1, 1, 1)}
+#: adds two sets; the NSCC forms run under NSCC and the hybrid (ai_full,
+#: hpc, resilient and the INC and link runs of ai_full), not under RCCC
+#: (ai_base) or open loop (mixed); the routing walks once a tick always
+PER_TICK = {"ai_full": (1, 1, 1, 1, 1, 1, 1, 1, 1),
+            "hpc": (1, 1, 0, 0, 1, 1, 1, 1, 1),
+            "base": (1, 1, 1, 1, 1, 0, 0, 1, 1),
+            "ai_base": (1, 1, 1, 1, 1, 0, 0, 1, 1),
+            "mixed": (1, 1, 1, 3, 1, 0, 0, 1, 1),
+            "resilient": (1, 1, 1, 1, 1, 1, 1, 1, 1),
+            "inc": (1, 1, 1, 1, 1, 1, 1, 1, 1),
+            "llr": (1, 1, 1, 1, 1, 1, 1, 1, 1),
+            "cbfc": (1, 1, 1, 1, 1, 1, 1, 1, 1)}
 #: SimState lanes the profile goldens leave out: those of the recovery
 #: loop (RTO strikes, quarantine, their counters), of INC and of the link
 #: layer, none of which the three profile runs turn on
@@ -711,7 +749,201 @@ def phase_kernels() -> dict:
             lambda *a: ref.ecmp_hash_ref(*a, 8), lanes, n * 4 * 4 + n * 4,
             16 * n, fast=n == POOL)
         _record(rows, "ecmp_select", n, max(errs), timing)
+    _tick_form_rows(rows, rng, dev)
     return rows
+
+
+#: NSCC lanes (B·F) the tick forms are checked at
+NSCC_LANES = (1, 33, F_MAIN, B_MAIN * F_MAIN)
+#: ticks of the full-width ``ai_full`` batch whose last tick hands phase 3
+#: the tick forms' real operands
+TICK_CAPTURE = 48
+
+
+@functools.lru_cache(maxsize=None)
+def _tick_lanes() -> dict:
+    """The four tick forms' operands as the tick hands them to ``ops`` on
+    the last of ``TICK_CAPTURE`` ticks of the full-width ``ai_full``
+    batch (B = 4) on the card: {form: its call's arguments}."""
+    from repro_torch.kernels import ops
+    from repro_torch.network.fabric import simulate_batch
+    _, g, wl, prof, p = _fullsize()
+    seen, orig = {}, {k: getattr(ops, k) for k in TICK_FORMS}
+
+    def recording(name):
+        def call(*args):
+            seen[name] = tuple(a.clone() if isinstance(a, torch.Tensor)
+                               else a for a in args)
+            return orig[name](*args)
+        return call
+    try:
+        for k in TICK_FORMS:
+            setattr(ops, k, recording(k))
+        simulate_batch(g, [wl] * B_MAIN, prof, p, trace="stats",
+                       max_ticks=TICK_CAPTURE, device="cuda")
+    finally:
+        for k, f in orig.items():
+            setattr(ops, k, f)
+    torch.cuda.synchronize()
+    assert sorted(seen) == sorted(TICK_FORMS), sorted(seen)
+    return seen
+
+
+def _nscc_tick_inputs(rng, n, p, dev):
+    """The NSCC tick forms' [N] lanes (cwnd, epoch_acked, has_ack, ecn,
+    rtt, epoch_lost, epoch_tick): random windows and RTTs plus edge lanes
+    (rtt 0, exactly at the target, just below it, +-inf, NaN; cwnd below
+    1, at min_cwnd and max_cwnd, NaN; has_ack off on half), epoch
+    counters with lost 0 on half the lanes, and epoch starts whose age at
+    ``now = 1000`` lies around ``epoch_len`` (epoch_len - 1, epoch_len
+    and epoch_len + 1 first)."""
+    target = np.float32(p.base_rtt * p.target_factor)
+    epoch_len = int(p.base_rtt * p.target_factor)
+    cwnd = rng.uniform(0.25, p.max_cwnd * 1.2, n).astype(np.float32)
+    rtt = rng.uniform(0.0, 6.0 * float(target), n).astype(np.float32)
+    edge = np.asarray([0.0, target, np.nextafter(target, np.float32(0)),
+                       np.inf, -np.inf, np.nan, 1e-7, -0.0], np.float32)
+    for j, v in enumerate(edge):
+        rtt[j::97] = v
+    cwnd[3::101], cwnd[5::211] = 0.5, np.nan
+    cwnd[6::53], cwnd[7::59] = p.min_cwnd, p.max_cwnd
+    acked = rng.integers(0, 40, n).astype(np.int32)
+    lost = np.where(rng.random(n) < 0.5, 0, rng.integers(1, 9, n))
+    tick = 1000 - epoch_len + rng.integers(-3, 4, n)
+    k = min(n, 3)
+    tick[:k] = 1000 - np.asarray([epoch_len - 1, epoch_len,
+                                  epoch_len + 1])[:k]
+    t = lambda a: torch.as_tensor(a).to(dev)   # noqa: E731
+    return (t(cwnd), t(acked), t(rng.integers(0, 2, n) > 0),
+            t(rng.integers(0, 2, n) > 0), t(rtt), t(lost.astype(np.int32)),
+            t(tick.astype(np.int32)))
+
+
+def _host_lanes(rng, g, shape, dev):
+    """Random in-range (src, dst) host lanes and full-range EV words."""
+    return (torch.as_tensor(rng.integers(0, g.num_hosts, shape)
+                            .astype(np.int32)).to(dev),
+            torch.as_tensor(rng.integers(0, g.num_hosts, shape)
+                            .astype(np.int32)).to(dev),
+            _i32(rng.integers(0, 2 ** 32, shape, dtype=np.uint64), dev))
+
+
+def _bits(ts) -> tuple:
+    """Float outputs as their int32 bit patterns (for ``_max_abs_err``)."""
+    return tuple(t.view(torch.int32) if t.dtype == torch.float32 else t
+                 for t in ts)
+
+
+def _table_bytes(rt, names) -> int:
+    return sum(getattr(rt, n).numel() * 4 for n in names)
+
+
+INJECT_TABLES = ("host_leaf", "host_queue", "up1")
+ROUTE_TABLES = ("stage", "next_switch", "host_leaf", "host_queue",
+                "host_pod", "down1", "up2", "down2")
+
+
+def _tick_form_rows(rows: dict, rng, dev) -> None:
+    """Phase 3's part for the tick forms of ``nscc_update`` and
+    ``ecmp_select``: each bitwise against its plain version on the
+    operands of a real tick (``_tick_lanes``) and on seeded lanes with
+    edges, then timed at the serial run's shapes (B = 1: F = 2048 flows,
+    Q = 5120 queues) and at the batch phase's (B = 4)."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.network.ecmp import RoutingTables
+    from repro_torch.network.topology import leaf_spine
+    real = _tick_lanes()
+    cwnd, acked, ack, ecn, rtt, tp = real["nscc_ack"]
+    flat = [x.reshape(-1) for x in (cwnd, acked, ack, ecn, rtt)]
+    _assert_equal(ops.nscc_ack_cuda(*flat, tp), ref.nscc_ack_ref(*flat, tp),
+                  "nscc_ack on a tick's lanes")
+    *lanes, now, _ = real["nscc_epoch"]
+    flat = [x.reshape(-1) for x in lanes]
+    _assert_equal(ops.nscc_epoch_cuda(*flat, now, tp),
+                  ref.nscc_epoch_ref(*flat, now, tp),
+                  "nscc_epoch on a tick's lanes")
+    for n in NSCC_LANES:
+        for p in _nscc_params():
+            c, a, h, e, r, lo, tk = _nscc_tick_inputs(rng, n, p, dev)
+            _assert_equal(ops.nscc_ack_cuda(c, a, h, e, r, p),
+                          ref.nscc_ack_ref(c, a, h, e, r, p),
+                          f"nscc_ack n={n} {p}")
+            for now in (999, 1000, 1001):
+                _assert_equal(ops.nscc_epoch_cuda(c, a, lo, tk, now, p),
+                              ref.nscc_epoch_ref(c, a, lo, tk, now, p),
+                              f"nscc_epoch n={n} now={now} {p}")
+    say("3 kernels", f"nscc_ack, nscc_epoch: bitwise equal to plain on the "
+        f"lanes of tick {TICK_CAPTURE - 1} of the full-width batch (B = "
+        f"{B_MAIN}) and at B·F in {NSCC_LANES} x {len(_nscc_params())} "
+        f"params sets, edge lanes and epoch ages around epoch_len")
+    rt = real["ecmp_inject"][0]
+    g = rt.g
+    _, src, dst, ev = real["ecmp_inject"]
+    _, queue, qsrc, qdst, qev = real["ecmp_route"]
+    assert tuple(queue.shape) == (Q_MAIN,) and qsrc.shape == (B_MAIN, Q_MAIN)
+    cases = [(rt, (src, dst, ev), (queue, qsrc, qdst, qev), "a tick's lanes")]
+    for gr, tag in ((g, g.name), (leaf_spine(4, 4, 4), "leaf_spine(4, 4, 4)")):
+        t = rt if gr is g else RoutingTables(gr, dev)
+        qidx = torch.arange(gr.num_queues, dtype=torch.int32, device=dev)
+        cases.append((t, _host_lanes(rng, gr, (B_MAIN, F_MAIN), dev),
+                      (qidx, *_host_lanes(rng, gr, (B_MAIN, gr.num_queues),
+                                          dev)), f"random lanes on {tag}"))
+    for t, inj, rte, what in cases:
+        flat = [x.reshape(-1) for x in inj]
+        _assert_equal((ops.ecmp_inject_cuda(t, *flat),),
+                      (ref.ecmp_inject_ref(t, *flat),), f"ecmp_inject {what}")
+        _assert_equal((ops.ecmp_route_cuda(t, *rte),),
+                      (ref.ecmp_route_ref(t, *rte),), f"ecmp_route {what}")
+    say("3 kernels", f"ecmp_inject ([{B_MAIN}, {F_MAIN}] flow lanes), "
+        f"ecmp_route ([{B_MAIN}, {Q_MAIN}] queue heads under the [Q] ids): "
+        f"bitwise equal to plain on the lanes of tick {TICK_CAPTURE - 1} "
+        f"and on random in-range lanes, on {g.name} and leaf_spine(4, 4, 4)")
+    tp = _nscc_params()[0]
+    for b in (1, B_MAIN):
+        n = b * F_MAIN
+        c, a, h, e, r, lo, tk = _nscc_tick_inputs(rng, n, tp, dev)
+        forms = {
+            # bytes: cwnd, rtt, acked (4 B) and has_ack, ecn (1 B) in;
+            # cwnd, acked out. ops: ~20 f32 a lane
+            "nscc_ack": (lambda *x: ops.nscc_ack_cuda(*x, tp),
+                         lambda *x: ref.nscc_ack_ref(*x, tp),
+                         (c, a, h, e, r), 22 * n, 20 * n, F32_OPS_PER_S),
+            # four 4-byte lanes in and out; ~10 operations a lane
+            "nscc_epoch": (lambda *x: ops.nscc_epoch_cuda(*x, 1000, tp),
+                           lambda *x: ref.nscc_epoch_ref(*x, 1000, tp),
+                           (c, a, lo, tk), 32 * n, 10 * n, F32_OPS_PER_S),
+            # src, dst, ev in, the queue out, the tables read once;
+            # ~20 integer operations a lane
+            "ecmp_inject": (lambda *x: ops.ecmp_inject_cuda(rt, *x),
+                            lambda *x: ref.ecmp_inject_ref(rt, *x),
+                            tuple(x[:b].reshape(-1) for x in (src, dst, ev)),
+                            16 * n + _table_bytes(rt, INJECT_TABLES), 20 * n,
+                            INT_OPS_PER_S),
+            # the queue ids once, src, dst, ev in, the queue out, the
+            # tables read once
+            "ecmp_route": (lambda *x: ops.ecmp_route_cuda(rt, *x),
+                           lambda *x: ref.ecmp_route_ref(rt, *x),
+                           (queue, qsrc[:b], qdst[:b], qev[:b]),
+                           4 * Q_MAIN + 16 * b * Q_MAIN
+                           + _table_bytes(rt, ROUTE_TABLES),
+                           20 * b * Q_MAIN, INT_OPS_PER_S),
+        }
+        for name, (kern, plain, args, nbytes, nops, rate) in forms.items():
+            got, want = kern(*args), plain(*args)
+            got, want = ((got,), (want,)) if isinstance(
+                got, torch.Tensor) else (got, want)
+            torch.cuda.synchronize()
+            _assert_equal(got, want, f"{name} b={b}")
+            timing = _time_row(name, kern, plain, args, nbytes, nops,
+                               ops_per_s=rate)
+            err = _max_abs_err(_bits(got), _bits(want))
+            if b == 1:
+                rows[name] = _row(name, err, timing)
+                _say_row(name, rows[name], [tuple(x.shape) for x in args])
+            else:
+                rows[name]["batch"] = {"b": b, "max_abs_err": err, **timing}
+                _say_row(f"{name} (B={b})", rows[name]["batch"],
+                         [tuple(x.shape) for x in args])
 
 
 def _own_inputs(rng, n, w, dev):
@@ -937,6 +1169,113 @@ def _site_rr_dense(rtx, off, valid, ring):
     return _set_own_bit(rtx, off, valid & ~sacked)
 
 
+def _site_on_ack_eager(cwnd, acked, lost, etick, has_ack, ecn, rtt,
+                       params):
+    """The tick's NSCC ACK hook as it ran before ``nscc_ack``
+    (``nscc.on_ack_per_flow``'s eager body), kept as the yardstick."""
+    from repro_torch.core.cms.nscc import window_delta
+    delta = window_delta(cwnd, ecn, rtt.to(torch.float32), params,
+                         folded_reciprocal=True)
+    out = torch.where(has_ack, cwnd + delta, cwnd)
+    return (out.clamp(params.min_cwnd, params.max_cwnd),
+            acked + has_ack.to(torch.int32), lost, etick)
+
+
+def _site_epoch_eager(cwnd, acked, lost, etick, now, params):
+    """The tick's Quick Adapt as it ran before ``nscc_epoch``
+    (``nscc.quick_adapt``'s eager body)."""
+    epoch_len = int(params.base_rtt * params.target_factor)
+    due = (now - etick) >= epoch_len
+    delivered = acked.to(torch.float32)
+    frac = delivered / torch.clamp(delivered + lost.to(torch.float32),
+                                   min=1.0)
+    lossy = due & (lost > 0)
+    new_cwnd = torch.where(
+        lossy, (cwnd * frac).clamp(params.qa_min_frac * params.max_cwnd,
+                                   params.max_cwnd), cwnd)
+    return (torch.clamp(new_cwnd, min=params.min_cwnd),
+            torch.where(due, 0, acked), torch.where(due, 0, lost),
+            torch.where(due, now, etick))
+
+
+def _site_inject_eager(rt, src, dst, ev):
+    """``RoutingTables.injection_queue`` as it ran before
+    ``ecmp_inject``."""
+    from repro_torch._u32 import umod
+    from repro_torch.network.ecmp import ecmp_hash
+    sleaf = rt.host_leaf[src]
+    dleaf = rt.host_leaf[dst]
+    h = umod(ecmp_hash(src, dst, ev, sleaf), rt.g.fanout1)
+    return torch.where(sleaf == dleaf, rt.host_queue[dst], rt.up1[sleaf, h])
+
+
+def _site_route_eager(rt, queue, src, dst, ev):
+    """``RoutingTables.route_step`` on a three-level graph as it ran
+    before ``ecmp_route``."""
+    from repro_torch._u32 import umod
+    from repro_torch.network.ecmp import DELIVERED, ecmp_hash
+    from repro_torch.network.topology import Stage
+    st, sw = rt.stage[queue], rt.next_switch[queue]
+    dleaf, dpod = rt.host_leaf[dst], rt.host_pod[dst]
+    L, A = rt.up1.shape[0], rt.down1.shape[0]
+    agg = (sw - L).clamp(0, A - 1)
+    go_down = rt.down1[agg, dleaf % rt.leaves_per_pod]
+    go_up = rt.up2[agg, umod(ecmp_hash(src, dst, ev, sw), rt.up2.shape[1])]
+    nxt_up1 = torch.where(torch.div(agg, rt.aggs_per_pod,
+                                    rounding_mode="floor") == dpod,
+                          go_down, go_up)
+    core = (sw - L - A).clamp(0, rt.down2.shape[0] - 1)
+    nxt_up2 = rt.down2[core, dpod]
+    return torch.where(
+        st == Stage.UP1, nxt_up1,
+        torch.where(st == Stage.UP2, nxt_up2,
+                    torch.where(st == Stage.DOWN2, go_down,
+                                torch.where(st == Stage.DOWN1,
+                                            rt.host_queue[dst], DELIVERED))))
+
+
+def _tick_form_sites() -> dict:
+    """name -> (eager, own, args) of the four tick forms' sites on scenario
+    0 of a real tick's operands (``_tick_lanes``): the NSCC hooks through
+    ``NSCCPolicy`` against their eager bodies, the routing walks through
+    ``RoutingTables`` against theirs."""
+    from repro_torch.core.cms.nscc import NSCCPolicy, NSCCState
+    real = _tick_lanes()
+    _, _, ack, ecn, rtt, tp = (a[:1] if isinstance(a, torch.Tensor)
+                               else a for a in real["nscc_ack"])
+    cwnd, acked, lost, etick, now, _ = (
+        a[:1] if isinstance(a, torch.Tensor) else a
+        for a in real["nscc_epoch"])
+    pol = NSCCPolicy(tp)
+    rt, src, dst, ev = (a[:1] if isinstance(a, torch.Tensor) else a
+                        for a in real["ecmp_inject"])
+    _, queue, qsrc, qdst, qev = real["ecmp_route"]
+
+    def fields(st):
+        return st.cwnd, st.epoch_acked, st.epoch_lost, st.epoch_tick
+
+    return {
+        "nscc_ack": (
+            lambda c, a, lo, t, h, e, r: _site_on_ack_eager(
+                c, a, lo, t, h, e, r, tp),
+            lambda c, a, lo, t, h, e, r: fields(pol.on_ack(
+                NSCCState(c, a, lo, t), h, e, r)),
+            (cwnd, acked, lost, etick, ack, ecn, rtt)),
+        "nscc_epoch": (
+            lambda c, a, lo, t: _site_epoch_eager(c, a, lo, t, now, tp),
+            lambda c, a, lo, t: fields(pol.end_of_tick(
+                NSCCState(c, a, lo, t), now)),
+            (cwnd, acked, lost, etick)),
+        "ecmp_inject": (
+            lambda *x: _site_inject_eager(rt, *x),
+            lambda *x: rt.injection_queue(*x), (src, dst, ev)),
+        "ecmp_route": (
+            lambda *x: _site_route_eager(rt, queue, *x),
+            lambda *x: rt.route_step(queue, *x),
+            (qsrc[:1], qdst[:1], qev[:1])),
+    }
+
+
 def _device_ops(fn, calls: int = 10) -> float:
     """Device operations (kernels, memsets, copies) per call of ``fn``:
     the most that any of three traces holds."""
@@ -988,6 +1327,10 @@ def phase_sites() -> dict:
             lambda r, o, v, u: ops.set_own_bit_(r, o, v, unless=u),
             (m["rtx"], m["off"], m["valid"], m["ring"])),
     }
+    shapes = {name: f"F={F_MAIN}, W={W_MAIN}" for name in sites}
+    for name, site in _tick_form_sites().items():
+        sites[name] = site
+        shapes[name] = ", ".join(f"{tuple(a.shape)}" for a in site[2][:1])
     out = {}
     for name, (dense, own, args) in sites.items():
         got = own(args[0].clone(), *args[1:])
@@ -1007,7 +1350,7 @@ def phase_sites() -> dict:
                      "own_device_ops": _device_ops(lambda: own(*own_args))}
         r = out[name]
         say("3 sites", f"{name}: bitwise equal to the dense composition it "
-            f"replaced at F={F_MAIN}, W={W_MAIN}; dense {r['dense_ms'] * 1e3:.2f} us "
+            f"replaced at {shapes[name]}; dense {r['dense_ms'] * 1e3:.2f} us "
             f"({r['dense_device_ops']:.0f} device ops), own "
             f"{r['own_ms'] * 1e3:.2f} us ({r['own_device_ops']:.0f} device ops)")
     return out
@@ -1516,9 +1859,16 @@ def phase_collectives(batch: dict) -> dict:
                      gold[f"s{i}/delivered"], f"{nm} delivered")
         for k in ("inc_reduced", "inc_emits"):
             assert int(getattr(r.state, k)) == int(gold[f"s{i}/{k}"]), (nm, k)
-    group_ticks = sum(max(r.horizon for r, q in zip(rs, profs)
-                          if q == p) for p in dict.fromkeys(profs))
-    _assert_launches("inc", launches, group_ticks)
+    groups = {q: max(r.horizon for r, x in zip(rs, profs) if x == q)
+              for q in dict.fromkeys(profs)}
+    group_ticks = sum(groups.values())
+    # ai_full's group runs the NSCC forms, ai_base's (RCCC) does not
+    fmax = int(wls.src.shape[-1])
+    for i, k in enumerate(TICK_KERNELS):
+        want = sum(per_tick(q, fmax)[i] * n for q, n in groups.items())
+        assert launches[k] == want, \
+            f"collective sweep: {k} launched {launches[k]} times, want {want}"
+    assert all(launches[k] == 0 for k in ENTRY_KERNELS), launches
     cts = {nm: coll.collective_completion_ticks(r)
            for nm, r in zip(names, rs)}
     assert all(c > 0 for c in cts.values()), cts
@@ -3838,13 +4188,15 @@ def per_tick(profile, num_flows: int) -> tuple:
     ``profile`` with ``num_flows`` flows, from the tick's sites: the two
     SACK kernels and the retransmit pick once; the NACK mark and the
     RTO's set once unless every flow is ROD; RR_SLOTS's loss inference
-    two sets more."""
+    two sets more; NSCC's ACK update and Quick Adapt once under NSCC and
+    the hybrid; the two routing walks once."""
     from repro_torch.core.lb.schemes import LBScheme
-    from repro_torch.network.profile import DeliveryMode
+    from repro_torch.network.profile import CCAlgo, DeliveryMode
     rod = profile.delivery_modes(num_flows) == int(DeliveryMode.ROD)
     sel = int(not bool(rod.all()))
     rr = int(profile.lb == LBScheme.RR_SLOTS and bool(sel))
-    return (1, 1, sel, 2 * rr + sel, 1)
+    nscc = int(profile.cc in (CCAlgo.NSCC, CCAlgo.NSCC_AND_RCCC))
+    return (1, 1, sel, 2 * rr + sel, 1, nscc, nscc, 1, 1)
 
 
 class _Ticks:

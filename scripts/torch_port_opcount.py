@@ -5,7 +5,8 @@ kernel calls, on the CPU.
 Steps ``ai_full`` on a 3-tier k=6 fat tree (27 hosts, two permutations,
 F = 54 flows), as ``--batch`` scenarios of one tick (seeds 0x5EED + b),
 and counts, with a ``TorchDispatchMode``, the ATen
-operations each tick dispatches (views included), leaving out those
+operations each tick dispatches (views included, and the ones that are
+not views apart), leaving out those
 inside the ``repro_torch.kernels.ops`` entry points, which a card runs
 as one kernel each. On a card, each counted operation that is not a view
 is one device operation, so the count tracks
@@ -39,21 +40,27 @@ With ``--telemetry`` the same ticks are counted again with
 the probe carry's update (``repro_torch.network.telemetry``), split into
 probe ticks (a multiple of ``probe_every``) and the others.
 
+With ``--profile hpc`` or ``--profile ai_base`` the healthy tick runs
+that profile of the paper's table (hybrid NSCC + RCCC, all-ROD, REPS;
+RCCC) instead of ``ai_full``.
+
     PYTHONPATH=src python3 scripts/torch_port_opcount.py [--ticks 32] \
-        [--batch 1] [--faulted | --inc | --link llr|cbfc | --traffic] \
-        [--telemetry]
+        [--batch 1] [--profile ai_full|hpc|ai_base] \
+        [--faulted | --inc | --link llr|cbfc | --traffic] [--telemetry]
+
+``tick_op_counts`` is the count itself, for a test to call.
 
 Run with another tree's ``src`` on ``PYTHONPATH`` to count that tree.
 """
 from __future__ import annotations
 
 import argparse
+from contextlib import contextmanager
+from dataclasses import replace
 
 import numpy as np
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
-
-from dataclasses import replace
 
 from repro_torch.core.link import LinkConfig
 from repro_torch.kernels import ops
@@ -68,25 +75,100 @@ from repro_torch.network.topology import fat_tree3
 TEL_SPEC = telem.TelemetrySpec.on(probe_every=16, slots=16)
 KERNEL_ENTRIES = ("sack_fused", "sack_advance", "nack_mark",
                   "sack_fused_own", "sack_advance_own", "nack_mark_lanes_",
-                  "set_own_bit_", "clear_own_bit_")
+                  "set_own_bit_", "clear_own_bit_", "nscc_ack", "nscc_epoch",
+                  "ecmp_inject", "ecmp_route")
 
 
 class _Count(TorchDispatchMode):
     def __init__(self):
         super().__init__()
         self.n = 0
+        self.views = 0
         self.paused = False
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         if not self.paused:
             self.n += 1
+            self.views += bool(getattr(func, "is_view", False))
         return func(*args, **(kwargs or {}))
+
+
+@contextmanager
+def _entries_paused(count: _Count):
+    """Count nothing inside the ``ops`` kernel entry points while open
+    (those of them that the tree on the path has)."""
+    saved = {name: getattr(ops, name) for name in KERNEL_ENTRIES
+             if hasattr(ops, name)}
+
+    def pausing(fn):
+        def paused(*a, **kw):
+            count.paused = True
+            try:
+                return fn(*a, **kw)
+            finally:
+                count.paused = False
+        return paused
+    try:
+        for name, fn in saved.items():
+            setattr(ops, name, pausing(fn))
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(ops, name, fn)
+
+
+def healthy_workload(batch: int) -> fabric.Workload:
+    """The default count's traffic on ``fat_tree3(k=6, pods=3)``: two
+    permutations of its 27 hosts (F = 54 flows of 64 packets), as
+    ``batch`` scenarios."""
+    h = np.arange(27, dtype=np.int32)
+    return fabric.Workload.stack([fabric.Workload.of(
+        np.concatenate([h, h]),
+        np.concatenate([(h + 9) % 27, (h + 3) % 27]), 64,
+        device="cpu")] * batch)
+
+
+def tick_op_counts(g, wl, prof, p, fault, ticks: int, link=None,
+                   tel=None, non_view: "dict | None" = None) -> dict:
+    """{tick: ATen operations the tick dispatched outside the kernel
+    entry points} for ticks ``ticks`` .. ``2 * ticks - 1`` of ``prof``
+    on ``g`` (the first ``ticks`` warm the state up), on the CPU; given
+    a dict ``non_view``, also {tick: those of them that are not views}
+    there."""
+    B, F = (int(n) for n in wl.src.shape)
+    step = fabric.make_step(g, prof, p, F, lossy=fault.has_loss,
+                            hosty=fault.has_host_faults,
+                            corrupty=fault.has_corruption, link=link,
+                            tel=tel, device="cpu")
+    tel_up = (None if tel is None else
+              telem.make_update(tel, g.num_queues, F, "cpu"))
+    carry = (None if tel is None else
+             telem.create(tel, B, g.num_queues, F, "cpu"))
+    s = fabric.init_state(g, wl, prof, p, fabric.DEFAULT_SEED + np.arange(B),
+                          device="cpu", link=link)
+    count = _Count()
+    counts = {}
+    with _entries_paused(count):
+        for tick in range(2 * ticks):   # count past the start-up ticks
+            count.n = count.views = 0
+            with count:
+                s2, out = step(s, tick, wl, fault)
+                if tel_up is not None:
+                    carry = tel_up(carry, s2, out["probe"], tick)
+            s = s2
+            if tick >= ticks:
+                counts[tick] = count.n
+                if non_view is not None:
+                    non_view[tick] = count.n - count.views
+    return counts
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--ticks", type=int, default=32)
     ap.add_argument("--batch", type=int, default=1)
+    ap.add_argument("--profile", choices=("ai_full", "hpc", "ai_base"),
+                    default="ai_full")
     ap.add_argument("--faulted", action="store_true")
     ap.add_argument("--inc", action="store_true")
     ap.add_argument("--link", choices=("llr", "cbfc"), default=None)
@@ -94,7 +176,6 @@ def main() -> int:
     ap.add_argument("--telemetry", action="store_true")
     args = ap.parse_args()
     g = fat_tree3(k=16, pods=16) if args.traffic else fat_tree3(k=6, pods=3)
-    h = np.arange(27, dtype=np.int32)
     B = args.batch
     if args.inc:
         groups = [coll.build_workload(coll.CollectiveSpec(
@@ -121,10 +202,7 @@ def main() -> int:
                            dp=16, tp=16, layout="fsdp_tp")
         wl = fabric.Workload.stack([compile_step(plan, g).workload] * B)
     else:
-        wl = fabric.Workload.stack([fabric.Workload.of(
-            np.concatenate([h, h]),
-            np.concatenate([(h + 9) % 27, (h + 3) % 27]), 64,
-            device="cpu")] * B)
+        wl = healthy_workload(B)
     link = (None if args.link is None else
             LinkConfig.on(llr=True, cbfc=args.link == "cbfc"))
     if args.faulted:
@@ -144,23 +222,11 @@ def main() -> int:
         fault = FaultSchedule.stack([bad if b % 2 == 0 else ok
                                      for b in range(B)])
     else:
-        p, prof = fabric.SimParams(), TransportProfile.ai_full()
+        p = fabric.SimParams()
+        prof = getattr(TransportProfile, args.profile)()
         fault = FaultSchedule.healthy(g.num_queues, batch=B, device="cpu")
     if args.inc:
         prof = replace(prof, inc=True, name=prof.name + "+inc")
-    count = _Count()
-    for name in KERNEL_ENTRIES:
-        fn = getattr(ops, name, None)
-        if fn is None:
-            continue
-
-        def paused(*a, _fn=fn, **kw):
-            count.paused = True
-            try:
-                return _fn(*a, **kw)
-            finally:
-                count.paused = False
-        setattr(ops, name, paused)
     F = int(wl.src.shape[1])
     label = (f"{g.name} F={F} B={args.batch} {prof.name}"
              f"{' faulted' if args.faulted else ''}"
@@ -169,31 +235,15 @@ def main() -> int:
     specs = [None] + ([TEL_SPEC] if args.telemetry else [])
     per_tick = {}
     for tel in specs:
-        step = fabric.make_step(g, prof, p, F, lossy=fault.has_loss,
-                                hosty=fault.has_host_faults,
-                                corrupty=fault.has_corruption, link=link,
-                                tel=tel, device="cpu")
-        tel_up = (None if tel is None else
-                  telem.make_update(tel, g.num_queues, F, "cpu"))
-        carry = (None if tel is None else
-                 telem.create(tel, B, g.num_queues, F, "cpu"))
-        s = fabric.init_state(g, wl, prof, p,
-                              fabric.DEFAULT_SEED + np.arange(B),
-                              device="cpu", link=link)
-        counts = {}
-        for tick in range(2 * args.ticks):   # count past the start-up ticks
-            count.n = 0
-            with count:
-                s2, out = step(s, tick, wl, fault)
-                if tel_up is not None:
-                    carry = tel_up(carry, s2, out["probe"], tick)
-            s = s2
-            if tick >= args.ticks:
-                counts[tick] = count.n
+        non_view: dict = {}
+        counts = tick_op_counts(g, wl, prof, p, fault, args.ticks, link=link,
+                                tel=tel, non_view=non_view)
         per_tick[tel] = counts
         n = sum(counts.values()) / len(counts)
+        nv = sum(non_view.values()) / len(non_view)
         print(f"{label}{'' if tel is None else ' telemetry'}: {n:.1f} ATen "
-              f"ops per tick outside the kernel entry points (ticks "
+              f"ops ({nv:.1f} not views) per tick outside the kernel entry "
+              f"points (ticks "
               f"{args.ticks}..{2 * args.ticks - 1}, torch {torch.__version__},"
               f" CPU)")
     if args.telemetry:

@@ -19,6 +19,10 @@ calls) divide exactly. The two differ in the last bit for some RTTs
 — always takes the folded form, so the ``cwnd`` lane stays bitwise with
 the reference engine; ``window_delta`` takes the exact one by default
 (``folded_reciprocal``), as the kernel oracle ``nscc_update_ref`` needs.
+The tick's two hooks, ``on_ack_per_flow`` and ``quick_adapt``, are one
+kernel launch each on a card (``repro_torch.kernels.ops.nscc_ack`` /
+``nscc_epoch``; their plain versions, ``kernels.ref``, are the arithmetic
+this module ran before).
 
 The batch API over a pool of CCCs — ``classify``, ``on_acks``,
 ``on_loss`` and DFC's ``apply_dfc_penalty`` — is the reference's eager
@@ -166,15 +170,12 @@ def apply_dfc_penalty(state: NSCCState, params: NSCCParams,
 def on_ack_per_flow(state: NSCCState, params: NSCCParams, ecn: torch.Tensor,
                     rtt: torch.Tensor, active: torch.Tensor) -> NSCCState:
     """One ACK per CCC per round (the fabric tick): elementwise update,
-    with the gap in the compiled tick's folded form (module docstring)."""
-    delta = window_delta(state.cwnd, ecn, rtt.to(torch.float32), params,
-                         folded_reciprocal=True)
-    cwnd = torch.where(active, state.cwnd + delta, state.cwnd)
-    return replace(
-        state,
-        cwnd=cwnd.clamp(params.min_cwnd, params.max_cwnd),
-        epoch_acked=state.epoch_acked + active.to(torch.int32),
-    )
+    with the gap in the compiled tick's folded form (module docstring);
+    ``ops.nscc_ack``, one kernel launch on a card."""
+    from repro_torch.kernels import ops
+    cwnd, acked = ops.nscc_ack(state.cwnd, state.epoch_acked, active, ecn,
+                               rtt.to(torch.float32), params)
+    return replace(state, cwnd=cwnd, epoch_acked=acked)
 
 
 def on_loss_per_flow(state: NSCCState, count: torch.Tensor) -> NSCCState:
@@ -184,24 +185,12 @@ def on_loss_per_flow(state: NSCCState, count: torch.Tensor) -> NSCCState:
 
 def quick_adapt(state: NSCCState, params: NSCCParams, now: int) -> NSCCState:
     """Once per RTT-epoch: if losses were seen, rescale cwnd to the
-    delivered fraction (Sec. 3.3.1 QA / SMaRTT)."""
-    epoch_len = int(params.base_rtt * params.target_factor)
-    due = (now - state.epoch_tick) >= epoch_len
-    delivered = state.epoch_acked.to(torch.float32)
-    lost = state.epoch_lost.to(torch.float32)
-    frac = delivered / torch.clamp(delivered + lost, min=1.0)
-    lossy = due & (state.epoch_lost > 0)
-    new_cwnd = torch.where(
-        lossy,
-        (state.cwnd * frac).clamp(params.qa_min_frac * params.max_cwnd,
-                                  params.max_cwnd),
-        state.cwnd)
-    return NSCCState(
-        cwnd=torch.clamp(new_cwnd, min=params.min_cwnd),
-        epoch_acked=torch.where(due, 0, state.epoch_acked),
-        epoch_lost=torch.where(due, 0, state.epoch_lost),
-        epoch_tick=torch.where(due, now, state.epoch_tick),
-    )
+    delivered fraction (Sec. 3.3.1 QA / SMaRTT); ``ops.nscc_epoch``, one
+    kernel launch on a card. ``now`` is the tick, a Python int."""
+    from repro_torch.kernels import ops
+    return NSCCState(*ops.nscc_epoch(state.cwnd, state.epoch_acked,
+                                     state.epoch_lost, state.epoch_tick,
+                                     now, params))
 
 
 @dataclass(frozen=True)

@@ -46,9 +46,15 @@ SIGNATURES = {
     },
     "nscc_update": {
         "nscc_update_launch": (_P, _P, _P, _P, _P, _L) + (_F,) * 7 + (_P,),
+        "nscc_ack_launch": (_P,) * 7 + (_L,) + (_F,) * 8 + (_P,),
+        "nscc_epoch_launch": (_P,) * 8 + (_L, _I, _I) + (_F,) * 3 + (_P,),
     },
     "ecmp_hash": {
         "ecmp_select_launch": (_P, _P, _P, _P, _P, _L, _I, _P),
+        "ecmp_inject_launch": (_P, _L) * 3 + (_P, _L) + (_P,) * 3
+        + (_I,) * 3 + (_P,),
+        "ecmp_route_launch": (_P, _L) + (_P,) * 4 + (_I, _L) + (_P,) * 8
+        + (_I,) * 10 + (_P,),
     },
 }
 

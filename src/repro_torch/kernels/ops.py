@@ -3,8 +3,13 @@ plus the forms the port's tick runs): ``sack_fused``, ``nack_mark`` and
 ``sack_advance`` of the reference's tick; the own-bit SACK forms
 ``sack_fused_own`` / ``sack_advance_own``; the in-place marks on the
 retransmit ring, ``nack_mark_lanes_`` (the NACK site), ``set_own_bit_``
-and ``clear_own_bit_`` (one bit per row); and the batched
-``nscc_update`` and ``ecmp_select``.
+and ``clear_own_bit_`` (one bit per row); the batched ``nscc_update``
+and ``ecmp_select``; and their tick forms: ``nscc_ack`` (NSCC's
+per-flow ACK update) and ``nscc_epoch`` (Quick Adapt), which
+``core.cms.nscc``'s tick hooks call, and ``ecmp_inject`` / ``ecmp_route``
+(the injection and per-hop routing walks), which ``RoutingTables``
+calls. The tick forms return fresh tensors: the tick's previous state
+is read again after the step.
 
 The in-place forms (names ending in ``_``) write into the ring they are
 given and return it: no copy, no [F, W] plane, no allocation. The
@@ -29,15 +34,19 @@ its main path went through the kernels.
 """
 from __future__ import annotations
 
+import functools
+import math
+
 import torch
 
-from repro_torch.core.cms.nscc import NSCCParams
+from repro_torch.core.cms.nscc import NSCCParams, _f32_reciprocal
 from repro_torch.kernels import build, ref
 
 LAUNCHES = {"sack_fused": 0, "nack_mark": 0, "sack_advance": 0,
             "sack_fused_own": 0, "sack_advance_own": 0,
             "nack_mark_lanes": 0, "set_own_bit": 0, "clear_own_bit": 0,
-            "nscc_update": 0, "ecmp_select": 0}
+            "nscc_update": 0, "ecmp_select": 0, "nscc_ack": 0,
+            "nscc_epoch": 0, "ecmp_inject": 0, "ecmp_route": 0}
 
 MAX_WORDS = 32  # a ring row fits one warp: W <= 32 words (mp_range <= 1024)
 
@@ -62,10 +71,14 @@ def _on_cuda(*ts: "torch.Tensor | None") -> bool:
     return kind == "cuda"
 
 
-def _require(name: str, t: torch.Tensor, dtype: torch.dtype, shape):
+def _card(name: str, t: torch.Tensor) -> None:
     if t.device.type != "cuda":
         raise ValueError(f"{name} must be a CUDA tensor for the kernel, "
                          f"got {t.device}")
+
+
+def _require(name: str, t: torch.Tensor, dtype: torch.dtype, shape):
+    _card(name, t)
     if t.dtype != dtype:
         raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
@@ -262,9 +275,7 @@ def _lane_rows(name: str, t: torch.Tensor, dtype: torch.dtype, bsz: int,
                per: int) -> int:
     """Check [B, L] (or [L]) lanes on the card with a unit lane stride;
     return their scenario stride in elements."""
-    if t.device.type != "cuda":
-        raise ValueError(f"{name} must be a CUDA tensor for the kernel, "
-                         f"got {t.device}")
+    _card(name, t)
     if t.dtype != dtype:
         raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
     if t.dim() == 1:
@@ -348,6 +359,160 @@ def ecmp_select_cuda(src: torch.Tensor, dst: torch.Tensor, ev: torch.Tensor,
         _launch("ecmp_select", "ecmp_hash", src, src.data_ptr(),
                 dst.data_ptr(), ev.data_ptr(), salt.data_ptr(),
                 out.data_ptr(), n, int(fanout))
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _window_consts(params: NSCCParams) -> tuple:
+    """The ACK form's constants in its C order: target, the folded
+    reciprocal of the tick's gap, -md, quick_gain, ai, eps = 1e-6,
+    min_cwnd, max_cwnd (each rounded to f32 once, by ctypes, from the
+    Python double)."""
+    target = params.base_rtt * params.target_factor
+    return (target, _f32_reciprocal(target), -params.md, params.quick_gain,
+            params.ai, 1e-6, params.min_cwnd, params.max_cwnd)
+
+
+def nscc_ack_cuda(cwnd: torch.Tensor, epoch_acked: torch.Tensor,
+                  has_ack: torch.Tensor, ecn: torch.Tensor, rtt: torch.Tensor,
+                  params: NSCCParams):
+    """CUDA kernel: the tick's NSCC ACK update of [N] windows (one ACK
+    where ``has_ack``, the folded gap): (cwnd', epoch_acked')."""
+    _on_cuda(cwnd, epoch_acked, has_ack, ecn, rtt)
+    n = _lanes(cwnd)
+    _require("cwnd", cwnd, torch.float32, (n,))
+    _require("epoch_acked", epoch_acked, torch.int32, (n,))
+    _require("has_ack", has_ack, torch.bool, (n,))
+    _require("ecn", ecn, torch.bool, (n,))
+    _require("rtt", rtt, torch.float32, (n,))
+    cwnd_out, acked_out = torch.empty_like(cwnd), torch.empty_like(epoch_acked)
+    if n:
+        _launch("nscc_ack", "nscc_update", cwnd, cwnd.data_ptr(),
+                epoch_acked.data_ptr(), has_ack.data_ptr(), ecn.data_ptr(),
+                rtt.data_ptr(), cwnd_out.data_ptr(), acked_out.data_ptr(), n,
+                *_window_consts(params))
+    return cwnd_out, acked_out
+
+
+def _int32(name: str, v: int) -> int:
+    if not -2 ** 31 <= int(v) < 2 ** 31:
+        raise ValueError(f"{name} must fit an int32, got {v}")
+    return int(v)
+
+
+def nscc_epoch_cuda(cwnd: torch.Tensor, epoch_acked: torch.Tensor,
+                    epoch_lost: torch.Tensor, epoch_tick: torch.Tensor,
+                    now: int, params: NSCCParams):
+    """CUDA kernel: Quick Adapt of [N] windows at tick ``now`` (a Python
+    int): (cwnd', epoch_acked', epoch_lost', epoch_tick')."""
+    _on_cuda(cwnd, epoch_acked, epoch_lost, epoch_tick)
+    n = _lanes(cwnd)
+    _require("cwnd", cwnd, torch.float32, (n,))
+    for name, t in (("epoch_acked", epoch_acked), ("epoch_lost", epoch_lost),
+                    ("epoch_tick", epoch_tick)):
+        _require(name, t, torch.int32, (n,))
+    outs = (torch.empty_like(cwnd), torch.empty_like(epoch_acked),
+            torch.empty_like(epoch_lost), torch.empty_like(epoch_tick))
+    if n:
+        epoch_len = _int32("epoch_len",
+                           int(params.base_rtt * params.target_factor))
+        _launch("nscc_epoch", "nscc_update", cwnd, cwnd.data_ptr(),
+                epoch_acked.data_ptr(), epoch_lost.data_ptr(),
+                epoch_tick.data_ptr(), *(o.data_ptr() for o in outs), n,
+                _int32("now", now), epoch_len,
+                params.qa_min_frac * params.max_cwnd, params.min_cwnd,
+                params.max_cwnd)
+    return outs
+
+
+def _tables(tables, names, device) -> "list[torch.Tensor]":
+    """The named [R] or [R, C] int32 routing tables, checked on
+    ``device``."""
+    out = []
+    for name in names:
+        t = getattr(tables, name)
+        if t.device != device:
+            raise ValueError(f"routing table {name} is on {t.device}, the "
+                             f"lanes on {device}")
+        _require(name, t, torch.int32, t.shape)
+        out.append(t)
+    return out
+
+
+def _strided_lanes(name: str, t: torch.Tensor, n: int) -> int:
+    """Check [n] int32 lanes on the card, read in place at any element
+    stride; return the stride."""
+    _card(name, t)
+    if t.dtype != torch.int32:
+        raise TypeError(f"{name} must be torch.int32, got {t.dtype}")
+    if tuple(t.shape) != (n,):
+        raise ValueError(f"{name} must have shape ({n},), got "
+                         f"{tuple(t.shape)}")
+    return int(t.stride(0))
+
+
+def ecmp_inject_cuda(tables, src: torch.Tensor, dst: torch.Tensor,
+                     ev: torch.Tensor) -> torch.Tensor:
+    """CUDA kernel: the first queue of [N] packet lanes injected at host
+    ``src`` toward ``dst`` on entropy ``ev`` (``RoutingTables``); each
+    lane is read in place at its own element stride."""
+    _on_cuda(src, dst, ev)
+    n = _lanes(src)
+    strides = [_strided_lanes(name, t, n)
+               for name, t in (("src", src), ("dst", dst), ("ev", ev))]
+    leaf, hq, up1 = _tables(tables, ("host_leaf", "host_queue", "up1"),
+                            src.device)
+    hosts, (leaves, fan) = leaf.shape[0], up1.shape
+    if hq.shape != (hosts,) or fan != tables.g.fanout1:
+        raise ValueError("host_queue must be [H] and up1 [L, fanout1]")
+    out = torch.empty((n,), dtype=torch.int32, device=src.device)
+    if n:
+        _launch("ecmp_inject", "ecmp_hash", src, src.data_ptr(), strides[0],
+                dst.data_ptr(), strides[1], ev.data_ptr(), strides[2],
+                out.data_ptr(), n, leaf.data_ptr(), hq.data_ptr(),
+                up1.data_ptr(), hosts, leaves, fan)
+    return out
+
+
+def ecmp_route_cuda(tables, queue: torch.Tensor, src: torch.Tensor,
+                    dst: torch.Tensor, ev: torch.Tensor) -> torch.Tensor:
+    """CUDA kernel: the next queue of [B, P] queue-head lanes (or [P]:
+    B = 1) dequeued from ``queue``, whose ids are [P] (the same for every
+    scenario, read with a zero scenario stride) or [B, P]
+    (``RoutingTables``)."""
+    _on_cuda(queue, src, dst, ev)
+    if src.dim() not in (1, 2):
+        raise ValueError(f"lanes must be [B, P] or [P], got "
+                         f"{tuple(src.shape)}")
+    batch, per = (1, int(src.shape[0])) if src.dim() == 1 else src.shape
+    for name, t in (("src", src), ("dst", dst), ("ev", ev)):
+        _require(name, t, torch.int32, src.shape)
+    q_stride = 0 if tuple(queue.shape) == (per,) else per
+    _require("queue", queue, torch.int32,
+             (per,) if q_stride == 0 else src.shape)
+    three = bool(tables.three_level)
+    names = ("stage", "next_switch", "host_leaf", "host_queue", "host_pod",
+             "down1") + (("up2", "down2") if three else ())
+    tabs = _tables(tables, names, src.device)
+    stage, nxt, leaf, hq, pod, down1 = tabs[:6]
+    nq, hosts = stage.shape[0], leaf.shape[0]
+    d1_rows, d1_cols = down1.shape
+    up2, down2 = tabs[6:] if three else (None, None)
+    half, (d2_rows, d2_cols) = ((up2.shape[1], down2.shape) if three
+                                else (0, (0, 0)))
+    if (nxt.shape != (nq,) or hq.shape != (hosts,) or pod.shape != (hosts,)
+            or (three and up2.shape[0] != d1_rows)):
+        raise ValueError("routing tables of mismatched shapes")
+    out = torch.empty_like(src)
+    if batch * per:
+        _launch("ecmp_route", "ecmp_hash", src, queue.data_ptr(), q_stride,
+                src.data_ptr(), dst.data_ptr(), ev.data_ptr(),
+                out.data_ptr(), batch, per, stage.data_ptr(), nxt.data_ptr(),
+                leaf.data_ptr(), hq.data_ptr(), pod.data_ptr(),
+                down1.data_ptr(), None if up2 is None else up2.data_ptr(),
+                None if down2 is None else down2.data_ptr(), nq, hosts,
+                int(tables.up1.shape[0]), int(tables.aggs_per_pod), d1_rows,
+                d1_cols, half, d2_rows, d2_cols, int(three))
     return out
 
 
@@ -491,3 +656,72 @@ def ecmp_select(src, dst, ev, salt, fanout: int):
     if _on_cuda(src, dst, ev, salt):
         return ecmp_select_cuda(src, dst, ev, salt, fanout)
     return ref.ecmp_hash_ref(src, dst, ev, salt, fanout)
+
+
+def nscc_ack(cwnd, epoch_acked, has_ack, ecn, rtt, params: NSCCParams):
+    """The tick's NSCC ACK hook (Sec. 3.3.1) over per-flow lanes of one
+    shape ([F] or [B, F]): one ACK a flow where ``has_ack``, the gap in
+    the compiled tick's folded form, the window clipped to [min_cwnd,
+    max_cwnd], ``epoch_acked`` counting the ACK. Returns fresh (cwnd',
+    epoch_acked'); one launch on a card."""
+    args = (cwnd, epoch_acked, has_ack, ecn, rtt)
+    if _on_cuda(*args):
+        outs = nscc_ack_cuda(*(t.reshape(-1) for t in args), params)
+        return tuple(o.view(cwnd.shape) for o in outs)
+    return ref.nscc_ack_ref(*args, params)
+
+
+def nscc_epoch(cwnd, epoch_acked, epoch_lost, epoch_tick, now: int,
+               params: NSCCParams):
+    """The tick's Quick Adapt (Sec. 3.3.1) at tick ``now`` (a Python int)
+    over per-flow lanes of one shape. Returns fresh (cwnd',
+    epoch_acked', epoch_lost', epoch_tick'); one launch on a card."""
+    args = (cwnd, epoch_acked, epoch_lost, epoch_tick)
+    if _on_cuda(*args):
+        outs = nscc_epoch_cuda(*(t.reshape(-1) for t in args), now, params)
+        return tuple(o.view(cwnd.shape) for o in outs)
+    return ref.nscc_epoch_ref(*args, now, params)
+
+
+def _lane_shape(*ts: torch.Tensor) -> torch.Size:
+    """The broadcast shape of lanes that mostly share one shape: the
+    shape itself without ``torch.broadcast_shapes``'s Python walk."""
+    shape = ts[0].shape
+    if all(t.shape == shape for t in ts[1:]):
+        return shape
+    return torch.broadcast_shapes(*(t.shape for t in ts))
+
+
+def ecmp_inject(tables, src, dst, ev):
+    """The first queue of packets injected at host ``src`` toward ``dst``
+    on entropy value ``ev`` (Sec. 2.1), through ``tables`` (a
+    ``RoutingTables``); int32 lanes of broadcastable shapes, each read in
+    place where its elements lie at one stride (a strided slice such as
+    ``ev_set[..., 0]`` included). One launch on a card."""
+    if _on_cuda(src, dst, ev):
+        shape = _lane_shape(src, dst, ev)
+        lanes = (t.expand(shape).reshape(-1) for t in (src, dst, ev))
+        return ecmp_inject_cuda(tables, *lanes).view(shape)
+    return ref.ecmp_inject_ref(tables, src, dst, ev)
+
+
+def ecmp_route(tables, queue, src, dst, ev):
+    """The next queue of packets just dequeued from ``queue`` (DELIVERED
+    leaving a HOST queue; Sec. 2.1), through ``tables`` (a
+    ``RoutingTables``); int32 lanes of broadcastable shapes. A [P] queue
+    under [B, P] lanes — the tick's ids under its scenarios — is read
+    once for all scenarios. One launch on a card."""
+    if _on_cuda(queue, src, dst, ev):
+        shape = _lane_shape(src, dst, ev)
+        shared = queue.dim() == 1 and queue.shape == shape[-1:]
+        if not shared and queue.shape != shape:
+            shape = _lane_shape(queue, src, dst, ev)
+        per = shape[-1] if shape else 1
+        rows = math.prod(shape) // per if per else 0
+        src, dst, ev = (t.expand(shape).reshape(rows, per).contiguous()
+                        for t in (src, dst, ev))
+        if not shared:
+            queue = queue.expand(shape).reshape(rows, per)
+        return ecmp_route_cuda(tables, queue.contiguous(), src, dst,
+                               ev).view(shape)
+    return ref.ecmp_route_ref(tables, queue, src, dst, ev)

@@ -2,7 +2,9 @@
 reference's tick (SACK advance, fused SACK, NACK marking), the own-bit
 forms of the two SACK kernels and the in-place marks on the retransmit
 ring (the NACK lanes, one bit per row set or cleared) that the port's
-tick runs, and the batched NSCC window update and ECMP port selection.
+tick runs, the batched NSCC window update and ECMP port selection, and
+their tick forms: NSCC's per-flow ACK update and Quick Adapt epoch, and
+the ECMP injection and per-hop routing walks over ``RoutingTables``.
 The in-place forms end in ``_`` and return the ring they were given.
 
 These run for CPU tensors (the tests) and are what ``chip_smoke.py``
@@ -18,7 +20,8 @@ from repro_torch._u32 import from_u64, umod
 from repro_torch.core.cms.nscc import NSCCParams, window_delta
 from repro_torch.core.pds import bit_plane, shift_ring, trailing_ones
 from repro_torch.core.types import scenario_rows
-from repro_torch.network.ecmp import ecmp_hash
+from repro_torch.network.ecmp import DELIVERED, ecmp_hash
+from repro_torch.network.topology import Stage
 
 
 def nscc_update_ref(cwnd: torch.Tensor, ecn: torch.Tensor, rtt: torch.Tensor,
@@ -42,6 +45,104 @@ def ecmp_hash_ref(src: torch.Tensor, dst: torch.Tensor, ev: torch.Tensor,
     """Batched ECMP port selection (Sec. 2.1): H(src, dst, ev, salt) mod
     fanout over [N] int32 lanes (uint32 patterns), as int32."""
     return umod(ecmp_hash(src, dst, ev, salt), fanout)
+
+
+def nscc_ack_ref(cwnd: torch.Tensor, epoch_acked: torch.Tensor,
+                 has_ack: torch.Tensor, ecn: torch.Tensor, rtt: torch.Tensor,
+                 params: NSCCParams):
+    """The tick's NSCC ACK hook (``nscc.on_ack_per_flow``): one ACK a
+    flow where ``has_ack``, the gap in the compiled tick's folded form,
+    then the clip to [min_cwnd, max_cwnd]. Lanes of any one shape: cwnd /
+    rtt float32, epoch_acked int32, has_ack / ecn bool. Returns (cwnd',
+    epoch_acked')."""
+    delta = window_delta(cwnd, ecn, rtt, params, folded_reciprocal=True)
+    out = torch.where(has_ack, cwnd + delta, cwnd)
+    return (out.clamp(params.min_cwnd, params.max_cwnd),
+            epoch_acked + has_ack.to(torch.int32))
+
+
+def nscc_epoch_ref(cwnd: torch.Tensor, epoch_acked: torch.Tensor,
+                   epoch_lost: torch.Tensor, epoch_tick: torch.Tensor,
+                   now: int, params: NSCCParams):
+    """The tick's end-of-tick Quick Adapt (``nscc.quick_adapt``): where
+    the epoch is due, a lossy one rescales cwnd to the delivered
+    fraction (clipped to [qa_min_frac * max_cwnd, max_cwnd]) and the
+    counters reset; every window is floored at min_cwnd. Returns (cwnd',
+    epoch_acked', epoch_lost', epoch_tick')."""
+    epoch_len = int(params.base_rtt * params.target_factor)
+    due = (now - epoch_tick) >= epoch_len
+    delivered = epoch_acked.to(torch.float32)
+    lost = epoch_lost.to(torch.float32)
+    frac = delivered / torch.clamp(delivered + lost, min=1.0)
+    lossy = due & (epoch_lost > 0)
+    new_cwnd = torch.where(
+        lossy,
+        (cwnd * frac).clamp(params.qa_min_frac * params.max_cwnd,
+                            params.max_cwnd),
+        cwnd)
+    return (torch.clamp(new_cwnd, min=params.min_cwnd),
+            torch.where(due, 0, epoch_acked),
+            torch.where(due, 0, epoch_lost),
+            torch.where(due, now, epoch_tick))
+
+
+def ecmp_inject_ref(tables, src: torch.Tensor, dst: torch.Tensor,
+                    ev: torch.Tensor) -> torch.Tensor:
+    """``RoutingTables.injection_queue``: the first queue of a packet
+    injected at host ``src`` toward ``dst`` on entropy value ``ev``."""
+    sleaf = tables.host_leaf[src]
+    dleaf = tables.host_leaf[dst]
+    h = umod(ecmp_hash(src, dst, ev, sleaf), tables.g.fanout1)
+    up = tables.up1[sleaf, h]
+    return torch.where(sleaf == dleaf, tables.host_queue[dst], up)
+
+
+def ecmp_route_ref(tables, queue: torch.Tensor, src: torch.Tensor,
+                   dst: torch.Tensor, ev: torch.Tensor) -> torch.Tensor:
+    """``RoutingTables.route_step``: the next queue of packets just
+    dequeued from ``queue``; DELIVERED for packets leaving a HOST queue.
+    Table lookups clamp their row index where the reference relies on
+    JAX's clamped gather."""
+    st = tables.stage[queue]
+    sw = tables.next_switch[queue]  # switch the packet is *now* at
+    dleaf = tables.host_leaf[dst]
+
+    if not tables.three_level:
+        L = tables.up1.shape[0]
+        nxt_up1 = tables.down1[(sw - L).clamp(0, tables.down1.shape[0] - 1),
+                               dleaf]
+        nxt_down1 = tables.host_queue[dst]
+        out = torch.where(st == Stage.UP1, nxt_up1,
+                          torch.where(st == Stage.DOWN1, nxt_down1,
+                                      DELIVERED))
+        return torch.where(st == Stage.HOST, DELIVERED, out)
+
+    L = tables.up1.shape[0]            # leaves
+    A = tables.down1.shape[0]          # aggs
+    Lp = tables.leaves_per_pod
+    Ap = tables.aggs_per_pod
+    half = tables.up2.shape[1]
+    dpod = tables.host_pod[dst]
+
+    # at agg (arrived via UP1): same pod -> DOWN1; else UP2 via hash
+    agg = (sw - L).clamp(0, A - 1)
+    dleaf_local = dleaf % Lp
+    go_down = tables.down1[agg, dleaf_local]
+    go_up = tables.up2[agg, umod(ecmp_hash(src, dst, ev, sw), half)]
+    nxt_up1 = torch.where(torch.div(agg, Ap, rounding_mode="floor")
+                          == dpod, go_down, go_up)
+    # at core (arrived via UP2): down to the destination pod's agg
+    core = (sw - L - A).clamp(0, tables.down2.shape[0] - 1)
+    nxt_up2 = tables.down2[core, dpod]
+    # at agg (arrived via DOWN2) the next hop is go_down; at a leaf
+    # (arrived via DOWN1) it is the host downlink
+    nxt_down1 = tables.host_queue[dst]
+    return torch.where(
+        st == Stage.UP1, nxt_up1,
+        torch.where(st == Stage.UP2, nxt_up2,
+                    torch.where(st == Stage.DOWN2, go_down,
+                                torch.where(st == Stage.DOWN1, nxt_down1,
+                                            DELIVERED))))
 
 
 def sack_advance_ref(ring: torch.Tensor, base: torch.Tensor):

@@ -6,13 +6,18 @@ of (src, dst, EV, switch salt): ``p = H(x) mod n_ports``. The hash state
 is uint32 held as int32 bit patterns, so the modulus is unsigned
 (:func:`repro_torch._u32.umod`): a signed ``%`` by a fanout that is not a
 power of two is wrong whenever the hash has its top bit set.
+
+``RoutingTables.injection_queue`` and ``route_step`` are the tick's
+routing walks; their arithmetic is ``repro_torch.kernels.ref``'s
+``ecmp_inject_ref`` / ``ecmp_route_ref``, and on a card each call is one
+launch of its CUDA kernel (``kernels.ops.ecmp_inject`` / ``ecmp_route``).
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch._u32 import c32, shr, umod
-from repro_torch.network.topology import QueueGraph, Stage
+from repro_torch._u32 import c32, shr
+from repro_torch.network.topology import QueueGraph
 
 DELIVERED = -2
 INVALID = -1
@@ -55,55 +60,16 @@ class RoutingTables:
 
     def injection_queue(self, src: torch.Tensor, dst: torch.Tensor,
                         ev: torch.Tensor) -> torch.Tensor:
-        """First queue for a packet injected at host `src` toward `dst`."""
-        sleaf = self.host_leaf[src]
-        dleaf = self.host_leaf[dst]
-        h = umod(ecmp_hash(src, dst, ev, sleaf), self.g.fanout1)
-        up = self.up1[sleaf, h]
-        return torch.where(sleaf == dleaf, self.host_queue[dst], up)
+        """First queue for a packet injected at host `src` toward `dst`
+        (``ops.ecmp_inject``: one kernel launch on a card)."""
+        from repro_torch.kernels import ops
+        return ops.ecmp_inject(self, src, dst, ev)
 
     def route_step(self, queue: torch.Tensor, src: torch.Tensor,
                    dst: torch.Tensor, ev: torch.Tensor) -> torch.Tensor:
         """Next queue for packets just dequeued from `queue`; DELIVERED
-        for packets leaving a HOST queue. Table lookups clamp their row
-        index where the reference relies on JAX's clamped gather."""
-        st = self.stage[queue]
-        sw = self.next_switch[queue]  # switch the packet is *now* at
-        dleaf = self.host_leaf[dst]
-
-        if not self.three_level:
-            L = self.up1.shape[0]
-            nxt_up1 = self.down1[(sw - L).clamp(0, self.down1.shape[0] - 1),
-                                 dleaf]
-            nxt_down1 = self.host_queue[dst]
-            out = torch.where(st == Stage.UP1, nxt_up1,
-                              torch.where(st == Stage.DOWN1, nxt_down1,
-                                          DELIVERED))
-            return torch.where(st == Stage.HOST, DELIVERED, out)
-
-        L = self.up1.shape[0]            # leaves
-        A = self.down1.shape[0]          # aggs
-        Lp = self.leaves_per_pod
-        Ap = self.aggs_per_pod
-        half = self.up2.shape[1]
-        dpod = self.host_pod[dst]
-
-        # at agg (arrived via UP1): same pod -> DOWN1; else UP2 via hash
-        agg = (sw - L).clamp(0, A - 1)
-        dleaf_local = dleaf % Lp
-        go_down = self.down1[agg, dleaf_local]
-        go_up = self.up2[agg, umod(ecmp_hash(src, dst, ev, sw), half)]
-        nxt_up1 = torch.where(torch.div(agg, Ap, rounding_mode="floor")
-                              == dpod, go_down, go_up)
-        # at core (arrived via UP2): down to the destination pod's agg
-        core = (sw - L - A).clamp(0, self.down2.shape[0] - 1)
-        nxt_up2 = self.down2[core, dpod]
-        # at agg (arrived via DOWN2) the next hop is go_down; at a leaf
-        # (arrived via DOWN1) it is the host downlink
-        nxt_down1 = self.host_queue[dst]
-        return torch.where(
-            st == Stage.UP1, nxt_up1,
-            torch.where(st == Stage.UP2, nxt_up2,
-                        torch.where(st == Stage.DOWN2, go_down,
-                                    torch.where(st == Stage.DOWN1, nxt_down1,
-                                                DELIVERED))))
+        for packets leaving a HOST queue (``ops.ecmp_route``: one kernel
+        launch on a card). Table lookups clamp their row index where the
+        reference relies on JAX's clamped gather."""
+        from repro_torch.kernels import ops
+        return ops.ecmp_route(self, queue, src, dst, ev)

@@ -13,6 +13,8 @@ import torch
 
 from repro_torch.core.cms.nscc import NSCCParams
 from repro_torch.kernels import ops, ref
+from repro_torch.network.ecmp import RoutingTables
+from repro_torch.network.topology import fat_tree3, leaf_spine
 
 RNG = np.random.default_rng(2207)
 
@@ -240,3 +242,89 @@ def test_ecmp_kernel_matches_plain_on_card(cuda, n, fanout):
                 .astype(np.int32), cuda) for _ in range(4)]
     assert _same_bits(ops.ecmp_select_cuda(*lanes, fanout),
                       ref.ecmp_hash_ref(*lanes, fanout))
+
+
+def _tick_nscc_lanes(n, p, device):
+    """The tick forms' per-flow lanes as numpy-seeded tensors: windows
+    below 1, at min_cwnd and max_cwnd and NaN; RTTs 0, on the target,
+    just below it, +-inf and NaN; ACKs, ECN marks, epoch counters (lost
+    0 on half the lanes) and epoch starts near ``now = 1000``, whose age
+    crosses ``epoch_len`` (ages epoch_len - 1, epoch_len, epoch_len + 1
+    first)."""
+    target = np.float32(p.base_rtt * p.target_factor)
+    epoch_len = int(p.base_rtt * p.target_factor)
+    cwnd = RNG.uniform(0.25, p.max_cwnd * 1.2, n).astype(np.float32)
+    rtt = RNG.uniform(0.0, 6.0 * float(target), n).astype(np.float32)
+    edge = np.asarray([0.0, target, np.nextafter(target, np.float32(0)),
+                       np.inf, -np.inf, np.nan, 1e-7, -0.0], np.float32)
+    for j, v in enumerate(edge):
+        rtt[j::97] = v
+    cwnd[3::101], cwnd[5::211] = 0.5, np.nan
+    cwnd[6::53], cwnd[7::59] = p.min_cwnd, p.max_cwnd
+    acked = RNG.integers(0, 40, n).astype(np.int32)
+    lost = np.where(RNG.random(n) < 0.5, 0, RNG.integers(1, 9, n))
+    tick = 1000 - epoch_len + RNG.integers(-3, 4, n)
+    tick[:3] = 1000 - np.asarray([epoch_len - 1, epoch_len, epoch_len + 1])[:n]
+    ack, ecn = RNG.integers(0, 2, n) > 0, RNG.integers(0, 2, n) > 0
+    return tuple(_t(a, device) for a in (
+        cwnd, acked, ack, ecn, rtt, lost.astype(np.int32),
+        tick.astype(np.int32)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 33, 2048, 8192])
+@pytest.mark.parametrize("kw", PARAM_SETS, ids=str)
+def test_nscc_tick_kernels_match_plain_on_card(cuda, n, kw):
+    """``nscc_ack`` and ``nscc_epoch`` against their plain versions, and
+    through the dispatch on the tick's [B, F] lanes."""
+    p = NSCCParams(**kw)
+    cwnd, acked, ack, ecn, rtt, lost, tick = _tick_nscc_lanes(n, p, cuda)
+    got = ops.nscc_ack_cuda(cwnd, acked, ack, ecn, rtt, p)
+    want = ref.nscc_ack_ref(cwnd, acked, ack, ecn, rtt, p)
+    assert all(_same_bits(g, w) for g, w in zip(got, want))
+    for now in (999, 1000, 1001):
+        got = ops.nscc_epoch_cuda(cwnd, acked, lost, tick, now, p)
+        want = ref.nscc_epoch_ref(cwnd, acked, lost, tick, now, p)
+        assert len(got) == 4
+        assert all(_same_bits(g, w) for g, w in zip(got, want)), now
+    if n % 4 == 0:
+        lanes = [t.view(4, -1) for t in (cwnd, acked, ack, ecn, rtt)]
+        got = ops.nscc_ack(*lanes, p)
+        assert got[0].shape == (4, n // 4)
+        assert all(_same_bits(g.reshape(-1), w)
+                   for g, w in zip(got, ref.nscc_ack_ref(
+                       cwnd, acked, ack, ecn, rtt, p)))
+
+
+TOPOLOGIES = [("fat_tree3", (16, 16)), ("fat_tree3", (6, 3)),
+              ("leaf_spine", (4, 4, 4)), ("leaf_spine", (3, 3, 2))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("make,args", TOPOLOGIES, ids=str)
+@pytest.mark.parametrize("b", [1, 4])
+def test_ecmp_tick_kernels_match_plain_on_card(cuda, make, args, b):
+    """``ecmp_inject`` over [B, F] flow lanes (the EV lane also as a
+    strided view, as STATIC's ``ev_set[..., 0]`` is) and ``ecmp_route``
+    over [B, Q] queue-head lanes under the [Q] queue ids, and under
+    random [B, Q] ids, against the plain versions."""
+    g = {"fat_tree3": fat_tree3, "leaf_spine": leaf_spine}[make](*args)
+    rt = RoutingTables(g, cuda)
+    f, q, h = 2048, g.num_queues, g.num_hosts
+    src, dst = (_t(RNG.integers(0, h, (b, f)).astype(np.int32), cuda)
+                for _ in range(2))
+    ev_set = _t(_words((b, f, 3)), cuda)
+    for ev in (ev_set[..., 0], ev_set[..., 1].contiguous()):
+        got = ops.ecmp_inject(rt, src, dst, ev)
+        assert _same_bits(got, ref.ecmp_inject_ref(rt, src, dst, ev))
+    before = ops.LAUNCHES["ecmp_route"]
+    qsrc, qdst = (_t(RNG.integers(0, h, (b, q)).astype(np.int32), cuda)
+                  for _ in range(2))
+    qev = _t(_words((b, q)), cuda)
+    qidx = torch.arange(q, dtype=torch.int32, device=cuda)
+    rand = _t(RNG.integers(0, q, (b, q)).astype(np.int32), cuda)
+    for queue in (qidx, rand):
+        got = ops.ecmp_route_cuda(rt, queue, qsrc, qdst, qev)
+        assert _same_bits(got, ref.ecmp_route_ref(rt, queue, qsrc, qdst,
+                                                  qev))
+    assert ops.LAUNCHES["ecmp_route"] == before + 2

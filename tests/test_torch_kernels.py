@@ -14,7 +14,10 @@ import pytest
 import torch
 
 from repro.kernels import ops as jops
+from repro_torch.core.cms.nscc import NSCCParams
 from repro_torch.kernels import ops, ref
+from repro_torch.network.ecmp import RoutingTables
+from repro_torch.network.topology import fat_tree3
 
 RNG = np.random.default_rng(1107)
 
@@ -180,17 +183,37 @@ def test_cpu_tensors_take_the_plain_versions_and_count_nothing():
     ops.nack_mark_lanes_(ring, base, lanes, lanes, _t(np.ones(3, bool)))
     ops.set_own_bit_(ring, off, ok, unless=ring.clone())
     ops.clear_own_bit_(ring, off, ok)
+    cwnd, n32 = _t(np.full((2, 4), 9.5, np.float32)), _t(np.ones((2, 4),
+                                                               np.int32))
+    flag = _t(np.ones((2, 4), bool))
+    p = NSCCParams()
+    for got, want in zip(ops.nscc_ack(cwnd, n32, flag, flag, cwnd, p),
+                         ref.nscc_ack_ref(cwnd, n32, flag, flag, cwnd, p)):
+        assert torch.equal(got, want)
+    for got, want in zip(ops.nscc_epoch(cwnd, n32, n32, n32, 40, p),
+                         ref.nscc_epoch_ref(cwnd, n32, n32, n32, 40, p)):
+        assert torch.equal(got, want)
+    rt = RoutingTables(fat_tree3(k=4, pods=2), "cpu")
+    hosts, queue = n32 * 3, _t(np.arange(4, dtype=np.int32))
+    assert torch.equal(ops.ecmp_inject(rt, n32, hosts, n32),
+                       ref.ecmp_inject_ref(rt, n32, hosts, n32))
+    assert torch.equal(ops.ecmp_route(rt, queue, n32, hosts, n32),
+                       ref.ecmp_route_ref(rt, queue, n32, hosts, n32))
     assert ops.LAUNCHES == before
 
 
 @pytest.mark.parametrize("kernel", ["sack_fused", "sack_advance",
                                     "nack_mark", "sack_fused_own",
                                     "sack_advance_own", "nack_mark_lanes",
-                                    "set_own_bit", "clear_own_bit"])
+                                    "set_own_bit", "clear_own_bit",
+                                    "nscc_ack", "nscc_epoch", "ecmp_inject",
+                                    "ecmp_route"])
 def test_kernels_refuse_cpu_tensors(kernel):
     ring, base = _t(_sack_rows(8, 4)), _t(_words(8))
     lanes = _t(np.zeros(3, np.int32))
     off, ok = _t(np.zeros(8, np.int32)), _t(np.ones(8, bool))
+    cwnd = _t(np.ones(8, np.float32))
+    rt = RoutingTables(fat_tree3(k=4, pods=2), "cpu")
     args = {"sack_fused": (ring, base, ring, ring),
             "sack_advance": (ring, base),
             "nack_mark": (ring, lanes, lanes, _t(np.ones(3, bool))),
@@ -199,6 +222,10 @@ def test_kernels_refuse_cpu_tensors(kernel):
             "nack_mark_lanes": (ring, base, lanes, lanes,
                                 _t(np.ones(3, bool))),
             "set_own_bit": (ring, off, ok, ring),
-            "clear_own_bit": (ring, off, ok)}[kernel]
+            "clear_own_bit": (ring, off, ok),
+            "nscc_ack": (cwnd, off, ok, ok, cwnd, NSCCParams()),
+            "nscc_epoch": (cwnd, off, off, off, 3, NSCCParams()),
+            "ecmp_inject": (rt, lanes, lanes, lanes),
+            "ecmp_route": (rt, lanes, lanes, lanes, lanes)}[kernel]
     with pytest.raises(ValueError, match="CUDA tensor"):
         getattr(ops, f"{kernel}_cuda")(*args)

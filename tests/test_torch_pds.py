@@ -17,6 +17,7 @@ from repro.network import topology as jtopo
 from repro_torch import _u32
 from repro_torch.core import pds
 from repro_torch.core.lb.schemes import _mix32
+from repro_torch.kernels import ops
 from repro_torch.network import ecmp, fabric, topology
 
 RNG = np.random.default_rng(2311)
@@ -153,21 +154,35 @@ def test_topology_copy_builds_the_same_graph(make, args):
 
 
 @pytest.mark.parametrize("make,args", [("leaf_spine", (3, 3, 2)),
-                                          ("fat_tree3", (6, 3))])
+                                       ("fat_tree3", (6, 3)),
+                                       ("leaf_spine", (4, 4, 4))])
 def test_routing_tables_match(make, args):
-    """Fanout 3 on both: a signed % would disagree wherever the hash has
-    its top bit set."""
+    """Fanout 3 on the first two: a signed % would disagree wherever the
+    hash has its top bit set; 4 (a mask) on the third. Random lanes
+    through the methods, then the kernel entry points they call
+    (``ops.ecmp_inject`` / ``ops.ecmp_route``) on the tick's shapes:
+    [B, F] injection lanes, and [B, Q] queue-head lanes under the [Q]
+    queue ids that every scenario shares."""
     g, jg = getattr(topology, make)(*args), getattr(jtopo, make)(*args)
-    assert g.fanout1 == 3
+    assert g.fanout1 == (4 if args == (4, 4, 4) else 3)
     rt, jrt = ecmp.RoutingTables(g, "cpu"), jecmp.RoutingTables(jg)
     n = 4096
     src = RNG.integers(0, g.num_hosts, n).astype(np.int32)
     dst = RNG.integers(0, g.num_hosts, n).astype(np.int32)
     ev = RNG.integers(0, 2 ** 16, n).astype(np.int32)
-    _same(rt.injection_queue(_t(src), _t(dst), _t(ev)),
-          jrt.injection_queue(jnp.asarray(src), jnp.asarray(dst),
-                              jnp.asarray(ev)))
+    want = jrt.injection_queue(jnp.asarray(src), jnp.asarray(dst),
+                               jnp.asarray(ev))
+    _same(rt.injection_queue(_t(src), _t(dst), _t(ev)), want)
+    _same(ops.ecmp_inject(rt, *(_t(a).view(4, -1) for a in (src, dst, ev)))
+          .reshape(-1), want)
     queue = RNG.integers(0, g.num_queues, n).astype(np.int32)
     _same(rt.route_step(_t(queue), _t(src), _t(dst), _t(ev)),
           jrt.route_step(jnp.asarray(queue), jnp.asarray(src),
                          jnp.asarray(dst), jnp.asarray(ev)))
+    q, b = g.num_queues, 3
+    lanes = [RNG.integers(0, g.num_hosts, (b, q)).astype(np.int32)
+             for _ in range(2)] + [_words((b, q)).view(np.int32)]
+    qidx = np.arange(q, dtype=np.int32)
+    got = ops.ecmp_route(rt, _t(qidx), *(_t(a) for a in lanes))
+    assert got.shape == (b, q)
+    _same(got, jrt.route_step(jnp.asarray(qidx), *map(jnp.asarray, lanes)))

@@ -20,6 +20,7 @@ from repro.core.lb import schemes as jlb
 from repro.network import profile as jprof
 from repro_torch.core.cms import nscc
 from repro_torch.core.lb import schemes as lb
+from repro_torch.kernels import ops
 from repro_torch.network import profile
 
 RNG = np.random.default_rng(4242)
@@ -73,7 +74,10 @@ def test_nscc_hooks_bitwise(kw):
     folded, against JAX's jitted one; the policy hooks — what the tick
     calls — against the reference's hooks under jax.jit, as its engine
     runs them (XLA folds the gap's division by the constant target into
-    a reciprocal multiply)."""
+    a reciprocal multiply), and so the kernel entry points the hooks
+    call, ``ops.nscc_ack`` and ``ops.nscc_epoch``, on [B, F] lanes (the
+    epoch's edges: ``now - epoch_tick`` at ``epoch_len - 1`` and at
+    ``epoch_len`` on the lanes whose epoch began at tick 59)."""
     cwnd, rtt, ecn, active, acked, lost, etick = _nscc_lanes()
     jp, tp = jnscc.NSCCParams(**kw), nscc.NSCCParams(**kw)
     jwd = (jnp.asarray(cwnd), jnp.asarray(ecn), jnp.asarray(rtt))
@@ -91,6 +95,13 @@ def test_nscc_hooks_bitwise(kw):
                               jnp.asarray(rtt))
     t1 = tpol.on_ack(ts, _t(active), _t(ecn), _t(rtt))
     _same_dc(t1, j1)
+    # the kernel entry point the hook calls, on the tick's [B, F] lanes
+    lanes = [_t(a).view(4, -1) for a in (cwnd, acked, active, ecn, rtt)]
+    for name, got, want in zip(("cwnd", "epoch_acked"),
+                               ops.nscc_ack(*lanes, tp),
+                               (j1.cwnd, j1.epoch_acked)):
+        assert got.shape == (4, F // 4)
+        _same(got.reshape(-1), want, f"ops.nscc_ack {name}")
     count = RNG.integers(0, 4, F).astype(np.int32)
     j2, t2 = jpol.on_nack(j1, jnp.asarray(count)), tpol.on_nack(t1, _t(count))
     _same_dc(t2, j2)
@@ -98,9 +109,14 @@ def test_nscc_hooks_bitwise(kw):
     j3 = jpol.on_timeout(j2, jnp.asarray(stalled))
     t3 = tpol.on_timeout(t2, _t(stalled))
     _same_dc(t3, j3)
-    for now in (0, 11, 12, 57):
-        _same_dc(tpol.end_of_tick(t3, now),
-                 jpol.end_of_tick(j3, jnp.int32(now)))
+    epoch_len = int(tp.base_rtt * tp.target_factor)
+    for now in (0, 11, 12, 57, 59 + epoch_len - 1, 59 + epoch_len):
+        want = jpol.end_of_tick(j3, jnp.int32(now))
+        _same_dc(tpol.end_of_tick(t3, now), want)
+        lanes = [getattr(t3, f.name).view(4, -1) for f in fields(t3)]
+        got = nscc.NSCCState(*(t.reshape(-1) for t in ops.nscc_epoch(
+            *lanes, now, tp)))
+        _same_dc(got, want)
     inflight = RNG.integers(0, 60, F).astype(np.int32)
     _same(tpol.on_send_gate(t3, _t(inflight)),
           jpol.on_send_gate(j3, jnp.asarray(inflight)))
