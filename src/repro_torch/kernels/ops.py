@@ -30,7 +30,9 @@ kernels themselves; handing one a CPU tensor raises.
 
 ``LAUNCHES[name]`` counts the launches of each kernel (a plain int,
 incremented only where the kernel is launched), so a run can show that
-its main path went through the kernels.
+its main path went through the kernels. Each tick form's dispatch (its
+checks, allocations and launch) is one ``kernels.<name>`` span of
+``repro_torch.spans``, named as its ``LAUNCHES`` key.
 """
 from __future__ import annotations
 
@@ -39,6 +41,7 @@ import math
 
 import torch
 
+from repro_torch import spans
 from repro_torch.core.cms.nscc import NSCCParams, _f32_reciprocal
 from repro_torch.kernels import build, ref
 
@@ -556,12 +559,13 @@ def sack_advance_own(ring, base, off, ok):
     (PSN - base, int32) where ``ok`` (bool): (ring', base', adv,
     already). Rows may carry leading scenario axes ([..., N, W] ring,
     [..., N] lanes): one launch over all of them."""
-    args = _flat_rows(ring, base, off, ok)
-    if _on_cuda(*args):
-        outs = sack_advance_own_cuda(*args)
-    else:
-        outs = ref.sack_advance_own_ref(*args)
-    return _unflat(outs, ring.shape, base.shape)
+    with spans.span("kernels.sack_advance_own"):
+        args = _flat_rows(ring, base, off, ok)
+        if _on_cuda(*args):
+            outs = sack_advance_own_cuda(*args)
+        else:
+            outs = ref.sack_advance_own_ref(*args)
+        return _unflat(outs, ring.shape, base.shape)
 
 
 def sack_fused_own(ring, base, rtx, off, ok, clear):
@@ -569,13 +573,14 @@ def sack_fused_own(ring, base, rtx, off, ok, clear):
     ``ok``, then bit ``off - adv`` of the shifted rtx cleared where
     ``clear`` (bool): (ring', base', rtx', adv, already). Rows may carry
     leading scenario axes, as in ``sack_advance_own``."""
-    r, b, o, k, c = _flat_rows(ring, base, off, ok, clear)
-    x = rtx.reshape(-1, rtx.shape[-1])
-    if _on_cuda(r, b, x, o, k, c):
-        outs = sack_fused_own_cuda(r, b, x, o, k, c)
-    else:
-        outs = ref.sack_fused_own_ref(r, b, x, o, k, c)
-    return _unflat(outs, ring.shape, base.shape)
+    with spans.span("kernels.sack_fused_own"):
+        r, b, o, k, c = _flat_rows(ring, base, off, ok, clear)
+        x = rtx.reshape(-1, rtx.shape[-1])
+        if _on_cuda(r, b, x, o, k, c):
+            outs = sack_fused_own_cuda(r, b, x, o, k, c)
+        else:
+            outs = ref.sack_fused_own_ref(r, b, x, o, k, c)
+        return _unflat(outs, ring.shape, base.shape)
 
 
 def nack_mark(rtx, flow, off, valid):
@@ -594,10 +599,11 @@ def nack_mark_lanes_(rtx, base, flow, psn, nack, rod=None):
     non-ROD flow, sets bit psn[b, l] - base[b, flow[b, l]] (uint32 wrap)
     of scenario b's row flow[b, l] where that offset is in [0, W*32); a
     lane never reaches another scenario's rows. Returns ``rtx``."""
-    if _on_cuda(rtx, base, flow, psn, nack, rod):
-        _own_ring(rtx)
-        return nack_mark_lanes_cuda(rtx, base, flow, psn, nack, rod)
-    return ref.nack_mark_lanes_ref_(rtx, base, flow, psn, nack, rod)
+    with spans.span("kernels.nack_mark_lanes"):
+        if _on_cuda(rtx, base, flow, psn, nack, rod):
+            _own_ring(rtx)
+            return nack_mark_lanes_cuda(rtx, base, flow, psn, nack, rod)
+        return ref.nack_mark_lanes_ref_(rtx, base, flow, psn, nack, rod)
 
 
 def _own_ring(rtx: torch.Tensor) -> None:
@@ -613,26 +619,28 @@ def set_own_bit_(rtx, off, valid, unless=None):
     where valid[i] and 0 <= off[i] < W*32 and, given the [..., N, W]
     ring ``unless``, where that bit of unless is clear. Leading
     scenario axes are one launch over all rows. Returns ``rtx``."""
-    _own_ring(rtx)
-    r, o, v = _flat_rows(rtx, off, valid)
-    u = None if unless is None else unless.reshape(r.shape)
-    if _on_cuda(r, o, v, u):
-        set_own_bit_cuda(r, o, v, u)
-    else:
-        ref.set_own_bit_ref_(r, o, v, u)
-    return rtx
+    with spans.span("kernels.set_own_bit"):
+        _own_ring(rtx)
+        r, o, v = _flat_rows(rtx, off, valid)
+        u = None if unless is None else unless.reshape(r.shape)
+        if _on_cuda(r, o, v, u):
+            set_own_bit_cuda(r, o, v, u)
+        else:
+            ref.set_own_bit_ref_(r, o, v, u)
+        return rtx
 
 
 def clear_own_bit_(rtx, off, valid):
     """In place on ``rtx`` [..., N, W]: row i clears bit off[i] (int32)
     where valid[i] and 0 <= off[i] < W*32. Returns ``rtx``."""
-    _own_ring(rtx)
-    r, o, v = _flat_rows(rtx, off, valid)
-    if _on_cuda(r, o, v):
-        clear_own_bit_cuda(r, o, v)
-    else:
-        ref.clear_own_bit_ref_(r, o, v)
-    return rtx
+    with spans.span("kernels.clear_own_bit"):
+        _own_ring(rtx)
+        r, o, v = _flat_rows(rtx, off, valid)
+        if _on_cuda(r, o, v):
+            clear_own_bit_cuda(r, o, v)
+        else:
+            ref.clear_own_bit_ref_(r, o, v)
+        return rtx
 
 
 def nscc_update(cwnd, ecn, rtt, count, params: NSCCParams = NSCCParams()):
@@ -664,11 +672,12 @@ def nscc_ack(cwnd, epoch_acked, has_ack, ecn, rtt, params: NSCCParams):
     the compiled tick's folded form, the window clipped to [min_cwnd,
     max_cwnd], ``epoch_acked`` counting the ACK. Returns fresh (cwnd',
     epoch_acked'); one launch on a card."""
-    args = (cwnd, epoch_acked, has_ack, ecn, rtt)
-    if _on_cuda(*args):
-        outs = nscc_ack_cuda(*(t.reshape(-1) for t in args), params)
-        return tuple(o.view(cwnd.shape) for o in outs)
-    return ref.nscc_ack_ref(*args, params)
+    with spans.span("kernels.nscc_ack"):
+        args = (cwnd, epoch_acked, has_ack, ecn, rtt)
+        if _on_cuda(*args):
+            outs = nscc_ack_cuda(*(t.reshape(-1) for t in args), params)
+            return tuple(o.view(cwnd.shape) for o in outs)
+        return ref.nscc_ack_ref(*args, params)
 
 
 def nscc_epoch(cwnd, epoch_acked, epoch_lost, epoch_tick, now: int,
@@ -676,11 +685,12 @@ def nscc_epoch(cwnd, epoch_acked, epoch_lost, epoch_tick, now: int,
     """The tick's Quick Adapt (Sec. 3.3.1) at tick ``now`` (a Python int)
     over per-flow lanes of one shape. Returns fresh (cwnd',
     epoch_acked', epoch_lost', epoch_tick'); one launch on a card."""
-    args = (cwnd, epoch_acked, epoch_lost, epoch_tick)
-    if _on_cuda(*args):
-        outs = nscc_epoch_cuda(*(t.reshape(-1) for t in args), now, params)
-        return tuple(o.view(cwnd.shape) for o in outs)
-    return ref.nscc_epoch_ref(*args, now, params)
+    with spans.span("kernels.nscc_epoch"):
+        args = (cwnd, epoch_acked, epoch_lost, epoch_tick)
+        if _on_cuda(*args):
+            outs = nscc_epoch_cuda(*(t.reshape(-1) for t in args), now, params)
+            return tuple(o.view(cwnd.shape) for o in outs)
+        return ref.nscc_epoch_ref(*args, now, params)
 
 
 def _lane_shape(*ts: torch.Tensor) -> torch.Size:
@@ -698,11 +708,12 @@ def ecmp_inject(tables, src, dst, ev):
     ``RoutingTables``); int32 lanes of broadcastable shapes, each read in
     place where its elements lie at one stride (a strided slice such as
     ``ev_set[..., 0]`` included). One launch on a card."""
-    if _on_cuda(src, dst, ev):
-        shape = _lane_shape(src, dst, ev)
-        lanes = (t.expand(shape).reshape(-1) for t in (src, dst, ev))
-        return ecmp_inject_cuda(tables, *lanes).view(shape)
-    return ref.ecmp_inject_ref(tables, src, dst, ev)
+    with spans.span("kernels.ecmp_inject"):
+        if _on_cuda(src, dst, ev):
+            shape = _lane_shape(src, dst, ev)
+            lanes = (t.expand(shape).reshape(-1) for t in (src, dst, ev))
+            return ecmp_inject_cuda(tables, *lanes).view(shape)
+        return ref.ecmp_inject_ref(tables, src, dst, ev)
 
 
 def ecmp_route(tables, queue, src, dst, ev):
@@ -711,17 +722,18 @@ def ecmp_route(tables, queue, src, dst, ev):
     ``RoutingTables``); int32 lanes of broadcastable shapes. A [P] queue
     under [B, P] lanes — the tick's ids under its scenarios — is read
     once for all scenarios. One launch on a card."""
-    if _on_cuda(queue, src, dst, ev):
-        shape = _lane_shape(src, dst, ev)
-        shared = queue.dim() == 1 and queue.shape == shape[-1:]
-        if not shared and queue.shape != shape:
-            shape = _lane_shape(queue, src, dst, ev)
-        per = shape[-1] if shape else 1
-        rows = math.prod(shape) // per if per else 0
-        src, dst, ev = (t.expand(shape).reshape(rows, per).contiguous()
-                        for t in (src, dst, ev))
-        if not shared:
-            queue = queue.expand(shape).reshape(rows, per)
-        return ecmp_route_cuda(tables, queue.contiguous(), src, dst,
-                               ev).view(shape)
-    return ref.ecmp_route_ref(tables, queue, src, dst, ev)
+    with spans.span("kernels.ecmp_route"):
+        if _on_cuda(queue, src, dst, ev):
+            shape = _lane_shape(src, dst, ev)
+            shared = queue.dim() == 1 and queue.shape == shape[-1:]
+            if not shared and queue.shape != shape:
+                shape = _lane_shape(queue, src, dst, ev)
+            per = shape[-1] if shape else 1
+            rows = math.prod(shape) // per if per else 0
+            src, dst, ev = (t.expand(shape).reshape(rows, per).contiguous()
+                            for t in (src, dst, ev))
+            if not shared:
+                queue = queue.expand(shape).reshape(rows, per)
+            return ecmp_route_cuda(tables, queue.contiguous(), src, dst,
+                                   ev).view(shape)
+        return ref.ecmp_route_ref(tables, queue, src, dst, ev)

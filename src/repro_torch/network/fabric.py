@@ -54,6 +54,12 @@ int32 bit patterns (``_u32``; the 20-bit CBFC counters are masked to
 ``CTR_MOD``); JAX's clamped gathers and dropped scatters are written
 out as clamps and masks.
 
+Each ``simulate_batch`` call is a ``sweep`` span of ``repro_torch.spans``
+(recorded while ``torch.profiler`` runs), holding the driver's build,
+chunk issue and collect, each tick, the tick's numbered sections as
+phases, its fault draws and its policy calls; ``DRIVER_COUNTS`` counts
+the group ticks the chunk loops issue and those under the masked body.
+
 The dense one-hots of the reference stay ([B, F, E] ACK/NACK lanes,
 [B, H, F] host pick, [B, F, Q] deliveries, [B, n, n] enqueue ranks,
 [B, Q, n] enqueue counts), so parity is easy to reason about; they are
@@ -67,7 +73,7 @@ from dataclasses import dataclass, fields, replace
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, spans
 from repro_torch._u32 import c32, shr, ult
 from repro_torch.core import inc, pds
 from repro_torch.core.link import CTR_MOD, LinkConfig
@@ -560,14 +566,16 @@ def make_step(g: QueueGraph, profile: TransportProfile, p: SimParams, F: int,
             # drops); stalled NICs only stop injecting. A dead
             # destination does not freeze its source, which retransmits
             # into the dead downlink until the PDC teardown.
-            hd = fault.host_dead_at(tick)                       # [B, H]
-            nic = fault.nic_stalled_at(tick)
-            dead = dead | (q_is_host & hd[:, q_host])
-            src_dead = hd.gather(-1, flow_src.long())           # [B, F]
-            dst_dead = hd.gather(-1, flow_dst.long())
-            inj_frozen = src_dead | nic.gather(-1, flow_src.long())
+            with spans.span("tick.faults"):
+                hd = fault.host_dead_at(tick)                   # [B, H]
+                nic = fault.nic_stalled_at(tick)
+                dead = dead | (q_is_host & hd[:, q_host])
+                src_dead = hd.gather(-1, flow_src.long())       # [B, F]
+                dst_dead = hd.gather(-1, flow_dst.long())
+                inj_frozen = src_dead | nic.gather(-1, flow_src.long())
 
         # ------------------------------------------------ 1. control events
+        spans.phase("tick.1_control")
         evs = s.ev_buf[:, slot]                               # [B, E, 6]
         et, ef, ep, ee, ec, ets = (evs[..., k].contiguous()
                                    for k in range(EVF_FIELDS))
@@ -629,10 +637,12 @@ def make_step(g: QueueGraph, profile: TransportProfile, p: SimParams, F: int,
         inflight = torch.clamp(s.inflight - retire, min=0)
         ack_ecn = _pick(hot_ack, ec).to(torch.bool)
         rtt = (tick - _pick(hot_ack, ets)).to(torch.float32)
-        cc_st = cc_pol.on_ack(s.cc, has_ack, ack_ecn, rtt)
-        cc_st = cc_pol.on_nack(cc_st, nack_count)
-        lbs = lb_pol.on_ack(s.lb, hot_ack, ef, ee, ec, is_ack, is_nack,
-                            flow_ok=(~rod_mask) if mixed_rod else None)
+        with spans.span("policy.cc"):
+            cc_st = cc_pol.on_ack(s.cc, has_ack, ack_ecn, rtt)
+            cc_st = cc_pol.on_nack(cc_st, nack_count)
+        with spans.span("policy.lb"):
+            lbs = lb_pol.on_ack(s.lb, hot_ack, ef, ee, ec, is_ack, is_nack,
+                                flow_ok=(~rod_mask) if mixed_rod else None)
 
         # progress clock: any ACK freshens the flow; with backoff on, it
         # also resets the flow's RTO to its base value
@@ -689,6 +699,7 @@ def make_step(g: QueueGraph, profile: TransportProfile, p: SimParams, F: int,
         ev_buf[:, slot, :, EVF_TYPE] = EV_NONE
 
         # ------------------------------------------- 2. RCCC receiver grants
+        spans.phase("tick.2_grants")
         done = src_track.base >= wl.size
         # dependency lane: eligible once flow dep[f] source-completed
         safe_dep = torch.where(wl.dep >= 0, wl.dep, 0).long()
@@ -697,9 +708,11 @@ def make_step(g: QueueGraph, profile: TransportProfile, p: SimParams, F: int,
         if pdc_on:
             # a torn-down PDC holds no receiver credit claim
             active = active & ~s.quarantined
-        cc_st = cc_pol.on_grant_tick(cc_st, flow_dst, active, H)
+        with spans.span("policy.cc"):
+            cc_st = cc_pol.on_grant_tick(cc_st, flow_dst, active, H)
 
         # --------------------------------------------------- 3. injection
+        spans.phase("tick.3_injection")
         has_rtx = (rtx != 0).any(dim=-1)
         if all_rod:
             has_rtx = torch.zeros_like(has_rtx)
@@ -723,12 +736,14 @@ def make_step(g: QueueGraph, profile: TransportProfile, p: SimParams, F: int,
             next_psn = torch.where(rewind, src_track.base, next_psn)
             inflight = torch.where(rewind, 0, inflight)
             last_progress = torch.where(rewind, tick, last_progress)
-        win_ok = cc_pol.on_send_gate(cc_st, inflight)
+        with spans.span("policy.cc"):
+            win_ok = cc_pol.on_send_gate(cc_st, inflight)
         if any_rod:
             # in-order CACK gate (ROD): the ordered window may not race
             # more than one congestion window past the cumulative ACK
-            rod_win = torch.floor(cc_pol.cwnd_view(cc_st, (B, F))).to(
-                I32).clamp(min=1)
+            with spans.span("policy.cc"):
+                rod_win = torch.floor(cc_pol.cwnd_view(cc_st, (B, F))).to(
+                    I32).clamp(min=1)
             rod_ok = (next_psn - src_track.base) < rod_win
             win_ok = win_ok & (rod_ok | ~rod_mask)
         mp_ok = (next_psn - src_track.base) < p.mp_range
@@ -758,11 +773,12 @@ def make_step(g: QueueGraph, profile: TransportProfile, p: SimParams, F: int,
         use_rtx = injected & has_rtx & (rtx_off >= 0)
         psn_out = torch.where(use_rtx, rtx_psn, next_psn)
 
-        lbs2, ev_sel = lb_pol.select(lbs, psn_out, tick)
-        if mixed_rod:
-            # ROD lanes are pinned to their static single-path EV and do
-            # not advance the spraying state
-            ev_sel = torch.where(rod_mask, lb_pol.static_ev(lbs), ev_sel)
+        with spans.span("policy.lb"):
+            lbs2, ev_sel = lb_pol.select(lbs, psn_out, tick)
+            if mixed_rod:
+                # ROD lanes are pinned to their static single-path EV and
+                # do not advance the spraying state
+                ev_sel = torch.where(rod_mask, lb_pol.static_ev(lbs), ev_sel)
         inj_q = rt.injection_queue(flow_src, flow_dst, ev_sel)
 
         def commit_injection(injected, use_rtx, rtx, next_psn, lbs,
@@ -783,7 +799,8 @@ def make_step(g: QueueGraph, profile: TransportProfile, p: SimParams, F: int,
                 lbs = replace(lbs, last_ev=torch.where(injected, ev_sel,
                                                        lbs.last_ev))
             inflight = inflight + injected.to(I32)
-            cc_st = cc_pol.on_inject(cc_st, injected)
+            with spans.span("policy.cc"):
+                cc_st = cc_pol.on_inject(cc_st, injected)
             retransmits = s.retransmits + use_rtx.sum(dim=-1, dtype=I32)
             return rtx, next_psn, lbs, inflight, cc_st, retransmits
 
@@ -793,6 +810,7 @@ def make_step(g: QueueGraph, profile: TransportProfile, p: SimParams, F: int,
                                  inflight, cc_st)
 
         # ------------------------------------------------- 4. forwarding
+        spans.phase("tick.4_forwarding")
         nonempty = s.q_len > 0
         # `txq`: the queues whose head frame reaches the next hop this
         # tick; `leaves`: those whose head frame leaves its queue. With
@@ -811,9 +829,10 @@ def make_step(g: QueueGraph, profile: TransportProfile, p: SimParams, F: int,
             # silent drop charged here); with LLR it stays at the head of
             # its queue for a replay window and is resent, delayed,
             # never dropped.
-            uc = _mix32(_mix32(c32(tick) ^ fault.seed[:, None]
-                               * c32(0x85EBCA77)) ^ queue_mix)
-            corrupt_hit = txq & ult(uc, loss_threshold(fault.corrupt_p))
+            with spans.span("tick.faults"):
+                uc = _mix32(_mix32(c32(tick) ^ fault.seed[:, None]
+                                   * c32(0x85EBCA77)) ^ queue_mix)
+                corrupt_hit = txq & ult(uc, loss_threshold(fault.corrupt_p))
             txq = txq & ~corrupt_hit
             if llr:
                 leaves = txq
@@ -848,6 +867,7 @@ def make_step(g: QueueGraph, profile: TransportProfile, p: SimParams, F: int,
         forward = txq & (nq >= 0)
 
         # --------------------------------------------- 5. delivery at FEPs
+        spans.phase("tick.5_delivery")
         dtrim = deliver & ((pm & META_TRIMMED) != 0)
         ddata = deliver & ~dtrim
         # one host downlink per destination => at most one delivery per
@@ -890,9 +910,11 @@ def make_step(g: QueueGraph, profile: TransportProfile, p: SimParams, F: int,
         # discard row past every scenario's, instead of a [B, F, Q] pass
         seen = torch.zeros((B * F + 1,), dtype=torch.bool, device=dev)
         seen[torch.where(deliver, bc["flow0"] + pf, B * F).long()] = True
-        cc_st = cc_pol.on_rx_seen(cc_st, seen[:B * F].view(B, F))
+        with spans.span("policy.cc"):
+            cc_st = cc_pol.on_rx_seen(cc_st, seen[:B * F].view(B, F))
 
         # ------------------------------------- 6. OOO-count loss inference
+        spans.phase("tick.6_ooo")
         ooo_fire = bc["no_f"]
         if p.ooo_threshold > 0:
             dist = pds.ooo_distance(dst_track)
@@ -909,6 +931,7 @@ def make_step(g: QueueGraph, profile: TransportProfile, p: SimParams, F: int,
         inc_st = s.inc
         inc_reduced, inc_emits = s.inc_reduced, s.inc_emits
         if inc_on:
+            spans.phase("tick.6b_inc")
             member, grank, gsz = inc_members(wl)
             into_host = (forward & (rt.stage[nq.clamp(0, Q - 1).long()]
                                     == int(Stage.HOST))
@@ -922,6 +945,7 @@ def make_step(g: QueueGraph, profile: TransportProfile, p: SimParams, F: int,
             forward = forward & ~inc_absorb
 
         # ------------------------------------------------- 7. enqueue phase
+        spans.phase("tick.7_enqueue")
         # candidates: forwarded packets (Q lanes, minus INC absorptions)
         # + injections (F lanes)
         cand_q = torch.cat([torch.where(forward, nq, -1),
@@ -939,10 +963,11 @@ def make_step(g: QueueGraph, profile: TransportProfile, p: SimParams, F: int,
         if lossy:
             # gray links: a counter-hash draw per (seed, tick, enqueue
             # lane), compared unsigned with the lane's target threshold
-            u = _mix32(_mix32(c32(tick) ^ fault.seed[:, None]
-                              * c32(0x9E3779B1)) ^ lane_mix)
-            is_lost = cvalid & ult(u, loss_threshold(fault.loss_p)
-                                   .gather(-1, safe_cq))
+            with spans.span("tick.faults"):
+                u = _mix32(_mix32(c32(tick) ^ fault.seed[:, None]
+                                  * c32(0x9E3779B1)) ^ lane_mix)
+                is_lost = cvalid & ult(u, loss_threshold(fault.loss_p)
+                                       .gather(-1, safe_cq))
             cvalid = cvalid & ~is_lost
         credit_stall_ticks = s.credit_stall_ticks
         if cbfc:
@@ -1022,6 +1047,7 @@ def make_step(g: QueueGraph, profile: TransportProfile, p: SimParams, F: int,
             drops = drops + dst_gone.sum(dim=-1, dtype=I32)
 
         # ------------------------------------------- 8. schedule control TC
+        spans.phase("tick.8_control_tc")
         out_slot = (tick + p.ack_return_ticks) % D
         # lanes [0, Q): ACKs from deliveries and from INC absorptions
         # (the switch ACKs an absorbed child as a delivery would; a ROD
@@ -1049,6 +1075,7 @@ def make_step(g: QueueGraph, profile: TransportProfile, p: SimParams, F: int,
             [new_type, new_flow, new_psn, new_val, new_ecn, new_ts], dim=-1)
 
         # ------------------------------------------------- 9. timeouts + QA
+        spans.phase("tick.9_timeouts")
         timeout_fire = timeout_rod  # ROD rewinds already count as expiries
         if not all_rod:
             # sent-but-unacked PSNs with nothing in flight still need the
@@ -1072,11 +1099,14 @@ def make_step(g: QueueGraph, profile: TransportProfile, p: SimParams, F: int,
             # the window
             inflight = torch.where(stalled, 0, inflight)
             last_progress = torch.where(stalled, tick, last_progress)
-            cc_st = cc_pol.on_timeout(cc_st, stalled)
+            with spans.span("policy.cc"):
+                cc_st = cc_pol.on_timeout(cc_st, stalled)
             timeout_fire = timeout_fire | stalled
-        cc_st = cc_pol.end_of_tick(cc_st, tick)
+        with spans.span("policy.cc"):
+            cc_st = cc_pol.end_of_tick(cc_st, tick)
 
         # ---------------------------------------- 10. recovery loop lanes
+        spans.phase("tick.10_recovery")
         if backoff_on:
             # exponential backoff on expiry: an f32 multiply, truncated
             # to int32 as XLA's convert does, capped
@@ -1099,7 +1129,8 @@ def make_step(g: QueueGraph, profile: TransportProfile, p: SimParams, F: int,
                 timeout_evict = bc["no_f"]
             evict_ev = torch.where(nack_evict, nack_ev, lbs.last_ev)
             evict_valid = (nack_evict | timeout_evict) & (evict_ev >= 0)
-            lbs = lb_pol.evict(lbs, evict_ev, evict_valid)
+            with spans.span("policy.lb"):
+                lbs = lb_pol.evict(lbs, evict_ev, evict_valid)
             ev_evictions = ev_evictions + evict_valid.sum(dim=-1, dtype=I32)
         timeouts = s.timeouts + timeout_fire.sum(dim=-1, dtype=I32)
         ticks_degraded = s.ticks_degraded + dead.any(dim=-1).to(I32)
@@ -1170,6 +1201,7 @@ def make_step(g: QueueGraph, profile: TransportProfile, p: SimParams, F: int,
                     tx_drop=corrupt_hit if corrupty and not llr else None,
                     llr=corrupt_hit if corrupty and llr else None)
             out["probe"] = probe
+        spans.phase(None)
         return ns, out
 
     return step
@@ -1338,6 +1370,17 @@ class SimResult:
 # driver: chunked host loop
 # --------------------------------------------------------------------------
 
+#: group ticks the chunk loops issued, and those of them under the
+#: masked body (a chunk after some scenario stopped): plain ints, counted
+#: once a chunk
+DRIVER_COUNTS = {"ticks": 0, "masked_ticks": 0}
+
+
+def reset_driver_counts() -> None:
+    for k in DRIVER_COUNTS:
+        DRIVER_COUNTS[k] = 0
+
+
 def _quiescent(s: SimState, wl: Workload) -> torch.Tensor:
     """Per-scenario quiescence ([B] bool): every source CACK-complete or
     quarantined (a torn-down PDC can make no progress), nothing
@@ -1456,34 +1499,51 @@ class ChunkLoop:
 
     def issue(self) -> None:
         """Queue the next chunk's ticks on the device."""
-        s, st, wl, fault = self.s, self.st, self.wl, self.fault
-        live = (torch.as_tensor(~self.stop, device=wl.src.device)
-                if self.stop.any() else None)
-        outs = []
-        for tick in range(self.tick0, min(self.tick0 + self.chunk,
-                                          self.budget)):
-            ns, out = self.step(s, tick, wl, fault)
-            if st is not None:
-                nst = _stats_update(st, s, ns, wl, tick, self.w0, self.w1)
-                if self.tel_up is not None:
-                    nst["tel"] = self.tel_up(st["tel"], ns, out["probe"],
-                                             tick)
-                st = nst if live is None else _where_rows(live, nst, st)
-            else:
-                outs.append(out)
-            s = ns if live is None else _where_rows(live, ns, s)
-        self.s, self.st = s, st
-        self.tick0 += self.chunk
-        self._quiet, self._outs = _quiescent(s, wl), outs
+        with spans.span("driver.issue"):
+            s, st, wl, fault = self.s, self.st, self.wl, self.fault
+            live = (torch.as_tensor(~self.stop, device=wl.src.device)
+                    if self.stop.any() else None)
+            ticks = range(self.tick0, min(self.tick0 + self.chunk,
+                                          self.budget))
+            DRIVER_COUNTS["ticks"] += len(ticks)
+            if live is not None:
+                DRIVER_COUNTS["masked_ticks"] += len(ticks)
+            outs = []
+            for tick in ticks:
+                with spans.span("tick"):
+                    ns, out = self.step(s, tick, wl, fault)
+                if st is not None:
+                    with spans.span("driver.stats"):
+                        nst = _stats_update(st, s, ns, wl, tick, self.w0,
+                                            self.w1)
+                        if self.tel_up is not None:
+                            nst["tel"] = self.tel_up(st["tel"], ns,
+                                                     out["probe"], tick)
+                    if live is None:
+                        st = nst
+                    else:
+                        with spans.span("driver.mask"):
+                            st = _where_rows(live, nst, st)
+                else:
+                    outs.append(out)
+                if live is None:
+                    s = ns
+                else:
+                    with spans.span("driver.mask"):
+                        s = _where_rows(live, ns, s)
+            self.s, self.st = s, st
+            self.tick0 += self.chunk
+            self._quiet, self._outs = _quiescent(s, wl), outs
 
     def collect(self) -> None:
         """Read the issued chunk's quiescence flags (and, on the full
         tier, its out lanes) and stop the scenarios that are done."""
-        if self.st is not None:
-            quiet = self._quiet.cpu().numpy()
-        else:
-            lanes, quiet = _chunk_to_host(self._outs, self._quiet)
-            self.chunks.append(lanes)
+        with spans.span("driver.collect"):
+            if self.st is not None:
+                quiet = self._quiet.cpu().numpy()
+            else:
+                lanes, quiet = _chunk_to_host(self._outs, self._quiet)
+                self.chunks.append(lanes)
         self._quiet = self._outs = None
         nstop = self.stop | quiet | (self.tick0 >= self.budget)
         self.horizon[nstop & ~self.stop] = min(self.tick0, self.budget)
@@ -1517,49 +1577,52 @@ def _results(loop: ChunkLoop, sizes: np.ndarray, budget: int, trace: str,
     """One SimResult per scenario of a finished chunk loop: its own state
     lanes (views of the batch's), horizon and stat or trace lanes, and
     its probe lanes' :class:`~repro_torch.network.telemetry.FabricTrace`."""
-    s, st, chunks, horizon = loop.s, loop.st, loop.chunks, loop.horizon
-    B, F = sizes.shape
-    if trace == "stats":
-        host = {k: v.cpu().numpy() for k, v in st.items() if k != "tel"}
-        traces = [None] * B
-        if tel is not None:
-            Q = int(s.q_len.shape[1])
-            th = {k: v.cpu().numpy() for k, v in st["tel"].items()}
-            traces = [telem.FabricTrace.from_lanes(
-                tel, telem.lanes(tel, Q, F, {k: v[b] for k, v in th.items()}),
-                int(horizon[b])) for b in range(B)]
-        return [SimResult(
-            state=take_lane(s, b), msg_size=sizes[b],
-            horizon=int(horizon[b]), max_ticks=budget, trace="stats",
-            stat_completion=host["comp"][b],
-            stat_src_completion=host["src_comp"][b],
-            stat_win_delivered=host["win_delivered"][b],
-            goodput_window=(None if goodput_window is None
-                            else tuple(int(w) for w in goodput_window)),
-            qlen_peak=int(host["qlen_peak"][b]),
-            stat_abandon_tick=int(host["abandon_tick"][b]),
-            telemetry=traces[b])
-            for b in range(B)]
-    if chunks:
-        full = {k: np.concatenate([c[k] for c in chunks]) for k in _FULL_LANES}
-    else:      # a zero budget runs no tick
-        empty = {"delivered": (np.int32, (F,)), "cwnd": (np.float32, (F,)),
-                 "qlen_max": (np.int32, ()), "rx_base": (np.uint32, (F,)),
-                 "src_base": (np.uint32, (F,))}
-        full = {k: np.zeros((0, B) + shp, dt) for k, (dt, shp) in
-                empty.items()}
-    out = []
-    for b in range(B):
-        h = int(horizon[b])
-        lane = {k: np.ascontiguousarray(v[:h, b]) for k, v in full.items()}
-        out.append(SimResult(
-            state=take_lane(s, b), msg_size=sizes[b], horizon=h,
-            max_ticks=budget, trace="full",
-            delivered_per_tick=lane["delivered"],
-            cwnd_per_tick=lane["cwnd"], qlen_max=lane["qlen_max"],
-            rx_base_per_tick=lane["rx_base"],
-            src_base_per_tick=lane["src_base"]))
-    return out
+    with spans.span("driver.results"):
+        s, st, chunks, horizon = loop.s, loop.st, loop.chunks, loop.horizon
+        B, F = sizes.shape
+        if trace == "stats":
+            host = {k: v.cpu().numpy() for k, v in st.items() if k != "tel"}
+            traces = [None] * B
+            if tel is not None:
+                Q = int(s.q_len.shape[1])
+                th = {k: v.cpu().numpy() for k, v in st["tel"].items()}
+                traces = [telem.FabricTrace.from_lanes(
+                    tel, telem.lanes(tel, Q, F,
+                                     {k: v[b] for k, v in th.items()}),
+                    int(horizon[b])) for b in range(B)]
+            return [SimResult(
+                state=take_lane(s, b), msg_size=sizes[b],
+                horizon=int(horizon[b]), max_ticks=budget, trace="stats",
+                stat_completion=host["comp"][b],
+                stat_src_completion=host["src_comp"][b],
+                stat_win_delivered=host["win_delivered"][b],
+                goodput_window=(None if goodput_window is None
+                                else tuple(int(w) for w in goodput_window)),
+                qlen_peak=int(host["qlen_peak"][b]),
+                stat_abandon_tick=int(host["abandon_tick"][b]),
+                telemetry=traces[b])
+                for b in range(B)]
+        if chunks:
+            full = {k: np.concatenate([c[k] for c in chunks])
+                    for k in _FULL_LANES}
+        else:      # a zero budget runs no tick
+            empty = {"delivered": (np.int32, (F,)), "cwnd": (np.float32, (F,)),
+                     "qlen_max": (np.int32, ()), "rx_base": (np.uint32, (F,)),
+                     "src_base": (np.uint32, (F,))}
+            full = {k: np.zeros((0, B) + shp, dt) for k, (dt, shp) in
+                    empty.items()}
+        out = []
+        for b in range(B):
+            h = int(horizon[b])
+            lane = {k: np.ascontiguousarray(v[:h, b]) for k, v in full.items()}
+            out.append(SimResult(
+                state=take_lane(s, b), msg_size=sizes[b], horizon=h,
+                max_ticks=budget, trace="full",
+                delivered_per_tick=lane["delivered"],
+                cwnd_per_tick=lane["cwnd"], qlen_max=lane["qlen_max"],
+                rx_base_per_tick=lane["rx_base"],
+                src_base_per_tick=lane["src_base"]))
+        return out
 
 
 def _group_loop(g: QueueGraph, wls: Workload, profile: TransportProfile,
@@ -1570,17 +1633,18 @@ def _group_loop(g: QueueGraph, wls: Workload, profile: TransportProfile,
     ``dev``, from tick 0. The fault statics of the tick are the
     schedule's (``statics`` overrides them with a whole batch's, for a
     shard of it)."""
-    F = int(wls.src.shape[1])
-    wls = wls.to(dev)
-    if statics is None:
-        statics = fault_statics(fault)
-    step = make_step(g, profile, p, F, tel=tel, link=link, device=dev,
-                     **statics)
-    s0 = init_state(g, wls, profile, p, seeds, device=dev, link=link)
-    w0, w1 = (0, budget) if goodput_window is None else map(int,
-                                                            goodput_window)
-    return ChunkLoop(step, s0, wls, fault.to(dev), budget, p.chunk_ticks,
-                     trace, w0, w1, tel=tel)
+    with spans.span("driver.build"):
+        F = int(wls.src.shape[1])
+        wls = wls.to(dev)
+        if statics is None:
+            statics = fault_statics(fault)
+        step = make_step(g, profile, p, F, tel=tel, link=link, device=dev,
+                         **statics)
+        s0 = init_state(g, wls, profile, p, seeds, device=dev, link=link)
+        w0, w1 = (0, budget) if goodput_window is None else map(int,
+                                                                goodput_window)
+        return ChunkLoop(step, s0, wls, fault.to(dev), budget, p.chunk_ticks,
+                         trace, w0, w1, tel=tel)
 
 
 def fault_statics(fault: FaultSchedule) -> dict:
@@ -1764,23 +1828,25 @@ def simulate_batch(g, wls, profile=None, p: "SimParams | None" = None, *,
         raise ValueError(
             "failed=/faults= with per-scenario topologies requires all "
             "graphs to share num_queues — run unequal groups separately")
-    fault = None if mixed_q else as_schedule(g.num_queues, failed, faults,
-                                             B, g_num_hosts=g.num_hosts)
-    if profiles is None and graphs is None:
-        return _run_batch(g, wls, profile, p, fault, seeds, trace, budget,
-                          goodput_window, dev, link, tel, devs)
-    per_g = graphs if graphs is not None else [g] * B
-    per_q = profiles if profiles is not None else [profile] * B
-    groups: "dict[tuple, tuple]" = {}
-    for i, (gr, q) in enumerate(zip(per_g, per_q)):
-        groups.setdefault((id(gr), q), (gr, q, []))[2].append(i)
-    results: "list[SimResult | None]" = [None] * B
-    for gr, q, idxs in groups.values():
-        sel = torch.as_tensor(idxs)
-        sub_fault = (FaultSchedule.healthy(gr.num_queues, len(idxs))
-                     if fault is None else fault.lanes(sel))
-        rs = _run_batch(gr, wls.lanes(sel), q, p, sub_fault, seeds[idxs],
-                        trace, budget, goodput_window, dev, link, tel, devs)
-        for i, r in zip(idxs, rs):
-            results[i] = r
-    return results
+    with spans.sweep():
+        fault = None if mixed_q else as_schedule(g.num_queues, failed, faults,
+                                                 B, g_num_hosts=g.num_hosts)
+        if profiles is None and graphs is None:
+            return _run_batch(g, wls, profile, p, fault, seeds, trace, budget,
+                              goodput_window, dev, link, tel, devs)
+        per_g = graphs if graphs is not None else [g] * B
+        per_q = profiles if profiles is not None else [profile] * B
+        groups: "dict[tuple, tuple]" = {}
+        for i, (gr, q) in enumerate(zip(per_g, per_q)):
+            groups.setdefault((id(gr), q), (gr, q, []))[2].append(i)
+        results: "list[SimResult | None]" = [None] * B
+        for gr, q, idxs in groups.values():
+            sel = torch.as_tensor(idxs)
+            sub_fault = (FaultSchedule.healthy(gr.num_queues, len(idxs))
+                         if fault is None else fault.lanes(sel))
+            rs = _run_batch(gr, wls.lanes(sel), q, p, sub_fault,
+                            seeds[idxs], trace, budget, goodput_window, dev,
+                            link, tel, devs)
+            for i, r in zip(idxs, rs):
+                results[i] = r
+        return results
