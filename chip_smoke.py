@@ -9,7 +9,7 @@ Phases, one line each:
    no run: the script exits non-zero before printing any result.
 2. build  — compile every CUDA kernel of the port from ``src/repro_torch/
    kernels/csrc`` (one ``nvcc`` per source, in parallel).
-3. kernels — each of the fourteen kernels against its plain PyTorch
+3. kernels — each of the fifteen kernels against its plain PyTorch
    version on the card, random inputs plus edge lanes, bitwise: the
    dense ``sack_fused`` / ``sack_advance`` and ``nack_mark`` at the main
    path's shapes (F = 2048 flows, W = 16 ring words, L = Q + 2F = 9216
@@ -42,8 +42,11 @@ Phases, one line each:
    queue heads under the [Q] ids, read with a zero scenario stride) on
    that tick's lanes and on random in-range lanes of the full-width fat
    tree and of ``leaf_spine(4, 4, 4)``; each timed at B = 1 and B = 4
-   (bound: each lane in and out once, the routing tables once). Then the
-   sites: each tick kernel beside the
+   (bound: each lane in and out once, the routing tables once);
+   ``enqueue_rank`` (the enqueue phase's arrival ranks and per-queue
+   counts) on that tick's lanes and at the benchmark cells' B = 8 and 16
+   over n = 7168 lanes and Q = 5120 queues, with a zero base too, timed
+   at both. Then the sites: each tick kernel beside the
    dense composition that the tick ran before it (bit plane, old-bit
    test, dense kernel, and for the ACK site the clear of the ACKed bit;
    for the NACK site its lane arithmetic and the copying ``nack_mark``;
@@ -51,8 +54,8 @@ Phases, one line each:
    [F, W] plane, and the old-bit test for the last; a copy of each is
    kept here; for the four tick forms the eager bodies of
    ``NSCCPolicy.on_ack`` / ``end_of_tick`` and ``RoutingTables.
-   injection_queue`` / ``route_step`` on scenario 0 of that tick's
-   lanes), bitwise, both timed with CUDA events in turns, with their
+   injection_queue`` / ``route_step``, for ``enqueue_rank`` the [n, n]
+   and [Q, n] one-hots, on scenario 0 of that tick's lanes), bitwise, both timed with CUDA events in turns, with their
    device operations per call.
 4. goldens — the two reference goldens (``tests/golden/fabric_golden.npz``)
    reproduced bitwise on the card: A through ``simulate``, B (REPS, a
@@ -74,8 +77,9 @@ Phases, one line each:
    under all-ROD ``hpc()``, whose tick has no selective-retransmit path
    or RTO mark, and 1, 3, 1 under RR_SLOTS, whose loss inference marks
    twice; ``nscc_ack`` and ``nscc_epoch`` once under NSCC and the hybrid,
-   never under RCCC or open loop; ``ecmp_inject`` and ``ecmp_route``
-   once) and the entry-point forms never. Then the kernel entry points
+   never under RCCC or open loop; ``ecmp_inject``, ``ecmp_route`` and
+   ``enqueue_rank`` once, the last twice under CBFC) and the entry-point
+   forms never. Then the kernel entry points
    (``repro_torch.kernels.ops.nscc_update`` / ``ecmp_select`` /
    ``sack_fused`` / ``sack_advance`` / ``nack_mark``): one batched NSCC
    round over the hpc run's 2048 windows, the ECMP port choice of 7168
@@ -381,26 +385,33 @@ KERNELS = {
     "ecmp_route": ("src/repro_torch/kernels/csrc/ecmp_hash.cu",
                    "src/repro/kernels/ecmp_hash.py:52",
                    "ecmp_route_kernel<true"),
+    # no Pallas kernel: the reference's jnp one-hots of the enqueue phase
+    "enqueue_rank": ("src/repro_torch/kernels/csrc/enqueue.cu",
+                     "none (jnp one-hots, src/repro/network/fabric.py:371 "
+                     "and :1023)", "enqueue_rank_kernel<true"),
 }
 TICK_KERNELS = ("sack_fused_own", "sack_advance_own", "nack_mark_lanes",
                 "set_own_bit", "clear_own_bit", "nscc_ack", "nscc_epoch",
-                "ecmp_inject", "ecmp_route")
-#: the tick forms of the two entry-point kernels (``ops`` dispatch names)
-TICK_FORMS = ("nscc_ack", "nscc_epoch", "ecmp_inject", "ecmp_route")
+                "ecmp_inject", "ecmp_route", "enqueue_rank")
+#: the tick forms of the two entry-point kernels and the enqueue ranks
+#: (``ops`` dispatch names)
+TICK_FORMS = ("nscc_ack", "nscc_epoch", "ecmp_inject", "ecmp_route",
+              "enqueue_rank")
 #: launches per tick of each tick kernel, by run: under all-ROD the NACK
 #: site and the RTO's set are compiled out; RR_SLOTS's loss inference
 #: adds two sets; the NSCC forms run under NSCC and the hybrid (ai_full,
 #: hpc, resilient and the INC and link runs of ai_full), not under RCCC
-#: (ai_base) or open loop (mixed); the routing walks once a tick always
-PER_TICK = {"ai_full": (1, 1, 1, 1, 1, 1, 1, 1, 1),
-            "hpc": (1, 1, 0, 0, 1, 1, 1, 1, 1),
-            "base": (1, 1, 1, 1, 1, 0, 0, 1, 1),
-            "ai_base": (1, 1, 1, 1, 1, 0, 0, 1, 1),
-            "mixed": (1, 1, 1, 3, 1, 0, 0, 1, 1),
-            "resilient": (1, 1, 1, 1, 1, 1, 1, 1, 1),
-            "inc": (1, 1, 1, 1, 1, 1, 1, 1, 1),
-            "llr": (1, 1, 1, 1, 1, 1, 1, 1, 1),
-            "cbfc": (1, 1, 1, 1, 1, 1, 1, 1, 1)}
+#: (ai_base) or open loop (mixed); the routing walks once a tick always;
+#: the enqueue ranks once, twice under CBFC (its credit gate ranks too)
+PER_TICK = {"ai_full": (1, 1, 1, 1, 1, 1, 1, 1, 1, 1),
+            "hpc": (1, 1, 0, 0, 1, 1, 1, 1, 1, 1),
+            "base": (1, 1, 1, 1, 1, 0, 0, 1, 1, 1),
+            "ai_base": (1, 1, 1, 1, 1, 0, 0, 1, 1, 1),
+            "mixed": (1, 1, 1, 3, 1, 0, 0, 1, 1, 1),
+            "resilient": (1, 1, 1, 1, 1, 1, 1, 1, 1, 1),
+            "inc": (1, 1, 1, 1, 1, 1, 1, 1, 1, 1),
+            "llr": (1, 1, 1, 1, 1, 1, 1, 1, 1, 1),
+            "cbfc": (1, 1, 1, 1, 1, 1, 1, 1, 1, 2)}
 #: SimState lanes the profile goldens leave out: those of the recovery
 #: loop (RTO strikes, quarantine, their counters), of INC and of the link
 #: layer, none of which the three profile runs turn on
@@ -750,6 +761,7 @@ def phase_kernels() -> dict:
             16 * n, fast=n == POOL)
         _record(rows, "ecmp_select", n, max(errs), timing)
     _tick_form_rows(rows, rng, dev)
+    _enqueue_rows(rows, rng, dev)
     return rows
 
 
@@ -762,7 +774,7 @@ TICK_CAPTURE = 48
 
 @functools.lru_cache(maxsize=None)
 def _tick_lanes() -> dict:
-    """The four tick forms' operands as the tick hands them to ``ops`` on
+    """The five tick forms' operands as the tick hands them to ``ops`` on
     the last of ``TICK_CAPTURE`` ticks of the full-width ``ai_full``
     batch (B = 4) on the card: {form: its call's arguments}."""
     from repro_torch.kernels import ops
@@ -944,6 +956,66 @@ def _tick_form_rows(rows: dict, rng, dev) -> None:
                 rows[name]["batch"] = {"b": b, "max_abs_err": err, **timing}
                 _say_row(f"{name} (B={b})", rows[name]["batch"],
                          [tuple(x.shape) for x in args])
+
+
+#: scenarios of the benchmark's cells, at which ``enqueue_rank`` is
+#: checked and timed (``perm2-b8``'s first: the row; ``faults-b16``'s
+#: beside it)
+ENQUEUE_BATCHES = (8, 16)
+
+
+def _enqueue_inputs(rng, b, n, q, cap, dev):
+    """[B, n] candidate lanes over Q queues, 7 in 10 valid and the
+    invalid ones aimed at -1, and [B, Q] queue lengths in [0, cap]."""
+    target = rng.integers(0, q, (b, n)).astype(np.int32)
+    valid = rng.random((b, n)) < 0.7
+    target[~valid] = -1
+    base = rng.integers(0, cap + 1, (b, q)).astype(np.int32)
+    return tuple(torch.as_tensor(a).to(dev) for a in (target, valid, base))
+
+
+def _enqueue_rows(rows: dict, rng, dev) -> None:
+    """Phase 3's part for ``enqueue_rank``: bitwise against its plain
+    version (the composition the tick's section 7 ran) on the operands
+    of a real tick (``_tick_lanes``, B = 4) and on seeded lanes at the
+    cells' shapes (B in ``ENQUEUE_BATCHES``, n = Q + F = 7168 lanes, Q =
+    5120 queues, the tick's capacity) over random lengths and a zero
+    base (the CBFC gate's call), then timed at those shapes (bound: each
+    lane and queue in and out once)."""
+    from repro_torch.kernels import ops, ref
+    target, valid, base, cap = _tick_lanes()["enqueue_rank"]
+    _assert_equal(ops.enqueue_rank_cuda(target, valid, base, cap),
+                  ref.enqueue_rank_ref(target, valid, base, cap),
+                  "enqueue_rank on a tick's lanes")
+    n = Q_MAIN + F_MAIN
+    cases = {b: _enqueue_inputs(rng, b, n, Q_MAIN, cap, dev)
+             for b in ENQUEUE_BATCHES}
+    for b, (t, v, q) in cases.items():
+        for bs in (q, torch.zeros_like(q)):
+            _assert_equal(ops.enqueue_rank_cuda(t, v, bs, cap),
+                          ref.enqueue_rank_ref(t, v, bs, cap),
+                          f"enqueue_rank b={b}")
+    say("3 kernels", f"enqueue_rank: bitwise equal to plain on the lanes of "
+        f"tick {TICK_CAPTURE - 1} of the full-width batch (B = {B_MAIN}) "
+        f"and at B in {ENQUEUE_BATCHES} x n = {n} lanes x Q = {Q_MAIN} "
+        f"queues, random lengths and a zero base")
+    for b, args in cases.items():
+        timing = _time_row(
+            "enqueue_rank", lambda *x: ops.enqueue_rank_cuda(*x, cap),
+            lambda *x: ref.enqueue_rank_ref(*x, cap), args,
+            # target (4 B), valid (1 B) in and pos (4 B), fits (1 B) out
+            # a lane; base in and added out (4 B each) a queue. ~10
+            # integer operations a lane
+            b * (10 * n + 8 * Q_MAIN), 10 * b * n, fast=True)
+        if b == ENQUEUE_BATCHES[0]:
+            rows["enqueue_rank"] = _row("enqueue_rank", 0, timing)
+            _say_row(f"enqueue_rank (B={b})", rows["enqueue_rank"],
+                     [tuple(x.shape) for x in args])
+        else:
+            rows["enqueue_rank"]["batch"] = {"b": b, "max_abs_err": 0,
+                                             **timing}
+            _say_row(f"enqueue_rank (B={b})", rows["enqueue_rank"]["batch"],
+                     [tuple(x.shape) for x in args])
 
 
 def _own_inputs(rng, n, w, dev):
@@ -1235,11 +1307,13 @@ def _site_route_eager(rt, queue, src, dst, ev):
 
 
 def _tick_form_sites() -> dict:
-    """name -> (eager, own, args) of the four tick forms' sites on scenario
+    """name -> (eager, own, args) of the five tick forms' sites on scenario
     0 of a real tick's operands (``_tick_lanes``): the NSCC hooks through
     ``NSCCPolicy`` against their eager bodies, the routing walks through
-    ``RoutingTables`` against theirs."""
+    ``RoutingTables`` against theirs, the enqueue ranks against the
+    composition section 7 ran."""
     from repro_torch.core.cms.nscc import NSCCPolicy, NSCCState
+    from repro_torch.kernels import ops, ref
     real = _tick_lanes()
     _, _, ack, ecn, rtt, tp = (a[:1] if isinstance(a, torch.Tensor)
                                else a for a in real["nscc_ack"])
@@ -1250,6 +1324,8 @@ def _tick_form_sites() -> dict:
     rt, src, dst, ev = (a[:1] if isinstance(a, torch.Tensor) else a
                         for a in real["ecmp_inject"])
     _, queue, qsrc, qdst, qev = real["ecmp_route"]
+    target, valid, qlen, cap = (a[:1] if isinstance(a, torch.Tensor) else a
+                                for a in real["enqueue_rank"])
 
     def fields(st):
         return st.cwnd, st.epoch_acked, st.epoch_lost, st.epoch_tick
@@ -1273,6 +1349,9 @@ def _tick_form_sites() -> dict:
             lambda *x: _site_route_eager(rt, queue, *x),
             lambda *x: rt.route_step(queue, *x),
             (qsrc[:1], qdst[:1], qev[:1])),
+        "enqueue_rank": (
+            lambda *x: ref.enqueue_rank_ref(*x, cap),
+            lambda *x: ops.enqueue_rank(*x, cap), (target, valid, qlen)),
     }
 
 
@@ -4183,20 +4262,22 @@ def entry_part(task: str) -> str:
             if task.startswith("canary/") else "b")
 
 
-def per_tick(profile, num_flows: int) -> tuple:
+def per_tick(profile, num_flows: int, link=None) -> tuple:
     """Launches a tick of each tick kernel (``TICK_KERNELS``) under
-    ``profile`` with ``num_flows`` flows, from the tick's sites: the two
-    SACK kernels and the retransmit pick once; the NACK mark and the
-    RTO's set once unless every flow is ROD; RR_SLOTS's loss inference
-    two sets more; NSCC's ACK update and Quick Adapt once under NSCC and
-    the hybrid; the two routing walks once."""
+    ``profile`` with ``num_flows`` flows and the link layer ``link``,
+    from the tick's sites: the two SACK kernels and the retransmit pick
+    once; the NACK mark and the RTO's set once unless every flow is ROD;
+    RR_SLOTS's loss inference two sets more; NSCC's ACK update and Quick
+    Adapt once under NSCC and the hybrid; the two routing walks once; the
+    enqueue ranks once, and once more for CBFC's credit gate."""
     from repro_torch.core.lb.schemes import LBScheme
     from repro_torch.network.profile import CCAlgo, DeliveryMode
     rod = profile.delivery_modes(num_flows) == int(DeliveryMode.ROD)
     sel = int(not bool(rod.all()))
     rr = int(profile.lb == LBScheme.RR_SLOTS and bool(sel))
     nscc = int(profile.cc in (CCAlgo.NSCC, CCAlgo.NSCC_AND_RCCC))
-    return (1, 1, sel, 2 * rr + sel, 1, nscc, nscc, 1, 1)
+    cbfc = int(bool(getattr(link, "cbfc", False)))
+    return (1, 1, sel, 2 * rr + sel, 1, nscc, nscc, 1, 1, 1 + cbfc)
 
 
 class _Ticks:
@@ -4217,7 +4298,7 @@ class _Ticks:
 
         def counted(g, profile, p, F, *args, **kw):
             step = make_step(g, profile, p, F, *args, **kw)
-            rec = [per_tick(profile, F), 0]
+            rec = [per_tick(profile, F, kw.get("link")), 0]
             self.steps.append(rec)
 
             def run(*a, **k):

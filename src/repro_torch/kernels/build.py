@@ -31,6 +31,8 @@ _F = ctypes.c_float
 #: library -> {C function: argtypes}; every pointer and the stream are
 #: c_void_p, every size c_int (c_longlong for a flat lane count), every
 #: constant of the arithmetic c_float, every return a CUDA error code
+#: (``enqueue_rank_smem_optin``'s: the bytes of shared memory a block
+#: may opt into)
 SIGNATURES = {
     "sack": {
         "sack_advance_launch": (_P, _P, _P, _P, _P, _I, _I, _P),
@@ -55,6 +57,10 @@ SIGNATURES = {
         + (_I,) * 3 + (_P,),
         "ecmp_route_launch": (_P, _L) + (_P,) * 4 + (_I, _L) + (_P,) * 8
         + (_I,) * 10 + (_P,),
+    },
+    "enqueue": {
+        "enqueue_rank_launch": (_P,) * 7 + (_I,) * 4 + (_P,),
+        "enqueue_rank_smem_optin": (),
     },
 }
 

@@ -8,8 +8,9 @@ and ``ecmp_select``; and their tick forms: ``nscc_ack`` (NSCC's
 per-flow ACK update) and ``nscc_epoch`` (Quick Adapt), which
 ``core.cms.nscc``'s tick hooks call, and ``ecmp_inject`` / ``ecmp_route``
 (the injection and per-hop routing walks), which ``RoutingTables``
-calls. The tick forms return fresh tensors: the tick's previous state
-is read again after the step.
+calls; and ``enqueue_rank``, the arrival ranks and per-queue counts of
+the tick's enqueue phase. The tick forms return fresh tensors: the
+tick's previous state is read again after the step.
 
 The in-place forms (names ending in ``_``) write into the ring they are
 given and return it: no copy, no [F, W] plane, no allocation. The
@@ -49,7 +50,8 @@ LAUNCHES = {"sack_fused": 0, "nack_mark": 0, "sack_advance": 0,
             "sack_fused_own": 0, "sack_advance_own": 0,
             "nack_mark_lanes": 0, "set_own_bit": 0, "clear_own_bit": 0,
             "nscc_update": 0, "ecmp_select": 0, "nscc_ack": 0,
-            "nscc_epoch": 0, "ecmp_inject": 0, "ecmp_route": 0}
+            "nscc_epoch": 0, "ecmp_inject": 0, "ecmp_route": 0,
+            "enqueue_rank": 0}
 
 MAX_WORDS = 32  # a ring row fits one warp: W <= 32 words (mp_range <= 1024)
 
@@ -519,6 +521,53 @@ def ecmp_route_cuda(tables, queue: torch.Tensor, src: torch.Tensor,
     return out
 
 
+#: device index -> the shared memory a block may opt into (bytes)
+_SMEM_OPTIN: dict = {}
+
+
+def _counters_fit(dev: torch.device, q: int) -> bool:
+    """Whether ``enqueue_rank``'s Q int32 counters fit one block's shared
+    memory on ``dev`` (queried once a device)."""
+    optin = _SMEM_OPTIN.get(dev.index)
+    if optin is None:
+        with torch.cuda.device(dev):
+            optin = build.load("enqueue").enqueue_rank_smem_optin()
+        if optin < 0:
+            raise RuntimeError(f"enqueue_rank: shared memory query failed: "
+                               f"CUDA error {-optin}")
+        _SMEM_OPTIN[dev.index] = optin
+    return 4 * q <= optin
+
+
+def enqueue_rank_cuda(target: torch.Tensor, valid: torch.Tensor,
+                      base: torch.Tensor, capacity: int):
+    """CUDA kernel: the arrival ranks of [B, n] candidate lanes within
+    their target queues and each of the [B, Q] queues' fitting lanes
+    (see ``enqueue_rank``): (pos, added, fits). The counters live in
+    shared memory, or in a [B, Q] scratch where Q does not fit it."""
+    _on_cuda(target, valid, base)
+    if target.dim() != 2 or base.dim() != 2:
+        raise ValueError(f"lanes must be [B, n] and base [B, Q], got "
+                         f"{tuple(target.shape)} and {tuple(base.shape)}")
+    (batch, n), q = target.shape, int(base.shape[1])
+    if q < 1:
+        raise ValueError("base must hold at least one queue")
+    _require("target", target, torch.int32, (batch, n))
+    _require("valid", valid, torch.bool, (batch, n))
+    _require("base", base, torch.int32, (batch, q))
+    pos, fits = torch.empty_like(target), torch.empty_like(valid)
+    added = torch.empty_like(base)
+    scratch = (None if _counters_fit(target.device, q)
+               else torch.empty_like(base))
+    if batch:
+        _launch("enqueue_rank", "enqueue", target, target.data_ptr(),
+                valid.data_ptr(), base.data_ptr(), pos.data_ptr(),
+                added.data_ptr(), fits.data_ptr(),
+                None if scratch is None else scratch.data_ptr(), batch, n, q,
+                _int32("capacity", capacity))
+    return pos, added, fits
+
+
 def _check_fanout(fanout: int) -> None:
     if not 1 <= int(fanout) < 2 ** 31:
         raise ValueError(f"fanout must be in [1, 2**31), got {fanout}")
@@ -737,3 +786,26 @@ def ecmp_route(tables, queue, src, dst, ev):
             return ecmp_route_cuda(tables, queue.contiguous(), src, dst,
                                    ev).view(shape)
         return ref.ecmp_route_ref(tables, queue, src, dst, ev)
+
+
+def enqueue_rank(target, valid, base, capacity: int):
+    """The tick's enqueue phase (section 7 of ``make_step``): each
+    candidate lane's queue position and each queue's enqueue count, over
+    leading scenario axes. target [..., n] int32, valid [..., n] bool
+    (a valid lane's target in [0, Q)), base [..., Q] int32 (each queue's
+    length). Returns (pos, added, fits): pos [..., n] = base[target] +
+    the lane's arrival rank, #{j < i : valid[j], target[j] == target[i]}
+    (base[0] on an invalid lane); fits = valid & (pos < capacity); added
+    [..., Q] the fitting lanes a queue. One launch on a card, linear in
+    n and Q, where the plain version builds [..., n, n] and [..., Q, n]
+    one-hots."""
+    with spans.span("kernels.enqueue_rank"):
+        if _on_cuda(target, valid, base):
+            n, q = target.shape[-1], base.shape[-1]
+            outs = enqueue_rank_cuda(target.reshape(-1, n).contiguous(),
+                                     valid.reshape(-1, n).contiguous(),
+                                     base.reshape(-1, q).contiguous(),
+                                     capacity)
+            return (outs[0].view(target.shape), outs[1].view(base.shape),
+                    outs[2].view(valid.shape))
+        return ref.enqueue_rank_ref(target, valid, base, capacity)

@@ -4,8 +4,11 @@ forms of the two SACK kernels and the in-place marks on the retransmit
 ring (the NACK lanes, one bit per row set or cleared) that the port's
 tick runs, the batched NSCC window update and ECMP port selection, and
 their tick forms: NSCC's per-flow ACK update and Quick Adapt epoch, and
-the ECMP injection and per-hop routing walks over ``RoutingTables``.
-The in-place forms end in ``_`` and return the ring they were given.
+the ECMP injection and per-hop routing walks over ``RoutingTables``;
+and the tick's enqueue ranks and per-queue counts (``enqueue_rank_ref``,
+the composition section 7 of ``make_step`` ran, and its pairwise count
+``rank_within``). The in-place forms end in ``_`` and return the ring
+they were given.
 
 These run for CPU tensors (the tests) and are what ``chip_smoke.py``
 holds each CUDA kernel against on the card, bit for bit. All rings and
@@ -268,3 +271,37 @@ def clear_own_bit_ref_(rtx: torch.Tensor, off: torch.Tensor,
     """In place on ``rtx`` [N, W]: row i clears bit off[i] where valid[i]
     and 0 <= off[i] < W*32. Returns ``rtx``."""
     return rtx.bitwise_and_(~bit_plane(off, valid, rtx.shape[1]))
+
+
+def rank_within(target: torch.Tensor, valid: torch.Tensor,
+                base: torch.Tensor):
+    """Each candidate lane's arrival rank within its target queue, and its
+    queue position ``base[target] + rank``: rank[i] = #{j < i : valid[j]
+    and target[j] == target[i]} as a masked pairwise count under the
+    strictly-lower-triangular [n, n] mask, per scenario (target/valid
+    [..., n], base [..., Q]). Returns (pos, rank)."""
+    lane = torch.arange(target.shape[-1], device=target.device)
+    lower = lane[None, :] < lane[:, None]
+    t = torch.where(valid, target, -1)
+    same = (t[..., None, :] == t[..., :, None]) & valid[..., None, :] & lower
+    rank = same.sum(dim=-1, dtype=torch.int32)
+    pos = base.gather(-1, torch.where(valid, target, 0).long()) + rank
+    return pos, rank
+
+
+def enqueue_rank_ref(target: torch.Tensor, valid: torch.Tensor,
+                     base: torch.Tensor, capacity: int):
+    """The tick's enqueue ranks (section 7 of ``make_step``) as the
+    composition the tick ran: ``rank_within``'s [..., n, n] pairwise
+    count and the [..., Q, n] enqueue one-hot summed into each queue's
+    count. target [..., n] int32 (each valid lane's in [0, Q)), valid
+    [..., n] bool, base [..., Q] int32. Returns (pos, added, fits): pos
+    [..., n] = base[target] + rank (base[0] on an invalid lane), fits =
+    valid & (pos < capacity), added [..., Q] the fitting lanes a
+    queue."""
+    pos, _ = rank_within(target, valid, base)
+    fits = valid & (pos < capacity)
+    qidx = torch.arange(base.shape[-1], dtype=torch.int32,
+                        device=base.device)
+    hot_enq = (target[..., None, :] == qidx[:, None]) & fits[..., None, :]
+    return pos, hot_enq.sum(dim=-1, dtype=torch.int32), fits

@@ -30,8 +30,13 @@ RR_SLOTS loss inference of section 1, twice, with the source ring as
 ``clear_own_bit_`` (the retransmit pick of section 3). Each takes each
 flow's own PSN offset, or the raw NACK lanes, and sets, tests and clears
 the bits itself, where the reference builds an [F, W] bit plane around
-its dense kernels; each site is one launch. On CUDA tensors they are
-hand-written CUDA; on CPU tensors their plain PyTorch versions.
+its dense kernels; each site is one launch. Section 7 takes its
+arrival ranks, queue positions and per-queue enqueue counts from
+``enqueue_rank`` (once a tick, twice under CBFC, whose credit gate ranks
+the candidates against a zero base), a sequential count in linear work
+where the reference builds [B, n, n] and [B, Q, n] one-hots. On CUDA
+tensors they are hand-written CUDA; on CPU tensors their plain PyTorch
+versions.
 
 Every profile of the paper's table runs: each CC composition (NSCC,
 RCCC, their hybrid, open loop), every LB scheme (STATIC, OBLIVIOUS,
@@ -60,10 +65,10 @@ chunk issue and collect, each tick, the tick's numbered sections as
 phases, its fault draws and its policy calls; ``DRIVER_COUNTS`` counts
 the group ticks the chunk loops issue and those under the masked body.
 
-The dense one-hots of the reference stay ([B, F, E] ACK/NACK lanes,
-[B, H, F] host pick, [B, F, Q] deliveries, [B, n, n] enqueue ranks,
-[B, Q, n] enqueue counts), so parity is easy to reason about; they are
-quadratic and cap the fabric size (ROADMAP.md, "Scale cap").
+The other dense one-hots of the reference stay ([B, F, E] ACK/NACK
+lanes, [B, H, F] host pick, [B, F, Q] deliveries), so parity is easy to
+reason about; they are quadratic and cap the fabric size (ROADMAP.md,
+"Scale cap").
 """
 from __future__ import annotations
 
@@ -82,6 +87,7 @@ from repro_torch.core.cms.nscc import NSCCParams
 from repro_torch.core.lb.schemes import LBPolicy, LBScheme, LBState, _mix32
 from repro_torch.core.lb.schemes import _pick_lane as _pick
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.ref import rank_within
 from repro_torch.network.ecmp import DELIVERED, RoutingTables
 from repro_torch.network.faults import (FaultSchedule, as_schedule,
                                         failed_to_mask, loss_threshold)
@@ -264,22 +270,9 @@ def _own_word(ring: torch.Tensor, off: torch.Tensor) -> torch.Tensor:
     return ring.gather(-1, word[..., None].long())[..., 0]
 
 
-def _rank_within(target, valid, base, lower=None):
-    """Each candidate lane's arrival rank within its target queue, and its
-    queue position ``base[target] + rank``: rank[i] = #{j < i : valid[j]
-    and target[j] == target[i]} as a masked pairwise count, per scenario
-    (target/valid [..., n], base [..., Q]). ``lower`` is the
-    strictly-lower-triangular [n, n] mask (built once per step, shared
-    by every scenario)."""
-    n = target.shape[-1]
-    if lower is None:
-        lane = torch.arange(n, device=target.device)
-        lower = lane[None, :] < lane[:, None]
-    t = torch.where(valid, target, -1)
-    same = (t[..., None, :] == t[..., :, None]) & valid[..., None, :] & lower
-    rank = same.sum(dim=-1, dtype=I32)
-    pos = base.gather(-1, torch.where(valid, target, 0).long()) + rank
-    return pos, rank
+#: the plain masked pairwise count of the enqueue ranks (the reference's
+#: ``_rank_within``); the tick calls ``kops.enqueue_rank``
+_rank_within = rank_within
 
 
 def _tree_map(fn, *objs):
@@ -483,8 +476,6 @@ def make_step(g: QueueGraph, profile: TransportProfile, p: SimParams, F: int,
     qidx = torch.arange(Q, **i32)
     hosts = torch.arange(H, **i32)
     n_cand = Q + F
-    lane = torch.arange(n_cand, device=dev)
-    lower = lane[None, :] < lane[:, None]   # [n, n], shared by all scenarios
     cc_pol = make_cc_policy(profile.cc, _cc_params(p), p.max_cwnd)
     # per-flow delivery modes are static: compiled into the step
     rod_np = profile.delivery_modes(F) == int(DeliveryMode.ROD)
@@ -984,7 +975,8 @@ def make_step(g: QueueGraph, profile: TransportProfile, p: SimParams, F: int,
             arriving = s.cbfc_ret[:, tick % Rd]
             freed_now = (s.cbfc_freed + arriving) & mask20
             avail = C - ((s.cbfc_consumed - freed_now) & mask20)
-            _, crank = _rank_within(cand_q, cvalid, bc["zeros_q"], lower)
+            crank, _, _ = kops.enqueue_rank(cand_q, cvalid, bc["zeros_q"],
+                                            C)
             stall = cvalid & (crank >= avail.gather(-1, safe_cq))
             cvalid = cvalid & ~stall
             dequeued = leaves & ~stall[:, :Q]
@@ -996,8 +988,7 @@ def make_step(g: QueueGraph, profile: TransportProfile, p: SimParams, F: int,
                 commit_injection(injected, use_rtx, rtx, next_psn, lbs,
                                  inflight, cc_st)
             credit_stall_ticks = credit_stall_ticks + stall.any(dim=-1).to(I32)
-        pos, _ = _rank_within(cand_q, cvalid, q_len, lower)
-        fits = cvalid & (pos < C)
+        pos, added, fits = kops.enqueue_rank(cand_q, cvalid, q_len, C)
         overflow = cvalid & ~fits
 
         wslot = (q_head.gather(-1, safe_cq) + pos) % C
@@ -1012,9 +1003,6 @@ def make_step(g: QueueGraph, profile: TransportProfile, p: SimParams, F: int,
                             cand_pkt.new_zeros((1, PKT_FIELDS))])
         q_flat[dst_rec.reshape(-1)] = cand_pkt.reshape(-1, PKT_FIELDS)
         q_pkt = q_flat[:B * Q * C].view(B, Q, C, PKT_FIELDS)
-        hot_enq = ((cand_q[:, None, :] == qidx[:, None])
-                   & fits[:, None, :])                         # [B, Q, n]
-        added = hot_enq.sum(dim=-1, dtype=I32)
         q_len = q_len + added
         cbfc_consumed, cbfc_freed, cbfc_ret = \
             s.cbfc_consumed, s.cbfc_freed, s.cbfc_ret

@@ -25,16 +25,16 @@ from repro_torch.network.profile import TransportProfile
 from repro_torch.network.topology import leaf_spine
 
 TICK_KERNELS = ("sack_fused_own", "sack_advance_own", "nack_mark_lanes",
-                "set_own_bit", "clear_own_bit")
+                "set_own_bit", "clear_own_bit", "enqueue_rank")
 SRC, DST, DEP = [0, 1, 2, 6, 3], [4, 5, 3, 0, 7], [-1, -1, -1, -1, 0]
 PROFILES = {
-    "resilient": (TransportProfile.resilient(), (1, 1, 1, 1, 1)),
+    "resilient": (TransportProfile.resilient(), (1, 1, 1, 1, 1, 1)),
     "reps_evict": (replace(TransportProfile.ai_full(lb=LBScheme.REPS),
                            ev_eviction=True, rto_backoff=3.0,
-                           pdc_dead_after=3), (1, 1, 1, 1, 1)),
+                           pdc_dead_after=3), (1, 1, 1, 1, 1, 1)),
     "hpc_evict": (replace(TransportProfile.hpc(), ev_eviction=True,
                           rto_backoff=2.0, pdc_dead_after=4),
-                  (1, 1, 0, 0, 1)),
+                  (1, 1, 0, 0, 1, 1)),
 }
 
 

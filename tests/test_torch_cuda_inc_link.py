@@ -3,7 +3,8 @@ batches on the CPU (the plain versions of the tick's kernels), bit for
 bit: a B = 2 tree all-reduce under an ``inc=True`` profile (lane 0 with
 its reduction group, lane 1 with ``red = -1``), and the corruption grid
 at B = 2 (BER 0 and 5 % on leaf 0's uplinks) under LLR and under
-LLR + CBFC. Each tick kernel launches once per tick for the two lanes.
+LLR + CBFC. Each tick kernel launches once per tick for the two lanes
+(``enqueue_rank`` twice under CBFC).
 Every test is ``cuda``-marked and skips without a card.
 
 This file imports neither JAX nor the reference package:
@@ -39,9 +40,11 @@ def cuda():
     return torch.device("cuda")
 
 
-def _card_vs_cpu(run) -> list:
+def _card_vs_cpu(run, enqueue_per_tick: int = 1) -> list:
     """``run(device)`` on the CPU and on the card: every lane, state
-    field and counter equal; one launch per tick kernel and tick."""
+    field and counter equal; one launch per tick kernel and tick, and
+    ``enqueue_per_tick`` of ``enqueue_rank`` (two under CBFC, whose
+    credit gate ranks too)."""
     runs = {}
     for dev in ("cpu", "cuda"):
         ops.reset_launches()
@@ -51,7 +54,8 @@ def _card_vs_cpu(run) -> list:
             launches = dict(ops.LAUNCHES)
     ticks = max(r.horizon for r in runs["cuda"])
     for k in TICK_KERNELS:
-        assert launches[k] == ticks, (k, launches[k], ticks)
+        want = ticks * (enqueue_per_tick if k == "enqueue_rank" else 1)
+        assert launches[k] == want, (k, launches[k], want)
     for b, (r, c) in enumerate(zip(runs["cuda"], runs["cpu"])):
         assert r.horizon == c.horizon, b
         for k in LANES:
@@ -86,7 +90,8 @@ def test_link_batch_on_card_matches_plain_versions(cuda, arm, trace):
                                               budget=600)
     rs = _card_vs_cpu(lambda dev: tf.simulate_batch(
         g, wls, exp["profile"], exp["params"], faults=scheds,
-        link=exp[arm], trace=trace, device=dev))
+        link=exp[arm], trace=trace, device=dev),
+        enqueue_per_tick=2 if arm == "cbfc" else 1)
     assert rs[1].llr_replays > 0 and rs[1].drops == 0
     if arm == "cbfc":
         assert all(r.trims == 0 for r in rs)

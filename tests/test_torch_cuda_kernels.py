@@ -328,3 +328,59 @@ def test_ecmp_tick_kernels_match_plain_on_card(cuda, make, args, b):
         assert _same_bits(got, ref.ecmp_route_ref(rt, queue, qsrc, qdst,
                                                   qev))
     assert ops.LAUNCHES["ecmp_route"] == before + 2
+
+
+def _enqueue_lanes(kind, b, n, q, cap):
+    """[B, n] candidate lanes and [B, Q] queue lengths for
+    ``enqueue_rank``: random targets with invalid lanes (some aimed out
+    of [0, Q)) over lengths in [0, cap]; a zero base (the CBFC gate's
+    call); every lane to one queue; 33 lanes a queue, in runs or
+    shuffled (each queue's lanes straddle a warp's 32); lengths within a
+    few of 2**31 - 1, where base + rank wraps."""
+    target = RNG.integers(0, q, (b, n)).astype(np.int32)
+    valid = RNG.random((b, n)) < 0.7
+    if kind == "one_queue":
+        target[:] = q - 1
+        valid[:] = True
+    elif kind in ("runs_of_33", "shuffled_33"):
+        target = np.repeat(np.arange(q, dtype=np.int32), 33)[None].repeat(b, 0)
+        if kind == "shuffled_33":
+            target = RNG.permuted(target, axis=1)
+        valid = np.ones((b, n), bool)
+    target[~valid & (RNG.random((b, n)) < 0.3)] = -1
+    target[~valid & (RNG.random((b, n)) < 0.1)] = q + 7
+    base = RNG.integers(0, cap + 1, (b, q))
+    if kind == "zero_base":
+        base[:] = 0
+    elif kind == "base_wrap":
+        base = 2 ** 31 - 1 - RNG.integers(0, 6, (b, q))
+    return target, valid, base.astype(np.int32)
+
+
+ENQUEUE_SHAPES = [  # kind, B, n, Q, capacity
+    ("random", 8, 7168, 5120, 64), ("random", 16, 7168, 5120, 64),
+    ("zero_base", 8, 7168, 5120, 64), ("one_queue", 4, 7168, 5120, 64),
+    ("runs_of_33", 2, 33 * 160, 160, 64), ("shuffled_33", 3, 33 * 160, 160, 64),
+    ("random", 3, 77, 5, 4), ("random", 1, 1, 1, 1), ("base_wrap", 2, 500, 8, 64),
+    ("global", 2, 2000, 65536, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,b,n,q,cap", ENQUEUE_SHAPES, ids=str)
+def test_enqueue_rank_kernel_matches_plain_on_card(cuda, kind, b, n, q, cap):
+    """``enqueue_rank`` (pos, added, fits) against the plain composition,
+    bit for bit, on invalid lanes too: the cells' shapes (B = 8 and 16,
+    Q = 5120, F = 2048), a zero base, adversarial targets, and a Q whose
+    counters do not fit shared memory (the global scratch)."""
+    target, valid, base = (_t(a, cuda) for a in _enqueue_lanes(
+        kind, b, n, q, cap))
+    assert ops._counters_fit(cuda, q) == (kind != "global")
+    before = ops.LAUNCHES["enqueue_rank"]
+    got = ops.enqueue_rank_cuda(target, valid, base, cap)
+    want = ref.enqueue_rank_ref(target, valid, base, cap)
+    assert all(_same_bits(g, w) for g, w in zip(got, want))
+    got = ops.enqueue_rank(target[0], valid[0], base[0], cap)
+    assert got[0].shape == (n,) and got[1].shape == (q,)
+    want = ref.enqueue_rank_ref(target[0], valid[0], base[0], cap)
+    assert all(_same_bits(g, w) for g, w in zip(got, want))
+    assert ops.LAUNCHES["enqueue_rank"] == before + 2

@@ -194,3 +194,91 @@ def test_new_kernels_refuse_cpu_tensors(kernel):
             "ecmp_select": (*lanes, 5)}[kernel]
     with pytest.raises(ValueError, match="CUDA tensor"):
         getattr(ops, f"{kernel}_cuda")(*args)
+
+
+# ----------------------------------------------------- the enqueue ranks --
+
+def _enqueue_loop(target, valid, base, cap):
+    """The enqueue phase one lane at a time: each valid lane takes its
+    queue's next position, base[b, q] plus the lanes before it there; an
+    invalid lane reads base[b, 0]. Returns (pos, added, fits)."""
+    bsz, n = target.shape
+    pos = np.zeros((bsz, n), np.int64)
+    added = np.zeros(base.shape, np.int64)
+    fits = np.zeros((bsz, n), bool)
+    for b in range(bsz):
+        seen = np.zeros(base.shape[1], np.int64)
+        for i in range(n):
+            if not valid[b, i]:
+                pos[b, i] = base[b, 0]
+                continue
+            q = target[b, i]
+            pos[b, i] = base[b, q] + seen[q]
+            seen[q] += 1
+            fits[b, i] = pos[b, i] < cap
+            added[b, q] += fits[b, i]
+    return pos.astype(np.int32), added.astype(np.int32), fits
+
+
+def _enqueue_case(kind, bsz, n, q, cap):
+    """[B, n] targets and valid lanes and [B, Q] queue lengths of one
+    case: random targets (invalid lanes among them, some aimed out of
+    [0, Q)), every lane to one queue, or random targets over a base of 0,
+    capacity - 1 or capacity."""
+    if kind == "one_queue":
+        target = np.full((bsz, n), q // 2, np.int32)
+        valid = np.ones((bsz, n), bool)
+    else:
+        target = RNG.integers(0, q, (bsz, n)).astype(np.int32)
+        valid = RNG.random((bsz, n)) < 0.7
+        target[~valid & (RNG.random((bsz, n)) < 0.5)] = -1
+        target[~valid & (RNG.random((bsz, n)) < 0.2)] = q + 3
+    base = {"zero_base": np.zeros((bsz, q)),
+            "base_cap_minus_1": np.full((bsz, q), cap - 1),
+            "base_cap": np.full((bsz, q), cap)}.get(
+        kind, RNG.integers(0, cap + 1, (bsz, q)))
+    return target, valid, base.astype(np.int32)
+
+
+ENQUEUE_CASES = [("random", 3, 200, 16, 8), ("random", 1, 77, 5, 4),
+                 ("one_queue", 3, 96, 4, 64), ("one_queue", 1, 45, 3, 16),
+                 ("zero_base", 3, 130, 9, 6), ("base_cap_minus_1", 1, 64, 4, 8),
+                 ("base_cap", 3, 41, 7, 8)]
+
+
+@pytest.mark.parametrize("kind,bsz,n,q,cap", ENQUEUE_CASES,
+                         ids=lambda v: str(v))
+def test_enqueue_rank_ref_matches_a_lane_loop(kind, bsz, n, q, cap):
+    """``enqueue_rank_ref`` (pos, added, fits) against the enqueue phase
+    walked one lane at a time, at B = 1 and 3 and at lane counts that are
+    and are not multiples of 32."""
+    target, valid, base = _enqueue_case(kind, bsz, n, q, cap)
+    got = ref.enqueue_rank_ref(_t(target), _t(valid), _t(base), cap)
+    for g, w in zip(got, _enqueue_loop(target, valid, base, cap)):
+        assert g.dtype == (torch.bool if w.dtype == bool else torch.int32)
+        np.testing.assert_array_equal(g.numpy(), w)
+
+
+@pytest.mark.parametrize("kind,bsz,n,q,cap", ENQUEUE_CASES[:3],
+                         ids=lambda v: str(v))
+def test_enqueue_rank_on_cpu_is_the_tick_composition(kind, bsz, n, q, cap):
+    """On CPU tensors ``ops.enqueue_rank`` is the composition the tick
+    ran: ``fabric._rank_within``'s positions, fits against the capacity
+    and the [B, Q, n] enqueue one-hot's sum; no launch is counted."""
+    from repro_torch.network import fabric
+    target, valid, base = map(_t, _enqueue_case(kind, bsz, n, q, cap))
+    before = dict(ops.LAUNCHES)
+    pos, added, fits = ops.enqueue_rank(target, valid, base, cap)
+    assert ops.LAUNCHES == before
+    want_pos, _ = fabric._rank_within(target, valid, base)
+    want_fits = valid & (want_pos < cap)
+    qidx = torch.arange(q, dtype=torch.int32)
+    hot_enq = (target[:, None, :] == qidx[:, None]) & want_fits[:, None, :]
+    assert torch.equal(pos, want_pos) and torch.equal(fits, want_fits)
+    assert torch.equal(added, hot_enq.sum(dim=-1, dtype=torch.int32))
+
+
+def test_enqueue_rank_refuses_cpu_tensors_for_the_kernel():
+    target, valid, base = map(_t, _enqueue_case("random", 2, 40, 5, 8))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        ops.enqueue_rank_cuda(target, valid, base, 8)

@@ -7,9 +7,11 @@ On a card each counted operation that is not a view is one device
 operation, so the limits pin the tick's host-bound launch count: with
 NSCC's ACK update and Quick Adapt (``ops.nscc_ack`` / ``nscc_epoch``)
 and the ECMP injection and routing walks (``ops.ecmp_inject`` /
-``ecmp_route``) one kernel each, ``ai_full`` counts 416, ``hpc()`` 431
+``ecmp_route``) one kernel each, ``ai_full`` counted 416, ``hpc()`` 431
 and ``ai_base`` 437 (537, 552 and 513 when those four ran as eager
-compositions).
+compositions). With the enqueue phase's ranks and counts one kernel
+(``ops.enqueue_rank``) in place of its [n, n] and [Q, n] one-hots, they
+count 394, 409 and 415.
 """
 import importlib.util
 from pathlib import Path
@@ -49,10 +51,11 @@ def test_tick_op_count_stays_under_its_limit(profile, limit):
 
 def test_kernel_entries_are_paused_and_restored():
     """The count leaves out exactly the ``ops`` entry points it names,
-    the four tick forms among them, and puts them back."""
+    the five tick forms among them, and puts them back."""
     from repro_torch.kernels import ops
     oc = _opcount()
-    for name in ("nscc_ack", "nscc_epoch", "ecmp_inject", "ecmp_route"):
+    for name in ("nscc_ack", "nscc_epoch", "ecmp_inject", "ecmp_route",
+                 "enqueue_rank"):
         assert name in oc.KERNEL_ENTRIES
     before = {n: getattr(ops, n) for n in oc.KERNEL_ENTRIES}
     count = oc._Count()
