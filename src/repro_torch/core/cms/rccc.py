@@ -20,6 +20,7 @@ import math
 
 import torch
 
+from repro_torch import spans
 from repro_torch.core.types import lane_shape, scenario_rows
 
 
@@ -133,7 +134,8 @@ class RCCCPolicy:
     ``repro_torch.network.profile``). ``initial_credit`` is the
     optimistic-start balance; ``report_cwnd`` is what the per-tick "cwnd"
     lane shows (RCCC has no window: it reports the static cap, and the
-    live signal is the balance in the final state)."""
+    live signal is the balance in the final state). Each method that does
+    work is a ``policy.rccc`` span of ``repro_torch.spans``."""
 
     initial_credit: float
     report_cwnd: float
@@ -149,16 +151,21 @@ class RCCCPolicy:
 
     def on_grant_tick(self, st: RCCCState, flow_dst, active,
                       num_hosts: int) -> RCCCState:
-        return grant_credits(st, flow_dst, active, num_hosts)
+        with spans.span("policy.rccc"):
+            return grant_credits(st, flow_dst, active, num_hosts)
 
     def on_send_gate(self, st: RCCCState, inflight) -> torch.Tensor:
-        return (inflight < int(self.report_cwnd)) & can_send(st)
+        with spans.span("policy.rccc"):
+            return (inflight < int(self.report_cwnd)) & can_send(st)
 
     def on_inject(self, st: RCCCState, injected) -> RCCCState:
-        return replace(st, balance=st.balance - injected.to(torch.float32))
+        with spans.span("policy.rccc"):
+            return replace(st, balance=st.balance
+                           - injected.to(torch.float32))
 
     def on_rx_seen(self, st: RCCCState, seen) -> RCCCState:
-        return replace(st, seen=st.seen | seen)
+        with spans.span("policy.rccc"):
+            return replace(st, seen=st.seen | seen)
 
     def on_timeout(self, st, stalled):
         return st
@@ -167,5 +174,6 @@ class RCCCPolicy:
         return st
 
     def cwnd_view(self, st: RCCCState, f) -> torch.Tensor:
-        return torch.full(lane_shape(f), self.report_cwnd,
-                          dtype=torch.float32, device=st.balance.device)
+        with spans.span("policy.rccc"):
+            return torch.full(lane_shape(f), self.report_cwnd,
+                              dtype=torch.float32, device=st.balance.device)

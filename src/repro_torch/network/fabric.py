@@ -62,8 +62,10 @@ out as clamps and masks.
 Each ``simulate_batch`` call is a ``sweep`` span of ``repro_torch.spans``
 (recorded while ``torch.profiler`` runs), holding the driver's build,
 chunk issue and collect, each tick, the tick's numbered sections as
-phases, its fault draws and its policy calls; ``DRIVER_COUNTS`` counts
-the group ticks the chunk loops issue and those under the masked body.
+phases, its fault draws, its policy calls and its ROD-only blocks
+(``pds.rod``); ``DRIVER_COUNTS`` counts the group ticks the chunk loops
+issue and those under the masked body, ``TRANSPORT_COUNTS`` the finished
+sweeps' arrivals, duplicates, ROD rejects and trims.
 
 The other dense one-hots of the reference stay ([B, F, E] ACK/NACK
 lanes, [B, H, F] host pick, [B, F, Q] deliveries), so parity is easy to
@@ -73,6 +75,7 @@ reason about; they are quadratic and cap the fabric size (ROADMAP.md,
 from __future__ import annotations
 
 import warnings
+from contextlib import nullcontext
 from dataclasses import dataclass, fields, replace
 
 import numpy as np
@@ -659,7 +662,8 @@ def make_step(g: QueueGraph, profile: TransportProfile, p: SimParams, F: int,
             rtx = kops.nack_mark_lanes_(rtx, src_track.base, ef[:, Q:],
                                         ep[:, Q:], is_nack[:, Q:],
                                         rod_mask if mixed_rod else None)
-        rod_gbn = hot_nack.any(dim=-1)
+        with spans.span("pds.rod") if any_rod else nullcontext():
+            rod_gbn = hot_nack.any(dim=-1)
 
         # EV-based loss inference (Sec. 3.2.4), RR_SLOTS layout: slot i
         # carries PSNs i, i+K, i+2K...; an ACK for PSN x implies every
@@ -717,26 +721,28 @@ def make_step(g: QueueGraph, profile: TransportProfile, p: SimParams, F: int,
         next_psn = s.next_psn
         timeout_rod = bc["no_f"]
         if any_rod:
-            timeout_rod = (inflight > 0) & overdue
-            if pdc_on:
-                timeout_rod = timeout_rod & ~s.quarantined
-            rewind = rod_gbn | timeout_rod
-            if mixed_rod:
-                rewind = rewind & rod_mask
-                timeout_rod = timeout_rod & rod_mask
-            next_psn = torch.where(rewind, src_track.base, next_psn)
-            inflight = torch.where(rewind, 0, inflight)
-            last_progress = torch.where(rewind, tick, last_progress)
+            with spans.span("pds.rod"):
+                timeout_rod = (inflight > 0) & overdue
+                if pdc_on:
+                    timeout_rod = timeout_rod & ~s.quarantined
+                rewind = rod_gbn | timeout_rod
+                if mixed_rod:
+                    rewind = rewind & rod_mask
+                    timeout_rod = timeout_rod & rod_mask
+                next_psn = torch.where(rewind, src_track.base, next_psn)
+                inflight = torch.where(rewind, 0, inflight)
+                last_progress = torch.where(rewind, tick, last_progress)
         with spans.span("policy.cc"):
             win_ok = cc_pol.on_send_gate(cc_st, inflight)
         if any_rod:
             # in-order CACK gate (ROD): the ordered window may not race
             # more than one congestion window past the cumulative ACK
-            with spans.span("policy.cc"):
-                rod_win = torch.floor(cc_pol.cwnd_view(cc_st, (B, F))).to(
-                    I32).clamp(min=1)
-            rod_ok = (next_psn - src_track.base) < rod_win
-            win_ok = win_ok & (rod_ok | ~rod_mask)
+            with spans.span("pds.rod"):
+                with spans.span("policy.cc"):
+                    rod_win = torch.floor(cc_pol.cwnd_view(cc_st, (B, F))
+                                          ).to(I32).clamp(min=1)
+                rod_ok = (next_psn - src_track.base) < rod_win
+                win_ok = win_ok & (rod_ok | ~rod_mask)
         mp_ok = (next_psn - src_track.base) < p.mp_range
         can_new = (next_psn < wl.size) & mp_ok
         eligible = ((tick >= wl.start) & ~done & dep_ok & win_ok
@@ -873,10 +879,11 @@ def make_step(g: QueueGraph, profile: TransportProfile, p: SimParams, F: int,
             # the ROD receiver accepts only the next in-order PSN
             # (go-back-N): out-of-order arrivals are discarded and NACKed
             # with the first-gap PSN so the source rewinds at once
-            rod_rej_f = d_in_range & (d_off != 0)
-            if mixed_rod:
-                rod_rej_f = rod_rej_f & rod_mask
-            d_rec = d_in_range & ~rod_rej_f
+            with spans.span("pds.rod"):
+                rod_rej_f = d_in_range & (d_off != 0)
+                if mixed_rod:
+                    rod_rej_f = rod_rej_f & rod_mask
+                d_rec = d_in_range & ~rod_rej_f
         else:
             d_rec = d_in_range
         d_ring, d_base, _, d_already = kops.sack_advance_own(
@@ -889,9 +896,11 @@ def make_step(g: QueueGraph, profile: TransportProfile, p: SimParams, F: int,
             oor=s.dst_track.oor + (has_d & ~d_in_range).to(I32),
         )
         if any_rod:
-            dups = s.dups + (has_d & ~fresh_f & ~rod_rej_f).sum(dim=-1,
-                                                                 dtype=I32)
-            rod_rejects = s.rod_rejects + rod_rej_f.sum(dim=-1, dtype=I32)
+            with spans.span("pds.rod"):
+                dups = s.dups + (has_d & ~fresh_f & ~rod_rej_f).sum(
+                    dim=-1, dtype=I32)
+                rod_rejects = s.rod_rejects + rod_rej_f.sum(dim=-1,
+                                                            dtype=I32)
         else:
             dups = s.dups + (has_d & ~fresh_f).sum(dim=-1, dtype=I32)
             rod_rejects = s.rod_rejects
@@ -1046,10 +1055,11 @@ def make_step(g: QueueGraph, profile: TransportProfile, p: SimParams, F: int,
         ack_lane_t = ack_like.to(I32) * EV_ACK
         ack_lane_psn = pp
         if any_rod:
-            rod_rej_lane = ddata & rod_rej_f.gather(-1, safe_pf)
-            ack_lane_t = torch.where(rod_rej_lane, EV_OOO, ack_lane_t)
-            ack_lane_psn = torch.where(
-                rod_rej_lane, dst_track.base.gather(-1, safe_pf), pp)
+            with spans.span("pds.rod"):
+                rod_rej_lane = ddata & rod_rej_f.gather(-1, safe_pf)
+                ack_lane_t = torch.where(rod_rej_lane, EV_OOO, ack_lane_t)
+                ack_lane_psn = torch.where(
+                    rod_rej_lane, dst_track.base.gather(-1, safe_pf), pp)
         new_type = torch.cat([ack_lane_t, nack_mask.to(I32) * EV_NACK,
                               ooo_fire.to(I32) * EV_OOO], dim=-1)
         new_flow = torch.cat([safe_pf.to(I32), cand_flow, bc["flow_ids"]],
@@ -1362,11 +1372,28 @@ class SimResult:
 #: masked body (a chunk after some scenario stopped): plain ints, counted
 #: once a chunk
 DRIVER_COUNTS = {"ticks": 0, "masked_ticks": 0}
+#: the finished sweeps' transport work, summed over their lanes from the
+#: final states' counters (plain ints, added once a sweep by
+#: ``_results``): data packets that reached their receiver (fresh,
+#: duplicate or ROD-rejected), the duplicates and the ROD rejects among
+#: them, and the packets trimmed on queue overflow
+TRANSPORT_COUNTS = {"arrivals": 0, "dups": 0, "rod_rejects": 0, "trims": 0}
 
 
 def reset_driver_counts() -> None:
-    for k in DRIVER_COUNTS:
-        DRIVER_COUNTS[k] = 0
+    for counts in (DRIVER_COUNTS, TRANSPORT_COUNTS):
+        for k in counts:
+            counts[k] = 0
+
+
+def _count_transport(s: SimState) -> None:
+    """Add a finished loop's lane sums to ``TRANSPORT_COUNTS``, in one
+    copy to the host after the loop has ended."""
+    dups, rej, trims, fresh = (x.sum(dtype=torch.int64) for x in (
+        s.dups, s.rod_rejects, s.trims, s.delivered))
+    sums = torch.stack([fresh + dups + rej, dups, rej, trims]).tolist()
+    for k, v in zip(("arrivals", "dups", "rod_rejects", "trims"), sums):
+        TRANSPORT_COUNTS[k] += v
 
 
 def _quiescent(s: SimState, wl: Workload) -> torch.Tensor:
@@ -1568,6 +1595,7 @@ def _results(loop: ChunkLoop, sizes: np.ndarray, budget: int, trace: str,
     with spans.span("driver.results"):
         s, st, chunks, horizon = loop.s, loop.st, loop.chunks, loop.horizon
         B, F = sizes.shape
+        _count_transport(s)
         if trace == "stats":
             host = {k: v.cpu().numpy() for k, v in st.items() if k != "tel"}
             traces = [None] * B
