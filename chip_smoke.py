@@ -9,7 +9,7 @@ Phases, one line each:
    no run: the script exits non-zero before printing any result.
 2. build  — compile every CUDA kernel of the port from ``src/repro_torch/
    kernels/csrc`` (one ``nvcc`` per source, in parallel).
-3. kernels — each of the fifteen kernels against its plain PyTorch
+3. kernels — each of the sixteen kernels against its plain PyTorch
    version on the card, random inputs plus edge lanes, bitwise: the
    dense ``sack_fused`` / ``sack_advance`` and ``nack_mark`` at the main
    path's shapes (F = 2048 flows, W = 16 ring words, L = Q + 2F = 9216
@@ -46,7 +46,11 @@ Phases, one line each:
    ``enqueue_rank`` (the enqueue phase's arrival ranks and per-queue
    counts) on that tick's lanes and at the benchmark cells' B = 8 and 16
    over n = 7168 lanes and Q = 5120 queues, with a zero base too, timed
-   at both. Then the sites: each tick kernel beside the
+   at both; ``flow_fold`` (the per-flow folds of the ACK/NACK and
+   delivery lanes) on that tick's two calls and at B = 8 and 16 over F =
+   2048 flows, section 1's L = 14336 control lanes (with REPS's clean-ACK
+   fold too) and section 5's L = 5120 queue heads, timed at those shapes.
+   Then the sites: each tick kernel beside the
    dense composition that the tick ran before it (bit plane, old-bit
    test, dense kernel, and for the ACK site the clear of the ACKed bit;
    for the NACK site its lane arithmetic and the copying ``nack_mark``;
@@ -55,7 +59,9 @@ Phases, one line each:
    kept here; for the four tick forms the eager bodies of
    ``NSCCPolicy.on_ack`` / ``end_of_tick`` and ``RoutingTables.
    injection_queue`` / ``route_step``, for ``enqueue_rank`` the [n, n]
-   and [Q, n] one-hots, on scenario 0 of that tick's lanes), bitwise, both timed with CUDA events in turns, with their
+   and [Q, n] one-hots, for ``flow_fold`` the [F, E] and [F, Q] ones, on
+   scenario 0 of that tick's lanes), bitwise, both timed with CUDA events
+   in turns, with their
    device operations per call.
 4. goldens — the two reference goldens (``tests/golden/fabric_golden.npz``)
    reproduced bitwise on the card: A through ``simulate``, B (REPS, a
@@ -78,8 +84,8 @@ Phases, one line each:
    or RTO mark, and 1, 3, 1 under RR_SLOTS, whose loss inference marks
    twice; ``nscc_ack`` and ``nscc_epoch`` once under NSCC and the hybrid,
    never under RCCC or open loop; ``ecmp_inject``, ``ecmp_route`` and
-   ``enqueue_rank`` once, the last twice under CBFC) and the entry-point
-   forms never. Then the kernel entry points
+   ``enqueue_rank`` once, the last twice under CBFC; ``flow_fold``
+   twice) and the entry-point forms never. Then the kernel entry points
    (``repro_torch.kernels.ops.nscc_update`` / ``ecmp_select`` /
    ``sack_fused`` / ``sack_advance`` / ``nack_mark``): one batched NSCC
    round over the hpc run's 2048 windows, the ECMP port choice of 7168
@@ -389,29 +395,34 @@ KERNELS = {
     "enqueue_rank": ("src/repro_torch/kernels/csrc/enqueue.cu",
                      "none (jnp one-hots, src/repro/network/fabric.py:371 "
                      "and :1023)", "enqueue_rank_kernel<true"),
+    # no Pallas kernel: the reference's jnp one-hots of sections 1 and 5
+    "flow_fold": ("src/repro_torch/kernels/csrc/flow_fold.cu",
+                  "none (jnp one-hots, src/repro/network/fabric.py:549 "
+                  "and :867)", "flow_fold_kernel<true"),
 }
 TICK_KERNELS = ("sack_fused_own", "sack_advance_own", "nack_mark_lanes",
                 "set_own_bit", "clear_own_bit", "nscc_ack", "nscc_epoch",
-                "ecmp_inject", "ecmp_route", "enqueue_rank")
-#: the tick forms of the two entry-point kernels and the enqueue ranks
-#: (``ops`` dispatch names)
+                "ecmp_inject", "ecmp_route", "enqueue_rank", "flow_fold")
+#: the tick forms of the two entry-point kernels, the enqueue ranks and
+#: the per-flow folds (``ops`` dispatch names)
 TICK_FORMS = ("nscc_ack", "nscc_epoch", "ecmp_inject", "ecmp_route",
-              "enqueue_rank")
+              "enqueue_rank", "flow_fold")
 #: launches per tick of each tick kernel, by run: under all-ROD the NACK
 #: site and the RTO's set are compiled out; RR_SLOTS's loss inference
 #: adds two sets; the NSCC forms run under NSCC and the hybrid (ai_full,
 #: hpc, resilient and the INC and link runs of ai_full), not under RCCC
 #: (ai_base) or open loop (mixed); the routing walks once a tick always;
-#: the enqueue ranks once, twice under CBFC (its credit gate ranks too)
-PER_TICK = {"ai_full": (1, 1, 1, 1, 1, 1, 1, 1, 1, 1),
-            "hpc": (1, 1, 0, 0, 1, 1, 1, 1, 1, 1),
-            "base": (1, 1, 1, 1, 1, 0, 0, 1, 1, 1),
-            "ai_base": (1, 1, 1, 1, 1, 0, 0, 1, 1, 1),
-            "mixed": (1, 1, 1, 3, 1, 0, 0, 1, 1, 1),
-            "resilient": (1, 1, 1, 1, 1, 1, 1, 1, 1, 1),
-            "inc": (1, 1, 1, 1, 1, 1, 1, 1, 1, 1),
-            "llr": (1, 1, 1, 1, 1, 1, 1, 1, 1, 1),
-            "cbfc": (1, 1, 1, 1, 1, 1, 1, 1, 1, 2)}
+#: the enqueue ranks once, twice under CBFC (its credit gate ranks too);
+#: the per-flow folds twice (sections 1 and 5)
+PER_TICK = {"ai_full": (1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 2),
+            "hpc": (1, 1, 0, 0, 1, 1, 1, 1, 1, 1, 2),
+            "base": (1, 1, 1, 1, 1, 0, 0, 1, 1, 1, 2),
+            "ai_base": (1, 1, 1, 1, 1, 0, 0, 1, 1, 1, 2),
+            "mixed": (1, 1, 1, 3, 1, 0, 0, 1, 1, 1, 2),
+            "resilient": (1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 2),
+            "inc": (1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 2),
+            "llr": (1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 2),
+            "cbfc": (1, 1, 1, 1, 1, 1, 1, 1, 1, 2, 2)}
 #: SimState lanes the profile goldens leave out: those of the recovery
 #: loop (RTO strikes, quarantine, their counters), of INC and of the link
 #: layer, none of which the three profile runs turn on
@@ -762,6 +773,7 @@ def phase_kernels() -> dict:
         _record(rows, "ecmp_select", n, max(errs), timing)
     _tick_form_rows(rows, rng, dev)
     _enqueue_rows(rows, rng, dev)
+    _fold_rows(rows, rng, dev)
     return rows
 
 
@@ -774,18 +786,22 @@ TICK_CAPTURE = 48
 
 @functools.lru_cache(maxsize=None)
 def _tick_lanes() -> dict:
-    """The five tick forms' operands as the tick hands them to ``ops`` on
+    """The six tick forms' operands as the tick hands them to ``ops`` on
     the last of ``TICK_CAPTURE`` ticks of the full-width ``ai_full``
-    batch (B = 4) on the card: {form: its call's arguments}."""
+    batch (B = 4) on the card: {form: its call's arguments}; for
+    ``flow_fold``, called twice a tick, section 1's call, and section 5's
+    under ``flow_fold_delivery``."""
     from repro_torch.kernels import ops
     from repro_torch.network.fabric import simulate_batch
     _, g, wl, prof, p = _fullsize()
-    seen, orig = {}, {k: getattr(ops, k) for k in TICK_FORMS}
+    calls, orig = {}, {k: getattr(ops, k) for k in TICK_FORMS}
 
     def recording(name):
         def call(*args):
-            seen[name] = tuple(a.clone() if isinstance(a, torch.Tensor)
-                               else a for a in args)
+            last = calls.get(name, [])[-1:]
+            calls[name] = last + [tuple(
+                a.clone() if isinstance(a, torch.Tensor) else a
+                for a in args)]
             return orig[name](*args)
         return call
     try:
@@ -797,7 +813,9 @@ def _tick_lanes() -> dict:
         for k, f in orig.items():
             setattr(ops, k, f)
     torch.cuda.synchronize()
-    assert sorted(seen) == sorted(TICK_FORMS), sorted(seen)
+    assert sorted(calls) == sorted(TICK_FORMS), sorted(calls)
+    seen = {k: v[-1] for k, v in calls.items()}
+    seen["flow_fold"], seen["flow_fold_delivery"] = calls["flow_fold"]
     return seen
 
 
@@ -1016,6 +1034,92 @@ def _enqueue_rows(rows: dict, rng, dev) -> None:
                                              **timing}
             _say_row(f"enqueue_rank (B={b})", rows["enqueue_rank"]["batch"],
                      [tuple(x.shape) for x in args])
+
+
+#: scenarios at which ``flow_fold`` is checked and timed (``perm2-b8``'s
+#: first: the row; ``faults-b16``'s beside it)
+FOLD_BATCHES = (8, 16)
+
+
+def _fold_flat(fn, f: int, masks: int, sum_masks: tuple):
+    """``fn(flow, f, masks, sums)`` (``flow_fold`` or its plain version)
+    as a function of flat lanes (flow, *masks, *values), sum j reading
+    mask ``sum_masks[j]``."""
+    def call(flow, *rest):
+        return fn(flow, f, rest[:masks], tuple(zip(sum_masks,
+                                                  rest[masks:])))
+    return call
+
+
+def _fold_inputs(rng, b, n, f, reps, dev):
+    """Flat [B, n] lanes of one section-1 fold (flow, is_ack, is_nack,
+    [clean,] PSN, ECN, timestamp[, EV]): event types none / ACK / NACK /
+    OOO in equal shares, flows in [0, f) with one lane in five outside
+    it, PSNs over the int32 range; under ``reps`` REPS's clean-ACK mask
+    and EV lane too."""
+    et = rng.integers(0, 4, (b, n))
+    flow = rng.integers(0, f, (b, n)).astype(np.int32)
+    out = rng.random((b, n)) < 0.2
+    flow[out] = rng.choice([-1, f, 2 ** 31 - 1], out.sum())
+    psn = rng.integers(-2 ** 31, 2 ** 31, (b, n), dtype=np.int64)
+    ec = rng.integers(0, 2, (b, n))
+    ts = rng.integers(0, 5000, (b, n))
+    ev = rng.integers(0, 2 ** 16, (b, n))
+    is_ack, is_nack = et == 1, (et == 2) | (et == 3)
+    masks = [is_ack, is_nack] + ([is_ack & (ec == 0)] if reps else [])
+    values = [psn, ec, ts] + ([ev] if reps else [])
+    return tuple(torch.as_tensor(a).to(dev) for a in (
+        flow, *masks, *(v.astype(np.int32) for v in values)))
+
+
+def _fold_rows(rows: dict, rng, dev) -> None:
+    """Phase 3's part for ``flow_fold``: bitwise against its plain
+    version (the one-hot composition sections 1 and 5 ran) on a real
+    tick's two calls (``_tick_lanes``, B = 4) and on seeded lanes at the
+    cells' shapes (B in ``FOLD_BATCHES``, F = 2048 flows; section 1's L
+    = 2Q + 2F = 14336 control lanes under AI Full and with REPS's
+    clean-ACK fold, section 5's L = Q = 5120 queue heads), then timed
+    there (bound: each lane in and each per-flow output out once)."""
+    from repro_torch.kernels import ops, ref
+    for key in ("flow_fold", "flow_fold_delivery"):
+        flow, f, masks, sums = _tick_lanes()[key]
+        _assert_equal(ops.flow_fold_cuda(flow, f, masks, sums),
+                      ref.flow_fold_ref(flow, f, masks, sums),
+                      f"{key} on a tick's lanes")
+    f, l1, l5 = F_MAIN, 2 * Q_MAIN + 2 * F_MAIN, Q_MAIN
+    # name -> (B, L, masks, sum masks, flat lanes)
+    cases = {}
+    for b in FOLD_BATCHES:
+        cases[f"section 1 (B={b})"] = (b, l1, 2, (0, 0, 0), _fold_inputs(
+            rng, b, l1, f, False, dev))
+    cases["section 1, REPS (B=8)"] = (8, l1, 3, (0, 0, 0, 2), _fold_inputs(
+        rng, 8, l1, f, True, dev))
+    for b in FOLD_BATCHES:
+        flow, ddata, _, psn = _fold_inputs(rng, b, l5, f, False, dev)[:4]
+        cases[f"section 5 (B={b})"] = (b, l5, 1, (0,), (flow, ddata, psn))
+    for name, (b, n, m, ks, args) in cases.items():
+        kern = _fold_flat(ops.flow_fold_cuda, f, m, ks)
+        plain = _fold_flat(ref.flow_fold_ref, f, m, ks)
+        _assert_equal(kern(*args), plain(*args), f"flow_fold {name}")
+        slots = m + len(ks)
+        timing = _time_row(
+            "flow_fold", kern, plain, args,
+            # flow (4 B), the masks (1 B) and the values (4 B) in a lane;
+            # (masks + sums) int32 counters out a flow. ~2 integer
+            # operations a lane and fold
+            b * (n * (4 + m + 4 * len(ks)) + 4 * slots * f),
+            2 * slots * b * n, fast=True)
+        row = {"b": b, "lanes": n, "max_abs_err": 0, **timing}
+        if name == f"section 1 (B={FOLD_BATCHES[0]})":
+            rows["flow_fold"] = _row("flow_fold", 0, timing)
+            row = rows["flow_fold"]
+        else:
+            key = {f"section 1 (B={FOLD_BATCHES[1]})": "batch"}.get(name, name)
+            rows["flow_fold"][key] = row
+        _say_row(f"flow_fold {name}", row, [tuple(a.shape) for a in args[:1]])
+    say("3 kernels", f"flow_fold: bitwise equal to plain on the two calls of "
+        f"tick {TICK_CAPTURE - 1} of the full-width batch (B = {B_MAIN}) and "
+        f"at B in {FOLD_BATCHES} x F = {f} over sections 1 and 5's lanes")
 
 
 def _own_inputs(rng, n, w, dev):
@@ -1307,11 +1411,12 @@ def _site_route_eager(rt, queue, src, dst, ev):
 
 
 def _tick_form_sites() -> dict:
-    """name -> (eager, own, args) of the five tick forms' sites on scenario
+    """name -> (eager, own, args) of the six tick forms' sites on scenario
     0 of a real tick's operands (``_tick_lanes``): the NSCC hooks through
     ``NSCCPolicy`` against their eager bodies, the routing walks through
     ``RoutingTables`` against theirs, the enqueue ranks against the
-    composition section 7 ran."""
+    composition section 7 ran, the two folds against the one-hots of
+    sections 1 and 5."""
     from repro_torch.core.cms.nscc import NSCCPolicy, NSCCState
     from repro_torch.kernels import ops, ref
     real = _tick_lanes()
@@ -1352,7 +1457,21 @@ def _tick_form_sites() -> dict:
         "enqueue_rank": (
             lambda *x: ref.enqueue_rank_ref(*x, cap),
             lambda *x: ops.enqueue_rank(*x, cap), (target, valid, qlen)),
+        "flow_fold": _fold_site(real["flow_fold"]),
+        "flow_fold delivery": _fold_site(real["flow_fold_delivery"]),
     }
+
+
+def _fold_site(call) -> tuple:
+    """(dense, own, args) of a ``flow_fold`` site on scenario 0 of one
+    recorded call: the one-hot composition the tick ran against the
+    fold, over flat lanes."""
+    from repro_torch.kernels import ops, ref
+    flow, f, masks, sums = call
+    ks = tuple(k for k, _ in sums)
+    return (_fold_flat(ref.flow_fold_ref, f, len(masks), ks),
+            _fold_flat(ops.flow_fold, f, len(masks), ks),
+            (flow[:1], *(m[:1] for m in masks), *(v[:1] for _, v in sums)))
 
 
 def _device_ops(fn, calls: int = 10) -> float:
@@ -4269,7 +4388,8 @@ def per_tick(profile, num_flows: int, link=None) -> tuple:
     once; the NACK mark and the RTO's set once unless every flow is ROD;
     RR_SLOTS's loss inference two sets more; NSCC's ACK update and Quick
     Adapt once under NSCC and the hybrid; the two routing walks once; the
-    enqueue ranks once, and once more for CBFC's credit gate."""
+    enqueue ranks once, and once more for CBFC's credit gate; the per-flow
+    folds twice."""
     from repro_torch.core.lb.schemes import LBScheme
     from repro_torch.network.profile import CCAlgo, DeliveryMode
     rod = profile.delivery_modes(num_flows) == int(DeliveryMode.ROD)
@@ -4277,7 +4397,7 @@ def per_tick(profile, num_flows: int, link=None) -> tuple:
     rr = int(profile.lb == LBScheme.RR_SLOTS and bool(sel))
     nscc = int(profile.cc in (CCAlgo.NSCC, CCAlgo.NSCC_AND_RCCC))
     cbfc = int(bool(getattr(link, "cbfc", False)))
-    return (1, 1, sel, 2 * rr + sel, 1, nscc, nscc, 1, 1, 1 + cbfc)
+    return (1, 1, sel, 2 * rr + sel, 1, nscc, nscc, 1, 1, 1 + cbfc, 2)
 
 
 class _Ticks:

@@ -76,7 +76,7 @@ TEL_SPEC = telem.TelemetrySpec.on(probe_every=16, slots=16)
 KERNEL_ENTRIES = ("sack_fused", "sack_advance", "nack_mark",
                   "sack_fused_own", "sack_advance_own", "nack_mark_lanes_",
                   "set_own_bit_", "clear_own_bit_", "nscc_ack", "nscc_epoch",
-                  "ecmp_inject", "ecmp_route", "enqueue_rank")
+                  "ecmp_inject", "ecmp_route", "enqueue_rank", "flow_fold")
 
 
 class _Count(TorchDispatchMode):

@@ -280,6 +280,21 @@ class LBPolicy:
                           valid)
         return st  # STATIC / OBLIVIOUS / RR_SLOTS take no path feedback
 
+    def on_ack_per_flow(self, st: LBState, clean_n, clean_ev, ef, ee, ec,
+                        is_ack, is_nack, flow_ok=None) -> LBState:
+        """``on_ack`` with REPS's clean-ACK one-hot folded per flow, as
+        the tick calls it: clean_n / clean_ev [..., F], each flow's count
+        of clean (un-marked) ACK lanes and their EVs' sum (the tick's
+        ``flow_fold`` of the lanes ``is_ack & (ec == 0)``; REPS reads
+        them, the other schemes do not). Equal to ``on_ack`` on the
+        one-hot those lanes make."""
+        if self.scheme == LBScheme.REPS:
+            valid = clean_n > 0
+            if flow_ok is not None:
+                valid = valid & flow_ok
+            return reps_recycle(st, clean_ev, valid)
+        return self.on_ack(st, None, ef, ee, ec, is_ack, is_nack, flow_ok)
+
     def select(self, st: LBState, psn: torch.Tensor,
                tick: int) -> "tuple[LBState, torch.Tensor]":
         st2, ev = select_ev(st, self.scheme, psn, tick)

@@ -62,6 +62,9 @@ SIGNATURES = {
         "enqueue_rank_launch": (_P,) * 7 + (_I,) * 4 + (_P,),
         "enqueue_rank_smem_optin": (),
     },
+    "flow_fold": {
+        "flow_fold_launch": (_P,) * 9 + (_I,) * 7 + (_P,),
+    },
 }
 
 _LIBS: "dict[str, ctypes.CDLL]" = {}

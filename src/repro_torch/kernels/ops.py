@@ -8,9 +8,11 @@ and ``ecmp_select``; and their tick forms: ``nscc_ack`` (NSCC's
 per-flow ACK update) and ``nscc_epoch`` (Quick Adapt), which
 ``core.cms.nscc``'s tick hooks call, and ``ecmp_inject`` / ``ecmp_route``
 (the injection and per-hop routing walks), which ``RoutingTables``
-calls; and ``enqueue_rank``, the arrival ranks and per-queue counts of
-the tick's enqueue phase. The tick forms return fresh tensors: the
-tick's previous state is read again after the step.
+calls; ``enqueue_rank``, the arrival ranks and per-queue counts of
+the tick's enqueue phase; and ``flow_fold``, the per-flow counts and
+sums of the tick's ACK/NACK lanes (section 1) and deliveries (section
+5). The tick forms return fresh tensors: the tick's previous state is
+read again after the step.
 
 The in-place forms (names ending in ``_``) write into the ring they are
 given and return it: no copy, no [F, W] plane, no allocation. The
@@ -51,7 +53,7 @@ LAUNCHES = {"sack_fused": 0, "nack_mark": 0, "sack_advance": 0,
             "nack_mark_lanes": 0, "set_own_bit": 0, "clear_own_bit": 0,
             "nscc_update": 0, "ecmp_select": 0, "nscc_ack": 0,
             "nscc_epoch": 0, "ecmp_inject": 0, "ecmp_route": 0,
-            "enqueue_rank": 0}
+            "enqueue_rank": 0, "flow_fold": 0}
 
 MAX_WORDS = 32  # a ring row fits one warp: W <= 32 words (mp_range <= 1024)
 
@@ -525,18 +527,24 @@ def ecmp_route_cuda(tables, queue: torch.Tensor, src: torch.Tensor,
 _SMEM_OPTIN: dict = {}
 
 
-def _counters_fit(dev: torch.device, q: int) -> bool:
-    """Whether ``enqueue_rank``'s Q int32 counters fit one block's shared
-    memory on ``dev`` (queried once a device)."""
+def _smem_optin(dev: torch.device) -> int:
+    """The bytes of shared memory a block may opt into on ``dev``
+    (queried once a device)."""
     optin = _SMEM_OPTIN.get(dev.index)
     if optin is None:
         with torch.cuda.device(dev):
             optin = build.load("enqueue").enqueue_rank_smem_optin()
         if optin < 0:
-            raise RuntimeError(f"enqueue_rank: shared memory query failed: "
-                               f"CUDA error {-optin}")
+            raise RuntimeError(f"shared memory query failed: CUDA error "
+                               f"{-optin}")
         _SMEM_OPTIN[dev.index] = optin
-    return 4 * q <= optin
+    return optin
+
+
+def _counters_fit(dev: torch.device, q: int) -> bool:
+    """Whether ``enqueue_rank``'s Q int32 counters fit one block's shared
+    memory on ``dev``."""
+    return 4 * q <= _smem_optin(dev)
 
 
 def enqueue_rank_cuda(target: torch.Tensor, valid: torch.Tensor,
@@ -566,6 +574,48 @@ def enqueue_rank_cuda(target: torch.Tensor, valid: torch.Tensor,
                 None if scratch is None else scratch.data_ptr(), batch, n, q,
                 _int32("capacity", capacity))
     return pos, added, fits
+
+
+#: the most lane masks and sums one ``flow_fold`` launch takes
+FOLD_MASKS, FOLD_SUMS = 3, 4
+
+
+def flow_fold_cuda(flow: torch.Tensor, num_flows: int, masks, sums):
+    """CUDA kernel: the per-flow folds of [B, L] lanes (see
+    ``flow_fold``): (counts [M, B, F], totals [S, B, F]), two views of
+    one int32 output. The counters live in shared memory, or, where
+    (M + S) F of them do not fit it, in the zeroed output."""
+    _on_cuda(flow, *masks, *(v for _, v in sums))
+    if flow.dim() != 2:
+        raise ValueError(f"flow must be [B, L], got {tuple(flow.shape)}")
+    m, n_sums = len(masks), len(sums)
+    if not (1 <= m <= FOLD_MASKS and 1 <= n_sums <= FOLD_SUMS):
+        raise ValueError(f"flow_fold takes 1-{FOLD_MASKS} masks and 1-"
+                         f"{FOLD_SUMS} sums, got {m} and {n_sums}")
+    f = _int32("num_flows", num_flows)
+    if f < 1:
+        raise ValueError("num_flows must be at least 1")
+    batch, lanes = flow.shape
+    _require("flow", flow, torch.int32, (batch, lanes))
+    for i, t in enumerate(masks):
+        _require(f"masks[{i}]", t, torch.bool, (batch, lanes))
+    packed = 0
+    for j, (k, v) in enumerate(sums):
+        if not 0 <= k < m:
+            raise ValueError(f"sums[{j}] reads mask {k} of {m}")
+        _require(f"sums[{j}]", v, torch.int32, (batch, lanes))
+        packed |= k << 2 * j
+    shared = 4 * (m + n_sums) * f <= _smem_optin(flow.device)
+    out = (torch.empty if shared else torch.zeros)(
+        (m + n_sums, batch, f), dtype=torch.int32, device=flow.device)
+    if batch:
+        ptrs = ([t.data_ptr() for t in masks] + [None] * (FOLD_MASKS - m)
+                + [v.data_ptr() for _, v in sums]
+                + [None] * (FOLD_SUMS - n_sums))
+        _launch("flow_fold", "flow_fold", flow, flow.data_ptr(), *ptrs,
+                out.data_ptr(), batch, lanes, f, m, n_sums, packed,
+                int(shared))
+    return out[:m], out[m:]
 
 
 def _check_fanout(fanout: int) -> None:
@@ -809,3 +859,27 @@ def enqueue_rank(target, valid, base, capacity: int):
             return (outs[0].view(target.shape), outs[1].view(base.shape),
                     outs[2].view(valid.shape))
         return ref.enqueue_rank_ref(target, valid, base, capacity)
+
+
+def flow_fold(flow, num_flows: int, masks, sums):
+    """The tick's per-flow folds of its event lanes (sections 1 and 5 of
+    ``make_step``), over leading scenario axes. flow [..., L] int32 (a
+    lane's flow; one outside [0, num_flows) folds nowhere), masks 1-3
+    [..., L] bool, sums 1-4 pairs (k, value [..., L] int32). Returns
+    (counts, totals): counts [M, ..., F] int32, the lanes of each mask a
+    flow; totals [S, ..., F] int32, each value's sum over the lanes of
+    its mask k a flow, wrapping as ``torch.sum(dtype=int32)`` does. One
+    launch on a card, linear in the lanes, where the plain version builds
+    a [..., F, L] one-hot."""
+    with spans.span("kernels.flow_fold"):
+        if _on_cuda(flow, *masks, *(v for _, v in sums)):
+            lead, n = flow.shape[:-1], flow.shape[-1]
+
+            def rows(t):
+                return t.reshape(-1, n).contiguous()
+            counts, totals = flow_fold_cuda(
+                rows(flow), num_flows, [rows(m) for m in masks],
+                [(k, rows(v)) for k, v in sums])
+            return (counts.view(len(masks), *lead, num_flows),
+                    totals.view(len(sums), *lead, num_flows))
+        return ref.flow_fold_ref(flow, num_flows, masks, sums)

@@ -7,8 +7,10 @@ their tick forms: NSCC's per-flow ACK update and Quick Adapt epoch, and
 the ECMP injection and per-hop routing walks over ``RoutingTables``;
 and the tick's enqueue ranks and per-queue counts (``enqueue_rank_ref``,
 the composition section 7 of ``make_step`` ran, and its pairwise count
-``rank_within``). The in-place forms end in ``_`` and return the ring
-they were given.
+``rank_within``); and the per-flow folds of the tick's ACK/NACK and
+delivery lanes (``flow_fold_ref``, the one-hot composition sections 1
+and 5 ran). The in-place forms end in ``_`` and return the ring they
+were given.
 
 These run for CPU tensors (the tests) and are what ``chip_smoke.py``
 holds each CUDA kernel against on the card, bit for bit. All rings and
@@ -21,6 +23,7 @@ import torch
 
 from repro_torch._u32 import from_u64, umod
 from repro_torch.core.cms.nscc import NSCCParams, window_delta
+from repro_torch.core.lb.schemes import _pick_lane
 from repro_torch.core.pds import bit_plane, shift_ring, trailing_ones
 from repro_torch.core.types import scenario_rows
 from repro_torch.network.ecmp import DELIVERED, ecmp_hash
@@ -305,3 +308,19 @@ def enqueue_rank_ref(target: torch.Tensor, valid: torch.Tensor,
                         device=base.device)
     hot_enq = (target[..., None, :] == qidx[:, None]) & fits[..., None, :]
     return pos, hot_enq.sum(dim=-1, dtype=torch.int32), fits
+
+
+def flow_fold_ref(flow: torch.Tensor, num_flows: int, masks, sums):
+    """The tick's per-flow folds (sections 1 and 5 of ``make_step``) as
+    the composition the tick ran: one [..., F, L] one-hot of each lane's
+    flow, ANDed with each mask's lanes; a mask's count is its plane's
+    sum over the lanes, and sum (k, value) is ``_pick_lane`` of the value
+    under mask k's plane. flow [..., L] int32, masks 1-3 [..., L] bool,
+    sums pairs (k, value [..., L] int32). Returns (counts [M, ..., F],
+    totals [S, ..., F]), int32."""
+    flow_ids = torch.arange(num_flows, dtype=torch.int32, device=flow.device)
+    own = flow[..., None, :] == flow_ids[:, None]
+    hots = [own & m[..., None, :] for m in masks]
+    del own   # [..., F, L]: not held beside the planes
+    counts = torch.stack([h.sum(dim=-1, dtype=torch.int32) for h in hots])
+    return counts, torch.stack([_pick_lane(hots[k], v) for k, v in sums])

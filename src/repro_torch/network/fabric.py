@@ -34,9 +34,14 @@ its dense kernels; each site is one launch. Section 7 takes its
 arrival ranks, queue positions and per-queue enqueue counts from
 ``enqueue_rank`` (once a tick, twice under CBFC, whose credit gate ranks
 the candidates against a zero base), a sequential count in linear work
-where the reference builds [B, n, n] and [B, Q, n] one-hots. On CUDA
-tensors they are hand-written CUDA; on CPU tensors their plain PyTorch
-versions.
+where the reference builds [B, n, n] and [B, Q, n] one-hots. Sections
+1 and 5 fold their event lanes onto each scenario's flows with
+``flow_fold`` (once each a tick): the ACK and NACK counts and the ACK
+lane's PSN, ECN and timestamp (and, under REPS, the clean ACKs' EVs)
+over the E control lanes, the delivery count and PSN over the Q queue
+heads, in linear work where the reference builds [B, F, E] and [B, F, Q]
+one-hots. On CUDA tensors they are hand-written CUDA; on CPU tensors
+their plain PyTorch versions.
 
 Every profile of the paper's table runs: each CC composition (NSCC,
 RCCC, their hybrid, open loop), every LB scheme (STATIC, OBLIVIOUS,
@@ -67,15 +72,12 @@ phases, its fault draws, its policy calls and its ROD-only blocks
 issue and those under the masked body, ``TRANSPORT_COUNTS`` the finished
 sweeps' arrivals, duplicates, ROD rejects and trims.
 
-The other dense one-hots of the reference stay ([B, F, E] ACK/NACK
-lanes, [B, H, F] host pick, [B, F, Q] deliveries), so parity is easy to
-reason about; they are quadratic and cap the fabric size (ROADMAP.md,
-"Scale cap").
+One dense one-hot of the reference stays: section 3's [B, H, F] fair
+per-host pick. It is quadratic in the fabric's size.
 """
 from __future__ import annotations
 
 import warnings
-from contextlib import nullcontext
 from dataclasses import dataclass, fields, replace
 
 import numpy as np
@@ -88,7 +90,6 @@ from repro_torch.core.link import CTR_MOD, LinkConfig
 from repro_torch.core.pdc import unreachable
 from repro_torch.core.cms.nscc import NSCCParams
 from repro_torch.core.lb.schemes import LBPolicy, LBScheme, LBState, _mix32
-from repro_torch.core.lb.schemes import _pick_lane as _pick
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import rank_within
 from repro_torch.network.ecmp import DELIVERED, RoutingTables
@@ -492,6 +493,7 @@ def make_step(g: QueueGraph, profile: TransportProfile, p: SimParams, F: int,
     lb_pol = LBPolicy(LBScheme.STATIC if all_rod else profile.lb,
                       evict_enabled=profile.ev_eviction)
     rr_slots = profile.lb == LBScheme.RR_SLOTS and not all_rod
+    reps = lb_pol.scheme == LBScheme.REPS
     kslots = torch.arange(K, device=dev)
     ooo_gap = int(p.base_rtt)
     # recovery-loop statics: off (the defaults) they build no lane
@@ -581,15 +583,20 @@ def make_step(g: QueueGraph, profile: TransportProfile, p: SimParams, F: int,
             lane_src_dead = src_dead.gather(-1, ef.clamp(0, F - 1).long())
             is_ack = is_ack & ~lane_src_dead
             is_nack = is_nack & ~lane_src_dead
-        # at most one ACK lane per flow per tick: one [B, F, E] one-hot
-        # densifies every ACK-driven update to [B, F] / [B, F, W] work
-        own = ef[:, None, :] == flow_ids[:, None]
-        hot_ack = own & is_ack[:, None, :]
-        hot_nack = own & is_nack[:, None, :]
-        del own   # [B, F, E]: not held through the tick's peak
-        has_ack = hot_ack.any(dim=-1)
-        nack_count = hot_nack.sum(dim=-1, dtype=I32)
-        ack_psn = _pick(hot_ack, ep)
+        # at most one ACK lane per flow per tick: one fold of the E lanes
+        # onto each scenario's F flows (``flow_fold``: counts of the ACK
+        # and NACK lanes a flow, the ACK lane's PSN, ECN and timestamp as
+        # sums) densifies every ACK-driven update to [B, F] / [B, F, W]
+        # work. REPS folds its clean (un-marked) ACK lanes' EVs too.
+        masks = (is_ack, is_nack)
+        sums = ((0, ep), (0, ec), (0, ets))
+        if reps:
+            masks += (is_ack & (ec == 0),)
+            sums += ((2, ee),)
+        counts, picks = kops.flow_fold(ef, F, masks, sums)
+        has_ack = counts[0] > 0
+        nack_count = counts[1]
+        ack_psn = picks[0]
         if evict_on:
             # trim NACKs implicate the path EV they carry (OOO NACKs are
             # gap reports, not path evidence; ROD lanes evict on timeout
@@ -629,14 +636,16 @@ def make_step(g: QueueGraph, profile: TransportProfile, p: SimParams, F: int,
         # retire inflight, CC + LB feedback (policy hooks over [B, F])
         retire = has_ack.to(I32) + nack_count
         inflight = torch.clamp(s.inflight - retire, min=0)
-        ack_ecn = _pick(hot_ack, ec).to(torch.bool)
-        rtt = (tick - _pick(hot_ack, ets)).to(torch.float32)
+        ack_ecn = picks[1].to(torch.bool)
+        rtt = (tick - picks[2]).to(torch.float32)
         with spans.span("policy.cc"):
             cc_st = cc_pol.on_ack(s.cc, has_ack, ack_ecn, rtt)
             cc_st = cc_pol.on_nack(cc_st, nack_count)
         with spans.span("policy.lb"):
-            lbs = lb_pol.on_ack(s.lb, hot_ack, ef, ee, ec, is_ack, is_nack,
-                                flow_ok=(~rod_mask) if mixed_rod else None)
+            lbs = lb_pol.on_ack_per_flow(
+                s.lb, counts[2] if reps else None, picks[3] if reps else None,
+                ef, ee, ec, is_ack, is_nack,
+                flow_ok=(~rod_mask) if mixed_rod else None)
 
         # progress clock: any ACK freshens the flow; with backoff on, it
         # also resets the flow's RTO to its base value
@@ -662,8 +671,10 @@ def make_step(g: QueueGraph, profile: TransportProfile, p: SimParams, F: int,
             rtx = kops.nack_mark_lanes_(rtx, src_track.base, ef[:, Q:],
                                         ep[:, Q:], is_nack[:, Q:],
                                         rod_mask if mixed_rod else None)
-        with spans.span("pds.rod") if any_rod else nullcontext():
-            rod_gbn = hot_nack.any(dim=-1)
+        if any_rod:
+            # go-back-N's trigger, read by the ROD rewind of section 3
+            with spans.span("pds.rod"):
+                rod_gbn = nack_count > 0
 
         # EV-based loss inference (Sec. 3.2.4), RR_SLOTS layout: slot i
         # carries PSNs i, i+K, i+2K...; an ACK for PSN x implies every
@@ -868,11 +879,9 @@ def make_step(g: QueueGraph, profile: TransportProfile, p: SimParams, F: int,
         dtrim = deliver & ((pm & META_TRIMMED) != 0)
         ddata = deliver & ~dtrim
         # one host downlink per destination => at most one delivery per
-        # flow per tick: densify to per-flow [B, F] values
-        hot_d = ((pf[:, None, :] == flow_ids[:, None])
-                 & ddata[:, None, :])                          # [B, F, Q]
-        has_d = hot_d.any(dim=-1)
-        d_psn = _pick(hot_d, pp)
+        # flow per tick: fold the Q lanes to per-flow [B, F] values
+        (n_d,), (d_psn,) = kops.flow_fold(pf, F, (ddata,), ((0, pp),))
+        has_d = n_d > 0
         d_off = d_psn - s.dst_track.base               # uint32 wrap
         d_in_range = has_d & (d_off >= 0) & (d_off < mp)
         if any_rod:

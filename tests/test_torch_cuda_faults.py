@@ -2,8 +2,8 @@
 (the plain versions of the tick's kernels), bit for bit: B = 4 lanes
 with a different fault class each (gray links, a host death with a NIC
 stall, PHY corruption with a flap, all of them with a dead uplink), the
-tick's five kernels launched once per tick for the four lanes (none of
-the selective-retransmit marks under all-ROD). Every test is
+tick's kernels launched once per tick for the four lanes (none of the
+selective-retransmit marks under all-ROD; the per-flow folds twice). Every test is
 ``cuda``-marked and skips without a card.
 
 This file imports neither JAX nor the reference package:
@@ -25,16 +25,19 @@ from repro_torch.network.profile import TransportProfile
 from repro_torch.network.topology import leaf_spine
 
 TICK_KERNELS = ("sack_fused_own", "sack_advance_own", "nack_mark_lanes",
-                "set_own_bit", "clear_own_bit", "enqueue_rank")
+                "set_own_bit", "clear_own_bit", "enqueue_rank", "flow_fold")
+#: launches a tick of the tick kernels that are not launched once a tick
+#: in every profile: the folds of sections 1 and 5
+FOLDS_PER_TICK = {"flow_fold": 2}
 SRC, DST, DEP = [0, 1, 2, 6, 3], [4, 5, 3, 0, 7], [-1, -1, -1, -1, 0]
 PROFILES = {
-    "resilient": (TransportProfile.resilient(), (1, 1, 1, 1, 1, 1)),
+    "resilient": (TransportProfile.resilient(), (1, 1, 1, 1, 1, 1, 2)),
     "reps_evict": (replace(TransportProfile.ai_full(lb=LBScheme.REPS),
                            ev_eviction=True, rto_backoff=3.0,
-                           pdc_dead_after=3), (1, 1, 1, 1, 1, 1)),
+                           pdc_dead_after=3), (1, 1, 1, 1, 1, 1, 2)),
     "hpc_evict": (replace(TransportProfile.hpc(), ev_eviction=True,
                           rto_backoff=2.0, pdc_dead_after=4),
-                  (1, 1, 0, 0, 1, 1)),
+                  (1, 1, 0, 0, 1, 1, 2)),
 }
 
 

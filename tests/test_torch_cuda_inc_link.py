@@ -4,7 +4,8 @@ bit: a B = 2 tree all-reduce under an ``inc=True`` profile (lane 0 with
 its reduction group, lane 1 with ``red = -1``), and the corruption grid
 at B = 2 (BER 0 and 5 % on leaf 0's uplinks) under LLR and under
 LLR + CBFC. Each tick kernel launches once per tick for the two lanes
-(``enqueue_rank`` twice under CBFC).
+(``enqueue_rank`` twice under CBFC; ``flow_fold`` twice, for sections 1
+and 5).
 Every test is ``cuda``-marked and skips without a card.
 
 This file imports neither JAX nor the reference package:
@@ -23,7 +24,7 @@ from repro_torch.network import fabric as tf
 from repro_torch.network import workloads as tw
 from repro_torch.network.profile import TransportProfile
 from repro_torch.network.topology import leaf_spine
-from test_torch_cuda_faults import TICK_KERNELS, _walk
+from test_torch_cuda_faults import FOLDS_PER_TICK, TICK_KERNELS, _walk
 
 LANES = ("stat_completion", "stat_src_completion", "stat_win_delivered",
          "delivered_per_tick", "cwnd_per_tick", "rx_base_per_tick",
@@ -54,7 +55,8 @@ def _card_vs_cpu(run, enqueue_per_tick: int = 1) -> list:
             launches = dict(ops.LAUNCHES)
     ticks = max(r.horizon for r in runs["cuda"])
     for k in TICK_KERNELS:
-        want = ticks * (enqueue_per_tick if k == "enqueue_rank" else 1)
+        want = ticks * (enqueue_per_tick if k == "enqueue_rank"
+                        else FOLDS_PER_TICK.get(k, 1))
         assert launches[k] == want, (k, launches[k], want)
     for b, (r, c) in enumerate(zip(runs["cuda"], runs["cpu"])):
         assert r.horizon == c.horizon, b

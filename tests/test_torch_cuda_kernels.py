@@ -384,3 +384,78 @@ def test_enqueue_rank_kernel_matches_plain_on_card(cuda, kind, b, n, q, cap):
     want = ref.enqueue_rank_ref(target[0], valid[0], base[0], cap)
     assert all(_same_bits(g, w) for g, w in zip(got, want))
     assert ops.LAUNCHES["enqueue_rank"] == before + 2
+
+
+def _fold_lanes(kind, b, f, n, reps):
+    """(flow, masks, sums) of one ``flow_fold`` call, numpy: section 1's
+    (types none / ACK / NACK / OOO, flows in [0, F) with some -1 and >=
+    F, PSNs over the whole int32 range; the ACK and NACK masks, the ACK
+    lanes' PSN, ECN and timestamp sums, under REPS the clean ACKs' EVs)
+    or, for ``delivery``, section 5's (one mask, one PSN sum).
+    ``one_flow``: every lane ACKs and NACKs flow 7 (all atomics on one
+    address); ``no_lane``: no mask set anywhere; ``wrap``: PSNs near
+    2**31 - 1 on few flows, so the sums wrap."""
+    flow = RNG.integers(0, f, (b, n)).astype(np.int32)
+    out = RNG.random((b, n)) < 0.2
+    flow[out] = RNG.choice([-1, -9, f, f + 3, 2 ** 31 - 1], out.sum())
+    psn = RNG.integers(-2 ** 31, 2 ** 31, (b, n), dtype=np.int64).astype(
+        np.int32)
+    if kind == "delivery":
+        return flow, [RNG.random((b, n)) < 0.6], [(0, psn)]
+    et = RNG.integers(0, 4, (b, n))
+    ec = RNG.integers(0, 2, (b, n)).astype(np.int32)
+    ee = RNG.integers(0, 2 ** 16, (b, n)).astype(np.int32)
+    ets = RNG.integers(0, 5000, (b, n)).astype(np.int32)
+    if kind == "one_flow":
+        flow[:], et[:] = 7, 1
+    elif kind == "wrap":
+        flow %= 3
+        et[:] = 1
+        psn[:] = 2 ** 31 - 1 - RNG.integers(0, 4, (b, n))
+    is_ack, is_nack = et == 1, (et == 2) | (et == 3)
+    if kind == "one_flow":
+        is_nack[:] = True
+    elif kind == "no_lane":
+        is_ack[:], is_nack[:] = False, False
+    masks = [is_ack, is_nack]
+    sums = [(0, psn), (0, ec), (0, ets)]
+    if reps:
+        masks.append(is_ack & (ec == 0))
+        sums.append((2, ee))
+    return flow, masks, sums
+
+
+FOLD_SHAPES = [  # kind, B, F, lanes, REPS's clean-ACK fold
+    ("control", 8, 2048, 14336, False), ("control", 16, 2048, 14336, True),
+    ("delivery", 8, 2048, 5120, False), ("delivery", 16, 2048, 5120, False),
+    ("one_flow", 8, 2048, 14336, True), ("no_lane", 8, 2048, 14336, False),
+    ("control", 3, 37, 1001, True), ("delivery", 1, 1, 1, False),
+    ("wrap", 2, 16, 3000, False), ("global", 2, 16384, 3000, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,b,f,n,reps", FOLD_SHAPES, ids=str)
+def test_flow_fold_kernel_matches_plain_on_card(cuda, kind, b, f, n, reps):
+    """``flow_fold`` (counts, totals) against the plain composition, bit
+    for bit: the cells' shapes (B = 8 and 16, F = 2048, section 1's L =
+    14336 and section 5's L = 5120), every lane on one flow, no lane in
+    any mask, ragged and tiny lane counts, wrapping sums, and an F whose
+    counters do not fit shared memory (the zeroed output)."""
+    flow, masks, sums = _fold_lanes(kind, b, f, n, reps)
+    flow, masks = _t(flow, cuda), [_t(m, cuda) for m in masks]
+    sums = [(k, _t(v, cuda)) for k, v in sums]
+    fits = 4 * (len(masks) + len(sums)) * f <= ops._smem_optin(cuda)
+    assert fits == (kind != "global")
+    before = ops.LAUNCHES["flow_fold"]
+    got = ops.flow_fold_cuda(flow, f, masks, sums)
+    want = ref.flow_fold_ref(flow, f, masks, sums)
+    assert all(_same_bits(g, w) for g, w in zip(got, want))
+    if kind == "no_lane":
+        assert not bool(got[0].any()) and not bool(got[1].any())
+    got = ops.flow_fold(flow[0], f, [m[0] for m in masks],
+                        [(k, v[0]) for k, v in sums])
+    assert got[0].shape == (len(masks), f)
+    want = ref.flow_fold_ref(flow[0], f, [m[0] for m in masks],
+                             [(k, v[0]) for k, v in sums])
+    assert all(_same_bits(g, w) for g, w in zip(got, want))
+    assert ops.LAUNCHES["flow_fold"] == before + 2

@@ -5,7 +5,7 @@ stat lanes, state and every lane of the probe carry (each ring slot,
 the f32 EWMA included); and ``shard.run_sharded`` over a repeated card
 (B = 3: one padding lane) against the unsharded run on the card, with
 and without telemetry. Each tick kernel launches once per tick of each
-run. Every test is ``cuda``-marked and skips without a card.
+run (``flow_fold`` twice, for sections 1 and 5). Every test is ``cuda``-marked and skips without a card.
 
 This file imports neither JAX nor the reference package:
 
@@ -24,7 +24,7 @@ from repro_torch.network import workloads as tw
 from repro_torch.network.faults import FaultSchedule
 from repro_torch.network.profile import TransportProfile
 from repro_torch.network.telemetry import TelemetrySpec
-from test_torch_cuda_faults import TICK_KERNELS, _walk
+from test_torch_cuda_faults import FOLDS_PER_TICK, TICK_KERNELS, _walk
 
 LANES = ("stat_completion", "stat_src_completion", "stat_win_delivered")
 SPEC = TelemetrySpec.on(probe_every=8, slots=8)
@@ -69,7 +69,8 @@ def _same(a, b, what: str) -> None:
 def _launches_per_tick(ticks: int) -> None:
     torch.cuda.synchronize()
     for k in TICK_KERNELS:
-        assert ops.LAUNCHES[k] == ticks, (k, ops.LAUNCHES[k], ticks)
+        want = FOLDS_PER_TICK.get(k, 1) * ticks
+        assert ops.LAUNCHES[k] == want, (k, ops.LAUNCHES[k], want)
 
 
 @pytest.mark.cuda

@@ -282,3 +282,162 @@ def test_enqueue_rank_refuses_cpu_tensors_for_the_kernel():
     target, valid, base = map(_t, _enqueue_case("random", 2, 40, 5, 8))
     with pytest.raises(ValueError, match="CUDA tensor"):
         ops.enqueue_rank_cuda(target, valid, base, 8)
+
+
+# --------------------------------------------------- the per-flow folds --
+
+def _wrap32(a):
+    return ((np.asarray(a, np.int64) + 2 ** 31) % 2 ** 32 - 2 ** 31).astype(
+        np.int32)
+
+
+def _fold_loop(flow, f, masks, sums):
+    """The per-flow folds one lane at a time: for each scenario and lane
+    whose flow lies in [0, f), each set mask counts one for the flow, and
+    each (k, value) adds the value where mask k is set; sums wrap as
+    int32. Returns (counts [M, B, f], totals [S, B, f])."""
+    bsz, n = flow.shape
+    counts = np.zeros((len(masks), bsz, f), np.int64)
+    totals = np.zeros((len(sums), bsz, f), np.int64)
+    for b in range(bsz):
+        for i in range(n):
+            fl = int(flow[b, i])
+            if not 0 <= fl < f:
+                continue
+            for k, m in enumerate(masks):
+                counts[k, b, fl] += bool(m[b, i])
+            for j, (k, v) in enumerate(sums):
+                if masks[k][b, i]:
+                    totals[j, b, fl] += int(v[b, i])
+    return counts.astype(np.int32), _wrap32(totals)
+
+
+def _control_lanes(kind, bsz, f, n):
+    """Section 1's event lanes of one case as numpy arrays: types (none,
+    ACK, NACK, OOO), flows (in [0, f) and outside it), PSNs over the
+    whole int32 range, ECN bits, EVs and timestamps; then is_ack and
+    is_nack as the tick makes them. ``repeat``: several ACK and NACK
+    lanes on flows 0 and f - 1; ``out_of_range``: a third of the flows
+    -1 or >= f; ``src_dead``: the lanes of flows whose source host died
+    drop their ACKs and NACKs; ``wrap``: every ACK lane on flow 1 with a
+    PSN near 2**31 - 1, so its sums wrap."""
+    et = RNG.integers(0, 4, (bsz, n)).astype(np.int32)
+    ef = RNG.integers(0, f, (bsz, n)).astype(np.int32)
+    ep = RNG.integers(-2 ** 31, 2 ** 31, (bsz, n), dtype=np.int64).astype(
+        np.int32)
+    ec = RNG.integers(0, 2, (bsz, n)).astype(np.int32)
+    ee = RNG.integers(0, 2 ** 16, (bsz, n)).astype(np.int32)
+    ets = RNG.integers(0, 5000, (bsz, n)).astype(np.int32)
+    if kind == "repeat":
+        ef[:, :12] = [0, 0, 0, f - 1, f - 1, 0, f - 1, 0, 0, f - 1, 0, 0]
+        et[:, :12] = [1, 1, 2, 1, 3, 3, 2, 2, 1, 1, 2, 3]
+    elif kind == "out_of_range":
+        out = RNG.random((bsz, n)) < 0.33
+        ef[out] = RNG.choice([-1, -7, f, f + 5, 2 ** 31 - 1], out.sum())
+    elif kind == "wrap":
+        ef[:] = 1
+        et[:] = 1
+        ep[:] = 2 ** 31 - 1 - RNG.integers(0, 4, (bsz, n))
+        ets[:] = 2 ** 31 - 9
+    is_ack, is_nack = et == 1, (et == 2) | (et == 3)
+    if kind == "src_dead":
+        src_dead = RNG.random((bsz, f)) < 0.4
+        lane_dead = np.take_along_axis(src_dead, np.clip(ef, 0, f - 1), -1)
+        is_ack, is_nack = is_ack & ~lane_dead, is_nack & ~lane_dead
+    return dict(ef=ef, ep=ep, ec=ec, ee=ee, ets=ets, is_ack=is_ack,
+                is_nack=is_nack)
+
+
+def _section1_fold(lanes, reps):
+    """The fold section 1 asks for: the ACK and NACK counts; the ACK
+    lanes' PSN, ECN and timestamp sums; under REPS the clean ACK lanes'
+    count and EV sum."""
+    masks = [lanes["is_ack"], lanes["is_nack"]]
+    sums = [(0, lanes["ep"]), (0, lanes["ec"]), (0, lanes["ets"])]
+    if reps:
+        masks.append(lanes["is_ack"] & (lanes["ec"] == 0))
+        sums.append((2, lanes["ee"]))
+    return lanes["ef"], masks, sums
+
+
+FOLD_CASES = [  # kind, B, F, lanes
+    ("random", 1, 6, 40), ("random", 3, 9, 67), ("repeat", 1, 5, 30),
+    ("repeat", 3, 5, 30), ("out_of_range", 3, 7, 50),
+    ("src_dead", 1, 8, 45), ("src_dead", 3, 8, 45), ("wrap", 3, 4, 20),
+    ("delivery", 1, 6, 24), ("delivery", 3, 10, 33)]
+
+
+def _fold_operands(kind, bsz, f, n, reps):
+    """(flow, masks, sums) of one case, numpy: section 1's fold, or for
+    ``delivery`` section 5's (the data deliveries' count and PSN over the
+    queue heads, whose flows repeat: several heads carry one flow)."""
+    if kind == "delivery":
+        pf = RNG.integers(-1, f + 2, (bsz, n)).astype(np.int32)
+        ddata = RNG.random((bsz, n)) < 0.5
+        pp = RNG.integers(-2 ** 31, 2 ** 31, (bsz, n),
+                          dtype=np.int64).astype(np.int32)
+        return pf, [ddata], [(0, pp)]
+    return _section1_fold(_control_lanes(kind, bsz, f, n), reps)
+
+
+@pytest.mark.parametrize("reps", [False, True], ids=["ai_full", "reps"])
+@pytest.mark.parametrize("kind,bsz,f,n", FOLD_CASES, ids=str)
+def test_flow_fold_ref_matches_a_lane_loop(kind, bsz, f, n, reps):
+    """``flow_fold_ref`` (counts, totals) against the folds walked one
+    lane at a time: repeated ACK and NACK lanes on a flow, flows -1 and
+    >= F, dead sources' lanes, REPS's clean-ACK fold, section 5's form,
+    B = 1 and 3, sums that wrap int32."""
+    flow, masks, sums = _fold_operands(kind, bsz, f, n, reps)
+    got = ref.flow_fold_ref(_t(flow), f, [_t(m) for m in masks],
+                            [(k, _t(v)) for k, v in sums])
+    for g, w in zip(got, _fold_loop(flow, f, masks, sums)):
+        assert g.dtype == torch.int32
+        np.testing.assert_array_equal(g.numpy(), w)
+
+
+@pytest.mark.parametrize("kind,bsz,f,n", FOLD_CASES, ids=str)
+def test_flow_fold_on_cpu_is_the_tick_composition(kind, bsz, f, n):
+    """On CPU tensors ``ops.flow_fold`` gives what the tick's [B, F, L]
+    one-hots gave (sections 1 and 5 as they were written before the
+    fold): has_ack, the NACK count, the ACK lane's PSN, ECN and
+    timestamp, REPS's clean-ACK recycle inputs under a per-flow
+    ``flow_ok``, and the delivery's presence and PSN; no launch is
+    counted."""
+    from repro_torch.core.lb.schemes import _pick_lane
+    reps = kind != "delivery"
+    flow, masks, sums = _fold_operands(kind, bsz, f, n, reps)
+    flow, masks = _t(flow), [_t(m) for m in masks]
+    sums = [(k, _t(v)) for k, v in sums]
+    before = dict(ops.LAUNCHES)
+    counts, totals = ops.flow_fold(flow, f, masks, sums)
+    assert ops.LAUNCHES == before
+    flow_ids = torch.arange(f, dtype=torch.int32)
+    own = flow[:, None, :] == flow_ids[:, None]
+    if kind == "delivery":
+        hot_d = own & masks[0][:, None, :]
+        assert torch.equal(counts[0] > 0, hot_d.any(dim=-1))
+        assert torch.equal(totals[0], _pick_lane(hot_d, sums[0][1]))
+        return
+    is_ack, is_nack = masks[:2]
+    ep, ec, ets, ee = (v for _, v in sums)
+    hot_ack = own & is_ack[:, None, :]
+    hot_nack = own & is_nack[:, None, :]
+    assert torch.equal(counts[0] > 0, hot_ack.any(dim=-1))
+    assert torch.equal(counts[1], hot_nack.sum(dim=-1, dtype=torch.int32))
+    assert torch.equal(counts[1] > 0, hot_nack.any(dim=-1))
+    assert torch.equal(totals[0], _pick_lane(hot_ack, ep))
+    assert torch.equal(totals[1], _pick_lane(hot_ack, ec))
+    assert torch.equal(totals[2], _pick_lane(hot_ack, ets))
+    flow_ok = _t(RNG.random(f) < 0.6)
+    hot_clean = hot_ack & (ec[:, None, :] == 0) & flow_ok[:, None]
+    valid = (counts[2] > 0) & flow_ok
+    assert torch.equal(valid, hot_clean.any(dim=-1))
+    assert torch.equal(torch.where(valid, totals[3], 0),
+                       _pick_lane(hot_clean, ee))
+
+
+def test_flow_fold_refuses_cpu_tensors_for_the_kernel():
+    flow, masks, sums = _fold_operands("random", 2, 6, 40, False)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        ops.flow_fold_cuda(_t(flow), 6, [_t(m) for m in masks],
+                           [(k, _t(v)) for k, v in sums])

@@ -276,3 +276,48 @@ def test_lane_wise_reps_feedback_matches_the_reference(case, seed):
         one = jlb.on_ack(js, jlb.LBScheme.REPS, *(jnp.asarray(a) for a in d))
         _same(gb.reps_ring[b], one.reps_ring, f"ring {b}")
         _same(gb.reps_size[b], one.reps_size, f"size {b}")
+
+
+@pytest.mark.parametrize("ok", [False, True], ids=["all_flows", "flow_ok"])
+@pytest.mark.parametrize("bsz", [1, 3])
+@pytest.mark.parametrize("scheme", list(lb.LBScheme), ids=lambda s: s.name)
+def test_lb_on_ack_per_flow_is_the_dense_feedback(scheme, bsz, ok):
+    """``LBPolicy.on_ack_per_flow`` on ``ops.flow_fold``'s clean-ACK
+    count and EV sum (the lanes ``is_ack & (ec == 0)``) gives the state
+    that ``on_ack`` gives on the [B, F, E] ACK one-hot, for every scheme,
+    with repeated ACK lanes on a flow, flows -1 and >= F, at B = 1 and 3
+    and with and without a per-flow ``flow_ok`` (the mixed-ROD mask)."""
+    f, k, e = 64, 8, 200
+    st = lb.LBState.create(f, k, _t(RNG.integers(0, 2 ** 31, bsz)
+                                    .astype(np.int32)), torch.device("cpu"))
+    st = replace(st, reps_ring=_t(RNG.integers(-1, 2 ** 16, (bsz, f, k))
+                                  .astype(np.int32)),
+                 reps_head=_t(RNG.integers(0, 40, (bsz, f)).astype(np.int32)),
+                 reps_size=_t(RNG.integers(0, k + 1, (bsz, f))
+                              .astype(np.int32)),
+                 cong_bits=_t(RNG.random((bsz, f, k)) < 0.2))
+    ef = _t(RNG.integers(-2, f + 3, (bsz, e)).astype(np.int32))
+    et = RNG.integers(0, 4, (bsz, e))
+    ee = _t(RNG.integers(0, 2 ** 16, (bsz, e)).astype(np.int32))
+    # lanes that name a slot's own EV of their flow, so EVBITMAP marks
+    ef[:, :f] = torch.arange(f, dtype=torch.int32)
+    ee[:, :f] = st.ev_set[:, torch.arange(f), torch.arange(f) % k]
+    ec = _t(RNG.integers(0, 2, (bsz, e)).astype(np.int32))
+    is_ack, is_nack = _t(et == 1), _t((et == 2) | (et == 3))
+    flow_ok = _t(RNG.random(f) < 0.6) if ok else None
+    pol = lb.LBPolicy(scheme)
+    hot_ack = ((ef[:, None, :] == torch.arange(f, dtype=torch.int32)[:, None])
+               & is_ack[:, None, :])
+    want = pol.on_ack(st, hot_ack, ef, ee, ec, is_ack, is_nack,
+                      flow_ok=flow_ok)
+    (clean_n,), (clean_ev,) = ops.flow_fold(ef, f, (is_ack & (ec == 0),),
+                                            ((0, ee),))
+    got = pol.on_ack_per_flow(st, clean_n, clean_ev, ef, ee, ec, is_ack,
+                              is_nack, flow_ok=flow_ok)
+    for fld in fields(want):
+        assert torch.equal(getattr(got, fld.name), getattr(want, fld.name)), \
+            fld.name
+    if scheme in (lb.LBScheme.REPS, lb.LBScheme.EVBITMAP):
+        assert any(not torch.equal(getattr(want, fld.name),
+                                   getattr(st, fld.name))
+                   for fld in fields(want))

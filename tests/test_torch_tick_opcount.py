@@ -11,7 +11,9 @@ and the ECMP injection and routing walks (``ops.ecmp_inject`` /
 and ``ai_base`` 437 (537, 552 and 513 when those four ran as eager
 compositions). With the enqueue phase's ranks and counts one kernel
 (``ops.enqueue_rank``) in place of its [n, n] and [Q, n] one-hots, they
-count 394, 409 and 415.
+counted 394, 409 and 415; with the per-flow folds of sections 1 and 5
+one kernel each (``ops.flow_fold``) in place of their [F, E] and [F, Q]
+one-hots, 371, 387 and 392.
 """
 import importlib.util
 from pathlib import Path
@@ -51,11 +53,11 @@ def test_tick_op_count_stays_under_its_limit(profile, limit):
 
 def test_kernel_entries_are_paused_and_restored():
     """The count leaves out exactly the ``ops`` entry points it names,
-    the five tick forms among them, and puts them back."""
+    the six tick forms among them, and puts them back."""
     from repro_torch.kernels import ops
     oc = _opcount()
     for name in ("nscc_ack", "nscc_epoch", "ecmp_inject", "ecmp_route",
-                 "enqueue_rank"):
+                 "enqueue_rank", "flow_fold"):
         assert name in oc.KERNEL_ENTRIES
     before = {n: getattr(ops, n) for n in oc.KERNEL_ENTRIES}
     count = oc._Count()
